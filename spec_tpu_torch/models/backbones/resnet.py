@@ -1,0 +1,140 @@
+"""ResNet feature extractors (torch twin of
+``spec_tpu/models/backbones/resnet.py``).
+
+The torchvision ResNet graph (7x7/2 stem, 3x3/2 maxpool, four stages of
+basic or bottleneck blocks, stride on the 3x3 conv of each bottleneck)
+with torchvision's parameter names, so released checkpoints load with
+``load_state_dict``. NCHW inside; returns the pre-avgpool feature map
+(B, C_out, H/32, W/32). The JAX package's TPU-only space-to-depth stem
+is not carried over.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+
+
+def conv3x3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False)
+
+
+def conv1x1(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 1, stride=stride, bias=False)
+
+
+class BasicBlock(nn.Module):
+    """Two 3x3 convs; expansion 1 (ResNet-18/34)."""
+
+    expansion = 1
+
+    def __init__(self, cin: int, planes: int, stride: int = 1,
+                 downsample: Optional[nn.Module] = None):
+        super().__init__()
+        self.conv1 = conv3x3(cin, planes, stride)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.relu = nn.ReLU(inplace=True)
+        self.conv2 = conv3x3(planes, planes)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.downsample = downsample
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        y = self.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        return self.relu(y + identity)
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (stride) -> 1x1, expansion 4 (ResNet-50/101/152)."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, planes: int, stride: int = 1,
+                 downsample: Optional[nn.Module] = None):
+        super().__init__()
+        self.conv1 = conv1x1(cin, planes)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = conv3x3(planes, planes, stride)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv3 = conv1x1(planes, planes * 4)
+        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = downsample
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        y = self.relu(self.bn1(self.conv1(x)))
+        y = self.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return self.relu(y + identity)
+
+
+class ResNet(nn.Module):
+    """ResNet trunk returning the final NCHW feature map."""
+
+    def __init__(self, block, stage_sizes: Sequence[int]):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64)
+        self.relu = nn.ReLU(inplace=True)
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        cin = 64
+        for stage, num_blocks in enumerate(stage_sizes):
+            planes = 64 * 2 ** stage
+            stride = 1 if stage == 0 else 2
+            blocks = []
+            for blk in range(num_blocks):
+                s = stride if blk == 0 else 1
+                ds = None
+                if blk == 0 and (s != 1 or cin != planes * block.expansion):
+                    ds = nn.Sequential(
+                        conv1x1(cin, planes * block.expansion, s),
+                        nn.BatchNorm2d(planes * block.expansion))
+                blocks.append(block(cin, planes, s, ds))
+                cin = planes * block.expansion
+            self.add_module(f'layer{stage + 1}', nn.Sequential(*blocks))
+        self.out_channels = cin
+
+    def forward(self, x):
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = self.layer1(x)
+        x = self.layer2(x)
+        x = self.layer3(x)
+        return self.layer4(x)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """torchvision's init from an explicit generator: Kaiming-normal
+        (fan_out, relu) convs, BN scale 1 / shift 0."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                nn.init.kaiming_normal_(m.weight, mode='fan_out',
+                                        nonlinearity='relu',
+                                        generator=generator)
+            elif isinstance(m, nn.BatchNorm2d):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+
+
+_RESNETS = {
+    'resnet18': (BasicBlock, (2, 2, 2, 2)),
+    'resnet34': (BasicBlock, (3, 4, 6, 3)),
+    'resnet50': (Bottleneck, (3, 4, 6, 3)),
+    'resnet101': (Bottleneck, (3, 4, 23, 3)),
+    'resnet152': (Bottleneck, (3, 8, 36, 3)),
+}
+
+
+def get_backbone(backbone: str) -> ResNet:
+    """Instantiate a ResNet trunk by name (``resnet18`` ... ``resnet152``);
+    HRNet comes with a later port."""
+    name = backbone.split('-')[0]
+    if name not in _RESNETS:
+        raise NotImplementedError(
+            f'backbone {backbone!r} is not ported yet (ResNet-18..152 are; '
+            'HRNet is ROADMAP.md §1 item 10)')
+    block, stages = _RESNETS[name]
+    return ResNet(block, stages)

@@ -1,0 +1,197 @@
+"""Checkpoint IO for the port.
+
+* :func:`load_torch_state_dict`: the three reference torch dialects
+  (lightning ``.ckpt``, plain state_dict, legacy SPIN ``['model']``) ->
+  one flat {name: np.ndarray}; a copy of the JAX package's reader.
+* :func:`select_state_dict` / :func:`hmr_state_dict`: that flat dict ->
+  the state_dict of this package's modules (same names as the reference,
+  so this is mostly selecting keys; for HMR, SPIN's unprefixed head keys
+  and missing init buffers are handled as the JAX converter handles them).
+* :func:`state_dict_from_flax`: the weight bridge from the JAX package's
+  flax variables to this package's state_dicts (inverse of
+  ``convert_torch_{resnet,camcalib,hmr}_params``).
+* :func:`assets_from_jax`: the same bridge for ``SMPLAssets``.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+_HEAD_KEYS = ('fc1.', 'fc2.', 'decpose.', 'decshape.', 'deccam.', 'drop1.',
+              'drop2.', 'init_pose', 'init_shape', 'init_cam')
+
+
+def load_torch_state_dict(path: str) -> dict:
+    """Load any of the three torch dialects -> flat {name: np.ndarray},
+    with lightning ``model.`` prefixes stripped."""
+    blob = torch.load(path, map_location='cpu', weights_only=False)
+    if isinstance(blob, dict) and 'state_dict' in blob:
+        sd = blob['state_dict']          # lightning
+    elif isinstance(blob, dict) and 'model' in blob and not any(
+            hasattr(v, 'numpy') for v in list(blob.values())[:3]
+            if not isinstance(v, dict)):
+        sd = blob['model']               # legacy SPIN
+    else:
+        sd = blob                        # plain state_dict
+    out = {}
+    for k, v in sd.items():
+        if k.startswith('model.'):
+            k = k[len('model.'):]
+        try:
+            out[k] = v.detach().cpu().numpy()
+        except AttributeError:
+            out[k] = np.asarray(v)
+    return out
+
+
+def select_state_dict(sd: dict, model: torch.nn.Module) -> dict:
+    """Flat reference dict -> ``model``'s state_dict: keep the model's own
+    keys (extra checkpoint keys are ignored, as the JAX converters ignore
+    them); BN ``num_batches_tracked`` counters may be absent. Any other
+    missing key raises."""
+    out = {}
+    missing = []
+    for k, ref in model.state_dict().items():
+        if k in sd:
+            out[k] = torch.as_tensor(np.asarray(sd[k]), dtype=ref.dtype)
+        elif k.endswith('num_batches_tracked'):
+            out[k] = torch.zeros_like(ref)
+        else:
+            missing.append(k)
+    if missing:
+        raise KeyError(f'checkpoint lacks {len(missing)} parameter(s) of '
+                       f'{type(model).__name__}, e.g. {missing[:3]}')
+    return out
+
+
+def hmr_state_dict(sd: dict, model: torch.nn.Module,
+                   mean_params: dict = None) -> dict:
+    """Flat reference SPEC/HMR dict (lightning, PARE or SPIN dialect) ->
+    ``model``'s state_dict. Checkpoints without the init buffers get
+    them from ``mean_params`` (default: identity mean params)."""
+    from spec_tpu_torch.models.heads.hmr_head import default_init_params
+
+    if not any(k.startswith(('backbone.', 'head.')) for k in sd):
+        sd = {(('head.' if k.startswith(_HEAD_KEYS) else 'backbone.') + k): v
+              for k, v in sd.items()}
+    fallback = mean_params or default_init_params()
+    sd = dict(sd)
+    for buf in ('init_pose', 'init_shape', 'init_cam'):
+        sd.setdefault(f'head.{buf}', fallback[buf])
+    return select_state_dict(sd, model)
+
+
+# ---------------------------------------------------------------------------
+# flax variables -> torch state_dict
+# ---------------------------------------------------------------------------
+
+
+def _resnet_state_dict(params: dict, stats: dict, arch: str,
+                       prefix: str) -> 'OrderedDict[str, torch.Tensor]':
+    from spec_tpu_torch.models.backbones.resnet import _RESNETS, Bottleneck
+
+    block, stage_sizes = _RESNETS[arch.split('-')[0]]
+    n_convs = 3 if block is Bottleneck else 2
+    out: 'OrderedDict[str, torch.Tensor]' = OrderedDict()
+
+    def t(x):
+        return torch.from_numpy(np.array(x, np.float32, order='C'))
+
+    def conv(torch_name, node):
+        # flax HWIO -> torch OIHW
+        out[f'{prefix}{torch_name}.weight'] = t(
+            np.transpose(np.asarray(node['conv']['kernel']), (3, 2, 0, 1)))
+
+    def bn(torch_name, p, s):
+        out[f'{prefix}{torch_name}.weight'] = t(p['scale'])
+        out[f'{prefix}{torch_name}.bias'] = t(p['bias'])
+        out[f'{prefix}{torch_name}.running_mean'] = t(s['mean'])
+        out[f'{prefix}{torch_name}.running_var'] = t(s['var'])
+        out[f'{prefix}{torch_name}.num_batches_tracked'] = torch.tensor(0)
+
+    conv('conv1', params['conv1'])
+    bn('bn1', params['bn1'], stats['bn1'])
+    for stage, num_blocks in enumerate(stage_sizes):
+        for blk in range(num_blocks):
+            tn, fn = f'layer{stage + 1}.{blk}', f'layer{stage + 1}_{blk}'
+            p, s = params[fn], stats[fn]
+            for ci in range(1, n_convs + 1):
+                conv(f'{tn}.conv{ci}', p[f'conv{ci}'])
+                bn(f'{tn}.bn{ci}', p[f'bn{ci}'], s[f'bn{ci}'])
+            if 'downsample_conv' in p:
+                conv(f'{tn}.downsample.0', p['downsample_conv'])
+                bn(f'{tn}.downsample.1', p['downsample_bn'],
+                   s['downsample_bn'])
+    return out
+
+
+def _dense(out: dict, torch_name: str, node: dict) -> None:
+    """flax Dense (kernel (in, out)) -> torch Linear (weight (out, in))."""
+    out[f'{torch_name}.weight'] = torch.from_numpy(
+        np.array(np.asarray(node['kernel'], np.float32).T, order='C'))
+    out[f'{torch_name}.bias'] = torch.from_numpy(
+        np.asarray(node['bias'], np.float32).copy())
+
+
+def state_dict_from_flax(variables: dict, kind: str,
+                         backbone: str = 'resnet50'
+                         ) -> 'OrderedDict[str, torch.Tensor]':
+    """JAX package variables ({'params', 'batch_stats'}, numpy or jax
+    arrays) -> this package's state_dict.
+
+    kind: 'resnet' (a bare trunk, for
+    :class:`~spec_tpu_torch.models.backbones.resnet.ResNet`), 'camcalib'
+    (:class:`~spec_tpu_torch.models.camcalib.CameraRegressorNetwork`) or
+    'hmr' (:class:`~spec_tpu_torch.models.hmr.HMR`).
+    """
+    params, stats = variables['params'], variables['batch_stats']
+    if kind == 'resnet':
+        return _resnet_state_dict(params, stats, backbone, '')
+    if kind not in ('camcalib', 'hmr'):
+        raise ValueError(f"unknown kind {kind!r}; use 'resnet', 'camcalib' "
+                         "or 'hmr'")
+    out = _resnet_state_dict(params['ResNet_0'], stats['ResNet_0'],
+                             backbone, 'backbone.')
+    if kind == 'camcalib':
+        for head in ('fc_vfov', 'fc_pitch', 'fc_roll'):
+            n = sum(1 for k in params if k.startswith(f'{head}_'))
+            for i in range(n):
+                _dense(out, head if n == 1 else f'{head}.{i}',
+                       params[f'{head}_{i}'])
+        return out
+    hp = params['head']
+    for name in ('init_pose', 'init_shape', 'init_cam'):
+        out[f'head.{name}'] = torch.from_numpy(
+            np.asarray(hp[name], np.float32).copy())
+    for name in ('fc1', 'fc2', 'decpose', 'decshape', 'deccam'):
+        _dense(out, f'head.{name}', hp[name])
+    return out
+
+
+def assets_from_jax(assets):
+    """``spec_tpu.core.smpl.SMPLAssets`` -> this package's SMPLAssets on
+    the CPU. Packed kernel operands are not carried over: attach them
+    with :func:`spec_tpu_torch.core.smpl.with_packed_lbs`."""
+    from spec_tpu_torch.core.smpl import SMPLAssets
+
+    def t(x, dtype=np.float32):
+        return None if x is None else torch.from_numpy(
+            np.array(x, dtype=dtype))
+
+    return SMPLAssets(
+        v_template=t(assets.v_template),
+        shapedirs=t(assets.shapedirs),
+        posedirs=t(assets.posedirs),
+        j_regressor=t(assets.j_regressor),
+        lbs_weights=t(assets.lbs_weights),
+        parents=tuple(int(p) for p in assets.parents),
+        faces=t(assets.faces, np.int32),
+        extra_vertex_ids=(None if assets.extra_vertex_ids is None
+                          else tuple(int(i) for i in
+                                     assets.extra_vertex_ids)),
+        j_regressor_extra=t(assets.j_regressor_extra),
+        j_regressor_h36m=t(assets.j_regressor_h36m),
+    )

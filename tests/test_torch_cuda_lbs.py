@@ -1,0 +1,82 @@
+"""The fused LBS CUDA kernel against its plain PyTorch version, on a card.
+
+Marked ``cuda``; skips without a GPU. It imports no JAX, so it also runs
+where JAX is not installed, without the suite's conftest:
+
+    python -m pytest tests/test_torch_cuda_lbs.py -m cuda --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from spec_tpu_torch.core import smpl as S
+from spec_tpu_torch.core.geometry import rodrigues
+from spec_tpu_torch.ops import lbs as L
+
+BUDGET = 1e-5   # m: exact fp32 on both sides, only the summation order differs
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the CUDA kernel has no CPU mode)')
+    return torch.device('cuda')
+
+
+def _operands(V, B, seed, device):
+    assets = S.create_test_assets(num_vertices=V).to(device)
+    packed = L.pack_lbs_operands(assets).to(device)
+    rng = np.random.RandomState(seed)
+    betas = torch.from_numpy(rng.randn(B, 10).astype('f4') * 0.5).to(device)
+    rot = rodrigues(torch.from_numpy(
+        rng.randn(B, 24, 3).astype('f4') * 0.4).to(device))
+    joints_rest = packed.joints_template[None] + (
+        betas @ packed.shapedirs_j).reshape(B, 24, 3)
+    world = S._rigid_transform_chain(rot, joints_rest, assets.parents)
+    rel_tf = S._rest_corrected(world, joints_rest)[..., :3, :].contiguous()
+    return packed, L.lbs_coeffs(betas, rot), rel_tf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,V', [(1, 6890), (3, 6890), (8, 6890),
+                                 (32, 6890), (40, 6890), (5, 333)])
+def test_kernel_matches_plain(cuda_device, B, V):
+    packed, coeffs, rel_tf = _operands(V, B, seed=B, device=cuda_device)
+    before = L.LAUNCHES
+    out = L.fused_lbs_vertices(packed, coeffs, rel_tf)
+    torch.cuda.synchronize()
+    assert L.LAUNCHES == before + 1
+    ref = L.fused_lbs_vertices_plain(packed, coeffs, rel_tf)
+    assert out.shape == (B, V, 3)
+    assert (out - ref).abs().max().item() <= BUDGET
+
+
+@pytest.mark.cuda
+def test_smpl_forward_fused_on_card_matches_cpu(cuda_device):
+    rng = np.random.RandomState(0)
+    betas = rng.randn(4, 10).astype('f4')
+    body = rng.randn(4, 23, 3).astype('f4') * 0.3
+    glob = rng.randn(4, 1, 3).astype('f4') * 0.3
+    cpu = S.smpl_forward(S.create_test_assets(), torch.from_numpy(betas),
+                         torch.from_numpy(body), torch.from_numpy(glob),
+                         joint_set='spin49')
+    gpu_assets = S.with_packed_lbs(S.create_test_assets().to(cuda_device))
+    before = L.LAUNCHES
+    gpu = S.smpl_forward(gpu_assets, *(torch.from_numpy(a).to(cuda_device)
+                                       for a in (betas, body, glob)),
+                         joint_set='spin49')
+    assert L.LAUNCHES == before + 1
+    np.testing.assert_allclose(gpu.vertices.cpu().numpy(),
+                               cpu.vertices.numpy(), atol=BUDGET)
+    np.testing.assert_allclose(gpu.joints.cpu().numpy(), cpu.joints.numpy(),
+                               atol=BUDGET)
+
+
+@pytest.mark.cuda
+def test_mixed_devices_raise_before_launch(cuda_device):
+    packed, coeffs, rel_tf = _operands(100, 2, seed=0, device=cuda_device)
+    before = L.LAUNCHES
+    with pytest.raises(ValueError, match='is on'):
+        L.fused_lbs_vertices(packed, coeffs, rel_tf.cpu())
+    assert L.LAUNCHES == before

@@ -1,0 +1,127 @@
+"""spec_tpu_torch.ops.lbs (the fused LBS kernel's wrapper, its plain
+twin and the operand packing) vs spec_tpu.ops.pallas.lbs.
+
+On the CPU the wrapper runs the plain version; the JAX side runs the
+Pallas kernel in interpret mode and the plain jnp ``lbs``. Budget: 1e-5 m
+(the Pallas kernel's own budget, tests/test_pallas_lbs.py). The CUDA
+kernel itself is compared with the plain version on a card by
+tests/test_torch_cuda_lbs.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spec_tpu.core import smpl as JS
+from spec_tpu.core.geometry import rodrigues
+from spec_tpu.ops.pallas import lbs as JL
+from spec_tpu_torch.core import smpl as TS
+from spec_tpu_torch.ops import lbs as TL
+
+
+def _inputs(rng, B, V):
+    assets = JS.create_test_assets(num_vertices=V)
+    betas = rng.randn(B, 10).astype('f4') * 0.3
+    rotmats = np.array(rodrigues(jnp.asarray(
+        rng.randn(B, 24, 3).astype('f4') * 0.3)))
+    return assets, betas, rotmats
+
+
+def _kernel_operands(assets, betas, rotmats):
+    """coeffs (B, 218) and rest-corrected rel_tf (B, 24, 3, 4), built by
+    the JAX package: the exact inputs of its fused_lbs_vertices."""
+    packed = JL.pack_lbs_operands(assets)
+    jb, jr = jnp.asarray(betas), jnp.asarray(rotmats)
+    B = betas.shape[0]
+    joints_rest = packed.joints_template[None] + (
+        jb @ packed.shapedirs_j).reshape(B, 24, 3)
+    world = JS._rigid_transform_chain(jr, joints_rest, assets.parents)
+    corr = jnp.einsum('bjxy,bjy->bjx', world[..., :3, :3], joints_rest)
+    rel_tf = world.at[..., :3, 3].add(-corr)[..., :3, :]
+    return packed, np.array(JL.lbs_coeffs(jb, jr)), np.array(rel_tf)
+
+
+def test_pack_lbs_operands_equal():
+    assets = JS.create_test_assets(num_vertices=333)
+    ref = JL.pack_lbs_operands(assets)
+    port = TL.pack_lbs_operands(TS.create_test_assets(num_vertices=333))
+    assert port.num_vertices == ref.num_vertices == 333
+    for name in ('dirs', 'weights_t', 'joints_template', 'shapedirs_j'):
+        np.testing.assert_array_equal(getattr(port, name).numpy(),
+                                      np.asarray(getattr(ref, name)),
+                                      err_msg=name)
+
+
+def test_lbs_coeffs_equal(rng):
+    _, betas, rotmats = _inputs(rng, 3, 64)
+    np.testing.assert_allclose(
+        TL.lbs_coeffs(torch.from_numpy(betas), torch.from_numpy(rotmats)),
+        np.asarray(JL.lbs_coeffs(jnp.asarray(betas), jnp.asarray(rotmats))),
+        atol=0)
+
+
+@pytest.mark.parametrize('B,V', [(4, 640), (3, 333), (2, 6890)])
+def test_fused_vertices_match_jax(rng, B, V):
+    assets, betas, rotmats = _inputs(rng, B, V)
+    packed_j, coeffs, rel_tf = _kernel_operands(assets, betas, rotmats)
+    ref_kernel = np.asarray(JL.fused_lbs_vertices(
+        packed_j, jnp.asarray(coeffs), jnp.asarray(rel_tf), interpret=True))
+    ref_plain = np.asarray(JS.lbs(assets, jnp.asarray(betas),
+                                  jnp.asarray(rotmats))[0])
+
+    before = TL.LAUNCHES
+    port = TL.fused_lbs_vertices(
+        TL.pack_lbs_operands(TS.create_test_assets(num_vertices=V)),
+        torch.from_numpy(coeffs), torch.from_numpy(rel_tf)).numpy()
+    assert port.shape == (B, V, 3)
+    np.testing.assert_allclose(port, ref_kernel, atol=1e-5)
+    np.testing.assert_allclose(port, ref_plain, atol=1e-5)
+    assert TL.LAUNCHES == before == 0   # CPU tensors never launch
+
+
+def _valid_operands(rng, B=2, V=100):
+    assets, betas, rotmats = _inputs(rng, B, V)
+    _, coeffs, rel_tf = _kernel_operands(assets, betas, rotmats)
+    packed = TL.pack_lbs_operands(TS.create_test_assets(num_vertices=V))
+    return packed, torch.from_numpy(coeffs), torch.from_numpy(rel_tf)
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.bfloat16])
+def test_wrong_dtype_raises(rng, dtype):
+    packed, coeffs, rel_tf = _valid_operands(rng)
+    before = TL.LAUNCHES
+    with pytest.raises(TypeError, match='coeffs must be float32'):
+        TL.fused_lbs_vertices(packed, coeffs.to(dtype), rel_tf)
+    with pytest.raises(TypeError, match='rel_tf must be float32'):
+        TL.fused_lbs_vertices(packed, coeffs, rel_tf.to(dtype))
+    assert TL.LAUNCHES == before
+
+
+@pytest.mark.parametrize('bad', ['coeffs_width', 'rel_tf_shape',
+                                 'batch_mismatch', 'noncontiguous'])
+def test_wrong_shape_or_layout_raises(rng, bad):
+    packed, coeffs, rel_tf = _valid_operands(rng)
+    before = TL.LAUNCHES
+    if bad == 'coeffs_width':
+        coeffs = coeffs[:, :-1].contiguous()
+    elif bad == 'rel_tf_shape':
+        rel_tf = torch.zeros(2, 24, 4, 4)
+    elif bad == 'batch_mismatch':
+        rel_tf = rel_tf[:1].contiguous()
+    else:
+        rel_tf = rel_tf.transpose(-1, -2).contiguous().transpose(-1, -2)
+    with pytest.raises(ValueError):
+        TL.fused_lbs_vertices(packed, coeffs, rel_tf)
+    assert TL.LAUNCHES == before
+
+
+def test_plain_version_is_differentiable_kernel_backward_raises(rng):
+    """The plain (CPU) path keeps autograd; the kernel's autograd
+    Function refuses a backward until the training port adds one."""
+    packed, coeffs, rel_tf = _valid_operands(rng)
+    coeffs.requires_grad_(True)
+    TL.fused_lbs_vertices(packed, coeffs, rel_tf).sum().backward()
+    assert coeffs.grad is not None and torch.isfinite(coeffs.grad).all()
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        TL._FusedLBS.backward(None, torch.zeros(1))
