@@ -17,6 +17,10 @@ printing its own results; any failure raises and exits nonzero:
 5. the same small predictor on the card and on the CPU must agree;
 6. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
 
+``python3 chip_smoke.py --profile`` runs phases 1-2 and then, instead of
+the rest, profiles phase 4's predictor (wall medians per stage, device
+busy time, idle share and the top device operations, fp32 and bf16).
+
 Needs no network and no files beyond the checkout; builds go to
 ``build/spec_tpu_torch/``.
 """
@@ -36,6 +40,7 @@ LBS_BATCHES = (1, 3, 8, 32)
 LBS_BUDGET = 1e-5          # m, the fused kernel's budget vs fp32
 FRAME_HW = (720, 1280)
 PERSONS_PER_FRAME = (1, 2, 3, 2)
+BATCH_SIZE = 32
 
 
 def _time_ms(fn, n=50, warmup=5, flush=None):
@@ -181,21 +186,27 @@ def _check_results(results, n_persons):
                 raise RuntimeError(f'non-finite values in {k}')
 
 
+def _full_width_predictor(dtype):
+    """The two-stage predictor at full ResNet-50 width on the card."""
+    from spec_tpu_torch.serving import SpecPredictor
+
+    return SpecPredictor(
+        device='cuda', backbone='resnet50', camcalib_backbone='resnet50',
+        use_cam_feats=True, img_res=224, min_size=600,
+        batch_size=BATCH_SIZE, dtype=dtype)
+
+
 def phase_predictor():
     import numpy as np
     import torch
 
     from spec_tpu_torch.ops import lbs as L
-    from spec_tpu_torch.serving import SpecPredictor
 
     frames, boxes = _frames_and_boxes(4, PERSONS_PER_FRAME, seed=0)
     n_persons = sum(len(b) for b in boxes)
     out = {'persons': n_persons}
     for tag, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
-        pred = SpecPredictor(
-            device='cuda', backbone='resnet50', camcalib_backbone='resnet50',
-            use_cam_feats=True, img_res=224, min_size=600, batch_size=32,
-            dtype=dtype)
+        pred = _full_width_predictor(dtype)
         L.LAUNCHES = 0
         results = pred.predict(frames, boxes)          # warm-up
         times = []
@@ -241,6 +252,74 @@ def phase_predictor():
     print(f'[predict] bf16 vs fp32 max |vertex diff| {dv:.3e} m '
           '(random weights)')
     return out
+
+
+def _wall_ms(fn, n):
+    """Median host-clock ms of ``fn()`` over ``n`` calls, each bracketed
+    by device synchronization, after one warm-up call."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_profile(n_wall=10, n_prof=3, top=8):
+    """Where the time of one ``predict`` call goes, at phase 4's input, in
+    fp32 and bf16. Per dtype, prints the wall medians of the call, of
+    stage 1 alone (``estimate_cameras``) and of stage 2 alone (``predict``
+    with the cameras given); then, from torch.profiler over ``n_prof``
+    calls, the device busy time per call (union of the kernel and copy
+    intervals), the device operations per call, the idle share
+    (1 - busy per call / unprofiled call median) and the ``top`` device
+    operations by time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    frames, boxes = _frames_and_boxes(4, PERSONS_PER_FRAME, seed=0)
+    for tag, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
+        pred = _full_width_predictor(dtype)
+        cams = pred.estimate_cameras(frames)
+        call = _wall_ms(lambda: pred.predict(frames, boxes), n_wall)
+        stage1 = _wall_ms(lambda: pred.estimate_cameras(frames), n_wall)
+        stage2 = _wall_ms(lambda: pred.predict(frames, boxes, cameras=cams),
+                          n_wall)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_prof):
+                pred.predict(frames, boxes)
+            torch.cuda.synchronize()
+        dev = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        if not dev:
+            raise RuntimeError('the profiler saw no device operations')
+        busy_us, end = 0.0, float('-inf')
+        by_name: dict = {}
+        for e in dev:
+            s, t = e.time_range.start, e.time_range.end
+            busy_us += max(0.0, t - max(s, end))
+            end = max(end, t)
+            by_name[e.name] = by_name.get(e.name, 0.0) + (t - s)
+        busy = busy_us / 1e3 / n_prof
+        print(f'[profile {tag}] predict median of {n_wall} {call:.3f} ms; '
+              f'stage 1 alone {stage1:.3f} ms; stage 2 alone {stage2:.3f} '
+              f'ms; device busy {busy:.3f} ms per call; '
+              f'{len(dev) / n_prof:.0f} device ops per call; idle share '
+              f'{1.0 - busy / call:.3f}')
+        total = sum(by_name.values())
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+            print(f'[profile {tag}]   {us / 1e3 / n_prof:8.3f} ms per call '
+                  f'({us / total:6.1%})  {name[:110]}')
+        del pred
+        torch.cuda.empty_cache()
 
 
 def phase_card_vs_cpu():
@@ -303,7 +382,14 @@ def main() -> int:
 
     phase_device()
     phase_build()
-    main_batch = 8     # sum(PERSONS_PER_FRAME) padded to a power of two
+    if '--profile' in sys.argv[1:]:
+        phase_profile()
+        return 0
+    from spec_tpu_torch.utils.batching import pad_pow2
+
+    # The SMPL batch predict launches K1 with: one padded stage-2 chunk.
+    main_batch = pad_pow2(min(sum(PERSONS_PER_FRAME), BATCH_SIZE),
+                          BATCH_SIZE)
     lbs_rows = phase_lbs(main_batch)
     pred = phase_predictor()
     phase_card_vs_cpu()

@@ -33,7 +33,6 @@ from spec_tpu_torch.models.camcalib import CameraRegressorNetwork
 from spec_tpu_torch.models.hmr import HMR
 from spec_tpu_torch.ops.preprocess import (
     crop_resize_normalize,
-    normalize_image,
     normalize_u8,
     resize_min_side,
     spin_crop_corners,
@@ -98,12 +97,16 @@ class SpecPredictor:
 
     Arguments are those of ``spec_tpu.serving.SpecPredictor``, plus
     ``device``. ``dtype`` is the backbone/head-FC compute dtype
-    (``torch.float32`` or ``torch.bfloat16``; None = float32).
-    ``use_fused_lbs`` defaults to "the device is CUDA": SMPL vertices
-    then go through the fused LBS kernel. Missing checkpoints give a
-    random init from fixed seeds, with a warning (smoke tests only).
-    ``cfg_file``, ``data_parallel``, ``spatial_parallel`` and
-    ``detector='yolo'`` are not ported yet and raise.
+    (``torch.float32`` or ``torch.bfloat16``; None = float32). SMPL
+    vertices always go through ``ops.lbs.fused_lbs_vertices``, which
+    launches the CUDA kernel on a GPU and runs its plain version on the
+    CPU, so ``use_fused_lbs=False`` raises. ``uint8_crops=True`` raises
+    too: it shrinks the reference's host-to-device crop upload, and here
+    crops are cut on the device from the frame already uploaded. Missing
+    checkpoints give a random init from fixed seeds, with a warning
+    (smoke tests only). ``cfg_file``, ``data_parallel``,
+    ``spatial_parallel`` and ``detector='yolo'`` are not ported yet and
+    raise.
     """
 
     max_streams = 256  # LRU cap on retained named camcalib_every streams
@@ -151,25 +154,30 @@ class SpecPredictor:
             raise NotImplementedError(
                 'data_parallel/spatial_parallel are not ported yet '
                 '(multi-device layouts, ROADMAP.md §1 item 12)')
+        if use_fused_lbs is False:
+            raise ValueError(
+                'use_fused_lbs=False has no counterpart in the port: SMPL '
+                'vertices always go through fused_lbs_vertices (the CUDA '
+                'kernel on a GPU, its plain version on the CPU)')
+        if uint8_crops:
+            raise ValueError(
+                'uint8_crops=True has no counterpart in the port: crops '
+                'are cut on the device from the uploaded frame, so there '
+                'is no crop upload to shrink')
 
         self.device = torch.device(device)
         self.img_res = img_res
         self.batch_size = batch_size
         self.min_size = min_size
         self.loss_type = loss_type
-        self.uint8_crops = bool(uint8_crops)
         self.camcalib_every = max(1, int(camcalib_every))
         self.cut_threshold = float(cut_threshold)
         self._cam_streams: Optional[OrderedDict] = None
         dtype = dtype or torch.float32
 
-        assets = S.load_assets_or_test(smpl_model_dir, tag='serving')
-        assets = assets.to(self.device)
-        if use_fused_lbs is None:
-            use_fused_lbs = self.device.type == 'cuda'
-        if use_fused_lbs:
-            assets = S.with_packed_lbs(assets)
-        self.assets = assets
+        self.assets = S.with_packed_lbs(
+            S.load_assets_or_test(smpl_model_dir, tag='serving').to(
+                self.device))
 
         # Stage 1.
         self.camcalib = CameraRegressorNetwork(
@@ -413,8 +421,7 @@ class SpecPredictor:
 
     def _crops(self, chunk, frames_dev, f32_frames) -> torch.Tensor:
         """SPIN crops of one chunk, on the device, normalized (B, res,
-        res, 3). With ``uint8_crops`` the crop is first quantized to
-        uint8, as the JAX predictor's uint8 upload path does."""
+        res, 3)."""
         by_frame: Dict[int, list] = defaultdict(list)
         for ci, c in enumerate(chunk):
             by_frame[c[0]].append(ci)
@@ -424,14 +431,9 @@ class SpecPredictor:
                 f32_frames[fi] = frames_dev[fi].float()
             frame = f32_frames[fi]
             corners = torch.from_numpy(np.stack([chunk[ci][7] for ci in cis]))
-            raw = crop_resize_normalize(
+            v = crop_resize_normalize(
                 frame[None].expand(len(cis), *frame.shape), corners,
-                res=self.img_res, normalize=False)
-            if self.uint8_crops:
-                v = normalize_u8((raw * 255.0 + 0.5).clamp(0, 255)
-                                 .to(torch.uint8))
-            else:
-                v = normalize_image(raw)
+                res=self.img_res)
             for k, ci in enumerate(cis):
                 crops[ci] = v[k]
         return torch.stack(crops)

@@ -109,10 +109,16 @@ def _assert_people_close(res_port, res_jax):
 
 
 def test_predict_matches_jax_predictor(predictors):
+    from spec_tpu_torch.ops import lbs as L
+
     jax_pred, port_pred = predictors
     frames = _frames(11, 3)
     res_j, cams_j = jax_pred.predict(frames, BOXES, return_cameras=True)
+    launches = L.LAUNCHES
     res_p, cams_p = port_pred.predict(frames, BOXES, return_cameras=True)
+    # SMPL went through the fused-LBS wrapper, on the CPU its plain version.
+    assert port_pred.assets.packed_lbs is not None
+    assert L.LAUNCHES == launches
     assert [len(r) for r in res_p] == [0, 1, 3]
     _assert_cameras_close(cams_p, cams_j)
     _assert_cameras_close(port_pred.estimate_cameras(frames), cams_j)
@@ -175,6 +181,8 @@ def test_camcalib_every_stream_matches_jax(predictors):
     (dict(detector='yolo'), NotImplementedError),
     (dict(cfg_file='spec.yaml'), NotImplementedError),
     (dict(detector='ssd'), ValueError),
+    (dict(use_fused_lbs=False), ValueError),
+    (dict(uint8_crops=True), ValueError),
 ])
 def test_unported_options_raise(kwargs, err):
     from spec_tpu_torch.serving import SpecPredictor
