@@ -6,20 +6,40 @@ printing its own results; any failure raises and exits nonzero:
 
 1. device: CUDA must be available (there is no CPU fallback); prints the
    card's name and power limit as nvidia-smi reports them;
-2. build: compiles the fused LBS kernel from ``spec_tpu_torch/csrc/``;
-3. the kernel against its plain PyTorch version on the card (synthetic
-   SMPL, V = 6890, several batch sizes, 1e-5 m budget), timed with CUDA
-   events;
-4. the full two-stage SpecPredictor at full ResNet-50 width (random
-   weights from fixed seeds, synthetic SMPL) on 720x1280 frames, in fp32
-   and bf16, plus a camcalib_every=3 stream; checks shapes, finiteness
-   and that the predictor went through the kernel;
-5. the same small predictor on the card and on the CPU must agree;
-6. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
+2. build: compiles the three kernels of ``spec_tpu_torch/csrc/`` (K1
+   ``lbs``, K3 ``bottleneck``, K2 ``projection``), one ``nvcc`` each,
+   all started together;
+3. K3 against its plain version at every ResNet-50 stage's identity-block
+   shape on 16 frames of 512x672 (one block each) and at an odd H and W
+   (a chain of 3), in fp32 and bf16, timed beside the port's unfused
+   cuDNN ``Bottleneck`` module at the same shape;
+4. the two-stage SpecPredictor at full ResNet-50 width (random weights
+   from fixed seeds, synthetic SMPL) on 720x1280 frames, in fp32 and
+   bf16, plus a camcalib_every=3 stream; checks shapes, finiteness and
+   that the predictor went through K1;
+5. the e2e pipeline (``spec_tpu_torch.pipeline.build_pipeline``) at full
+   ResNet-50 width on 16 frames of 512x672, one person each, in bf16 and
+   fp32, with the module stage-1 trunk and the folded-BN fused trunk:
+   shapes, finiteness, K3 and K1 launch counts, wall ms per call; each
+   trunk's feature map held to the fp32 module trunk's (relative L2
+   error), fused vs module angles in fp32, the angles' spread over the
+   frames;
+6. K1 against its plain PyTorch version on the card (synthetic SMPL,
+   V = 6890, 1e-5 m budget) at several batch sizes, among them the
+   batches phases 4 and 5 gave it, timed with CUDA events;
+7. K2 projects the fp32 fused pipeline's meshes (16 x 6890 vertices) with
+   its cameras, against its plain version and
+   ``geometry.perspective_projection`` (0.01 px budget), timed;
+8. small models on the card and on the CPU must agree: the predictor
+   (ResNet-18) and the pipelines (ResNet-50, 64x96 frames; both trunks
+   in fp32 and the fused trunk in bf16, where the CPU runs K3's plain
+   version);
+9. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then, instead of
 the rest, profiles phase 4's predictor (wall medians per stage, device
-busy time, idle share and the top device operations, fp32 and bf16).
+busy time, idle share and the top device operations, fp32 and bf16) and
+phase 5's pipeline with each stage-1 trunk.
 
 Needs no network and no files beyond the checkout; builds go to
 ``build/spec_tpu_torch/``.
@@ -41,6 +61,26 @@ LBS_BUDGET = 1e-5          # m, the fused kernel's budget vs fp32
 FRAME_HW = (720, 1280)
 PERSONS_PER_FRAME = (1, 2, 3, 2)
 BATCH_SIZE = 32
+KERNELS = ('lbs', 'bottleneck', 'projection')
+# The pipeline's input: bench.py's default stage-1 bucket, 16 frames.
+PIPE_FRAMES, PIPE_HW = 16, (512, 672)
+# ResNet-50 identity blocks on PIPE_HW: (H, W, C, M, blocks in the stage).
+RESNET50_STAGES = ((128, 168, 256, 64, 2), (64, 84, 512, 128, 3),
+                   (32, 42, 1024, 256, 5), (16, 21, 2048, 512, 2))
+ODD_SHAPE = (2, 13, 11, 256, 64, 3)       # B, H, W, C, M, chain length
+# K3 budgets, relative to max(1, max |plain|): exact fp32 on both sides;
+# bf16 about two bf16 steps at the largest value (sums that land near a
+# rounding boundary of h1, h2 or y round the other way on one side).
+K3_BUDGET = {'fp32': 1e-4, 'bf16': 2.0 ** -6}
+K2_BUDGET = 1e-2           # px (TPU_CHECKS_r05.json)
+# Fused vs module stage-1 angles (rad) in fp32: only the BN fold and the
+# summation order differ.
+ANGLE_BUDGET_FP32 = 1e-4
+# Stage-1 feature maps against the fp32 module trunk's, relative L2
+# error: fp32 (fold and order only); bf16, the budget the CPU tests hold
+# the bf16 FusedResNet to against the JAX trunk (each bf16 trunk is
+# about 1e-2 from fp32 there).
+FEATURE_BUDGET = {'fp32': 1e-4, 'bf16': 2e-2}
 
 
 def _time_ms(fn, n=50, warmup=5, flush=None):
@@ -80,15 +120,17 @@ def phase_device():
 
 
 def phase_build():
-    from spec_tpu_torch.ops.cuda_build import build_library
+    from spec_tpu_torch.ops.cuda_build import build_libraries
 
-    path, log, seconds = build_library('lbs')
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if 'registers' in ln or 'spill' in ln]
-    print(f'[build] {path.name} in {seconds:.2f} s')
-    for ln in ptxas:
-        print(f'[build] {ln}')
-    return seconds
+    t0 = time.perf_counter()
+    built = build_libraries(KERNELS)
+    print(f'[build] {len(KERNELS)} kernels in parallel: '
+          f'{time.perf_counter() - t0:.2f} s wall')
+    for name, (path, log, seconds) in built.items():
+        print(f'[build] {path.name} in {seconds:.2f} s')
+        for ln in log.splitlines():
+            if 'registers' in ln or 'spill' in ln:
+                print(f'[build] {name}: {ln.strip()}')
 
 
 def _lbs_operands(packed, assets, B, seed):
@@ -111,7 +153,8 @@ def _lbs_operands(packed, assets, B, seed):
     return lbs_coeffs(betas, rot), rel_tf
 
 
-def phase_lbs(main_batch):
+def phase_lbs(batches):
+    """K1 vs its plain version at ``batches`` (rows of SMPL), timed."""
     import torch
 
     from spec_tpu_torch.core import smpl as S
@@ -123,7 +166,7 @@ def phase_lbs(main_batch):
     flush = torch.empty(64 * 2 ** 20 // 4, device='cuda')
     rows = {}
     with fp32_precision(), torch.inference_mode():
-        for B in sorted(set(LBS_BATCHES) | {main_batch}):
+        for B in batches:
             coeffs, rel_tf = _lbs_operands(packed, assets, B, seed=B)
             before = L.LAUNCHES
             out = L.fused_lbs_vertices(packed, coeffs, rel_tf)
@@ -144,6 +187,69 @@ def phase_lbs(main_batch):
             print(f'[lbs] B={B} V=6890 max_abs_err={err:.3e} m '
                   f'kernel={ms:.4f} ms plain={plain_ms:.4f} ms '
                   '(median of 50, L2 flushed)')
+    return rows
+
+
+def phase_bottleneck():
+    """K3 vs its plain version at the pipeline's identity-block shapes,
+    and the time of one block: kernel, plain version, cuDNN module."""
+    import torch
+
+    from spec_tpu_torch.models.backbones.resnet import Bottleneck
+    from spec_tpu_torch.ops import bottleneck as TB
+    from spec_tpu_torch.utils.precision import fp32_precision
+
+    # The card tests' operands (tests/ is put on sys.path by main).
+    from test_torch_cuda_bottleneck import random_chain
+
+    rows = {}
+    shapes = [(PIPE_FRAMES, H, W, C, M, 1)
+              for H, W, C, M, _ in RESNET50_STAGES] + [ODD_SHAPE]
+    for tag, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
+        for si, (B, H, W, C, M, k) in enumerate(shapes):
+            x, ws = random_chain(B, H, W, C, M, k, seed=si, dtype=dtype,
+                                 device='cuda')
+            before = TB.LAUNCHES
+            with torch.inference_mode():
+                out = TB.fused_bottleneck_chain(x, ws)
+                torch.cuda.synchronize()
+                if TB.LAUNCHES != before + k:
+                    raise RuntimeError('the bottleneck wrapper did not '
+                                       'count its launches')
+                ref = TB.fused_bottleneck_chain_plain(x, ws)
+            err = (out.float() - ref.float()).abs().max().item()
+            scale = max(1.0, ref.float().abs().max().item())
+            if not (out.shape == x.shape and out.dtype == dtype
+                    and err <= K3_BUDGET[tag] * scale):
+                raise RuntimeError(
+                    f'K3 disagrees at {tag} {(B, H, W, C, M)} k={k}: '
+                    f'max abs err {err:.3e} > {K3_BUDGET[tag]:.1e} x '
+                    f'{scale:.3f}')
+            row = dict(max_abs_err=err, scale=scale)
+            line = (f'[bottleneck {tag}] B={B} {H}x{W} C={C} M={M} k={k}: '
+                    f'max_abs_err={err:.3e} (budget {K3_BUDGET[tag]:.1e} x '
+                    f'{scale:.3f})')
+            if k == 1:
+                blk = Bottleneck(C, M).to('cuda').eval().to(
+                    dtype=dtype, memory_format=torch.channels_last)
+                nchw = x.permute(0, 3, 1, 2)
+                with torch.inference_mode(), fp32_precision():
+                    row['ms'] = _time_ms(
+                        lambda: TB.fused_bottleneck_chain(x, ws), n=10,
+                        warmup=2)
+                    row['plain_ms'] = _time_ms(
+                        lambda: TB.fused_bottleneck_chain_plain(x, ws),
+                        n=10, warmup=2)
+                    row['cudnn_ms'] = _time_ms(lambda: blk(nchw), n=10,
+                                               warmup=2)
+                line += (f' kernel={row["ms"]:.4f} ms plain='
+                         f'{row["plain_ms"]:.4f} ms cudnn_block='
+                         f'{row["cudnn_ms"]:.4f} ms (median of 10)')
+                del blk
+            rows[tag, si] = row
+            print(line, flush=True)
+            del x, ws, out, ref
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -270,18 +376,52 @@ def _wall_ms(fn, n):
     return statistics.median(times)
 
 
-def phase_profile(n_wall=10, n_prof=3, top=8):
-    """Where the time of one ``predict`` call goes, at phase 4's input, in
-    fp32 and bf16. Per dtype, prints the wall medians of the call, of
-    stage 1 alone (``estimate_cameras``) and of stage 2 alone (``predict``
-    with the cameras given); then, from torch.profiler over ``n_prof``
-    calls, the device busy time per call (union of the kernel and copy
-    intervals), the device operations per call, the idle share
-    (1 - busy per call / unprofiled call median) and the ``top`` device
+def _device_profile(label, fn, call_ms, n_prof, top):
+    """torch.profiler over ``n_prof`` calls of ``fn``: prints the device
+    busy time per call (union of the kernel and copy intervals), the
+    device operations per call, the idle share (1 - busy per call /
+    ``call_ms``, the unprofiled call median) and the ``top`` device
     operations by time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            fn()
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    if not dev:
+        raise RuntimeError('the profiler saw no device operations')
+    busy_us, end = 0.0, float('-inf')
+    by_name: dict = {}
+    for e in dev:
+        s, t = e.time_range.start, e.time_range.end
+        busy_us += max(0.0, t - max(s, end))
+        end = max(end, t)
+        by_name[e.name] = by_name.get(e.name, 0.0) + (t - s)
+    busy = busy_us / 1e3 / n_prof
+    print(f'[profile {label}] device busy {busy:.3f} ms per call; '
+          f'{len(dev) / n_prof:.0f} device ops per call; idle share '
+          f'{1.0 - busy / call_ms:.3f}')
+    total = sum(by_name.values())
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f'[profile {label}]   {us / 1e3 / n_prof:8.3f} ms per call '
+              f'({us / total:6.1%})  {name[:110]}')
+
+
+def phase_profile(n_wall=10, n_prof=3, top=8):
+    """Where the time goes, in fp32 and bf16: (a) one ``predict`` call at
+    phase 4's input, with the wall medians of the call, of stage 1 alone
+    (``estimate_cameras``) and of stage 2 alone (``predict`` with the
+    cameras given); (b) one call of phase 5's pipeline with each stage-1
+    trunk. Each is followed by :func:`_device_profile`."""
+    import torch
+
+    from spec_tpu_torch.pipeline import build_pipeline
 
     frames, boxes = _frames_and_boxes(4, PERSONS_PER_FRAME, seed=0)
     for tag, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
@@ -291,35 +431,25 @@ def phase_profile(n_wall=10, n_prof=3, top=8):
         stage1 = _wall_ms(lambda: pred.estimate_cameras(frames), n_wall)
         stage2 = _wall_ms(lambda: pred.predict(frames, boxes, cameras=cams),
                           n_wall)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n_prof):
-                pred.predict(frames, boxes)
-            torch.cuda.synchronize()
-        dev = sorted((e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-        if not dev:
-            raise RuntimeError('the profiler saw no device operations')
-        busy_us, end = 0.0, float('-inf')
-        by_name: dict = {}
-        for e in dev:
-            s, t = e.time_range.start, e.time_range.end
-            busy_us += max(0.0, t - max(s, end))
-            end = max(end, t)
-            by_name[e.name] = by_name.get(e.name, 0.0) + (t - s)
-        busy = busy_us / 1e3 / n_prof
         print(f'[profile {tag}] predict median of {n_wall} {call:.3f} ms; '
               f'stage 1 alone {stage1:.3f} ms; stage 2 alone {stage2:.3f} '
-              f'ms; device busy {busy:.3f} ms per call; '
-              f'{len(dev) / n_prof:.0f} device ops per call; idle share '
-              f'{1.0 - busy / call:.3f}')
-        total = sum(by_name.values())
-        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
-            print(f'[profile {tag}]   {us / 1e3 / n_prof:8.3f} ms per call '
-                  f'({us / total:6.1%})  {name[:110]}')
+              'ms')
+        _device_profile(tag, lambda: pred.predict(frames, boxes), call,
+                        n_prof, top)
         del pred
         torch.cuda.empty_cache()
+    args = _pipeline_inputs(PIPE_FRAMES, PIPE_HW, seed=0, device='cuda')
+    for tag, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
+        for stage1 in ('module', 'fused'):
+            *_, pipeline = build_pipeline(compute_dtype=dtype,
+                                          stage1=stage1, device='cuda')
+            call = _wall_ms(lambda: pipeline(*args), n_wall)
+            label = f'pipeline {tag} {stage1}'
+            print(f'[profile {label}] call median of {n_wall} {call:.3f} ms')
+            _device_profile(label, lambda: pipeline(*args), call, n_prof,
+                            top)
+            del pipeline
+            torch.cuda.empty_cache()
 
 
 def phase_card_vs_cpu():
@@ -362,6 +492,219 @@ def phase_card_vs_cpu():
         raise RuntimeError(f'card and CPU disagree: {bad or "cameras"}')
 
 
+def _pipeline_inputs(B, hw, seed, device):
+    """Frames in [0, 255] and one person box per frame, as bench.py draws
+    them (its 512x672 ranges, scaled to ``hw``)."""
+    import numpy as np
+    import torch
+
+    from spec_tpu_torch.ops.preprocess import spin_crop_corners
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    raw = (rng.rand(B, h, w, 3) * 255).astype('f4')
+    center = ((rng.rand(B, 2) * [0.45, 0.6] + [0.27, 0.2])
+              * [w, h]).astype('f4')
+    scale = ((rng.rand(B) * 0.8 + 0.8) * h / 512).astype('f4')
+    corners = spin_crop_corners(center, scale)
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (raw, corners, center, scale))
+
+
+def _check_pipeline(outs, B):
+    import torch
+
+    shapes = ((B, 6890, 3), (B, 49, 2), (B, 3), (B,), (B,), (B,))
+    for o, shape in zip(outs, shapes):
+        if tuple(o.shape) != shape or o.dtype != torch.float32:
+            raise RuntimeError(f'pipeline output {tuple(o.shape)} '
+                               f'{o.dtype}, expected {shape} float32')
+        if not torch.isfinite(o).all():
+            raise RuntimeError('non-finite pipeline output')
+
+
+def _stage1_features(camcalib, stage1, dtype, raw_frames):
+    """The stage-1 trunk's NHWC feature map, as float32, on the frames the
+    pipeline normalizes: the CamCalib module's backbone, or the
+    FusedResNet that ``build_pipeline(stage1='fused')`` builds over it."""
+    import torch
+
+    from spec_tpu_torch.models.backbones.fused_resnet import FusedResNet
+    from spec_tpu_torch.ops.preprocess import normalize_image
+    from spec_tpu_torch.utils.precision import compute_dtype
+
+    with torch.inference_mode():
+        frames = normalize_image(raw_frames / 255.0)
+        if stage1 == 'fused':
+            return FusedResNet(camcalib.backbone, dtype=dtype)(frames).float()
+        with compute_dtype(dtype, frames.device.type):
+            return camcalib.backbone(frames.permute(0, 3, 1, 2)).permute(
+                0, 2, 3, 1).float()
+
+
+def _rel_err(a, b):
+    return ((a - b).norm() / b.norm()).item()
+
+
+def phase_pipeline():
+    """The e2e pipeline at full ResNet-50 width, both stage-1 trunks."""
+    import torch
+
+    from spec_tpu_torch.ops import bottleneck as TB
+    from spec_tpu_torch.ops import lbs as L
+    from spec_tpu_torch.pipeline import build_pipeline
+
+    args = _pipeline_inputs(PIPE_FRAMES, PIPE_HW, seed=0, device='cuda')
+    out, ref_feats = {}, None
+    for tag, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
+        res = {}
+        for stage1 in ('module', 'fused'):
+            camcalib, *_, pipeline = build_pipeline(
+                compute_dtype=dtype, stage1=stage1, device='cuda')
+            pipeline(*args)                                  # warm-up
+            torch.cuda.synchronize()
+            TB.LAUNCHES = L.LAUNCHES = 0
+            outs = pipeline(*args)
+            torch.cuda.synchronize()
+            launches = {'K3': TB.LAUNCHES, 'K1': L.LAUNCHES}
+            _check_pipeline(outs, PIPE_FRAMES)
+            want_k3 = stage1 == 'fused'
+            if launches['K1'] < 1 or (launches['K3'] > 0) != want_k3:
+                raise RuntimeError(f'{tag} {stage1} pipeline launches '
+                                   f'{launches}')
+            ms = _wall_ms(lambda: pipeline(*args), 5)
+            feats = _stage1_features(camcalib, stage1, dtype, args[0])
+            if ref_feats is None:                    # the fp32 module trunk
+                ref_feats = feats
+                live = (feats > 0).float().mean().item()
+                if live < 0.3:
+                    raise RuntimeError(f'stage-1 features {live:.3f} live')
+            feat_err = _rel_err(feats, ref_feats)
+            res[stage1] = dict(outs=outs, launches=launches, ms=ms,
+                               feat_err=feat_err)
+            print(f'[pipeline {tag} {stage1}] resnet50 x2, '
+                  f'{PIPE_FRAMES} frames {PIPE_HW[0]}x{PIPE_HW[1]}, one '
+                  f'person each: {ms:.3f} ms per call (median of 5), '
+                  f'{PIPE_FRAMES / ms * 1e3:.1f} frames/s; launches in '
+                  f'one call {launches}; stage-1 features vs the fp32 '
+                  f'module trunk: relative L2 error {feat_err:.3e} (budget '
+                  f'{FEATURE_BUDGET[tag]:.0e})', flush=True)
+            if not feat_err <= FEATURE_BUDGET[tag]:
+                raise RuntimeError(f'{tag} {stage1} stage-1 features '
+                                   'disagree with the fp32 module trunk')
+            del camcalib, pipeline, feats
+            torch.cuda.empty_cache()
+        out[tag] = res
+
+    def angle_err(a, b):
+        return max((x - y).abs().max().item()
+                   for x, y in zip(a['outs'][3:], b['outs'][3:]))
+
+    ref = out['fp32']['module']
+    spread = [(a.max() - a.min()).item() for a in ref['outs'][3:]]
+    fp32_err = angle_err(out['fp32']['fused'], ref)
+    print(f'[pipeline] stage-1 angles: spread over the {PIPE_FRAMES} frames '
+          '(fp32 module trunk; vfov, pitch, roll) '
+          f'{", ".join(f"{v:.3e}" for v in spread)} rad; fp32 fused vs '
+          f'module {fp32_err:.3e} rad (budget {ANGLE_BUDGET_FP32:.0e}); to '
+          f'the fp32 module trunk, bf16 module '
+          f'{angle_err(out["bf16"]["module"], ref):.3e} rad, bf16 fused '
+          f'{angle_err(out["bf16"]["fused"], ref):.3e} rad, bf16 fused vs '
+          f'bf16 module '
+          f'{angle_err(out["bf16"]["fused"], out["bf16"]["module"]):.3e} rad '
+          '(bf16 is held by its features, above, and card vs CPU)')
+    if fp32_err > ANGLE_BUDGET_FP32:
+        raise RuntimeError('fused and module stage-1 angles disagree')
+    return out
+
+
+def phase_projection(pipe):
+    """K2 on the fp32 fused pipeline's meshes and cameras."""
+    import torch
+
+    from spec_tpu_torch.core import geometry as G
+    from spec_tpu_torch.ops import projection as TP
+    from spec_tpu_torch.utils.precision import fp32_precision
+
+    verts, _, cam_t, vfov, pitch, roll = pipe['fp32']['fused']['outs']
+    B = verts.shape[0]
+    h, w = (torch.full((B,), float(v), device='cuda') for v in PIPE_HW)
+    with fp32_precision():
+        R = G.euler_to_rotmat(
+            torch.stack([pitch, torch.zeros_like(pitch), roll], -1))
+        K = G.build_cam_intrinsics(G.focal_length_from_vfov(vfov, h), w, h)
+    args = (verts.contiguous(), R, cam_t, K)
+    TP.LAUNCHES = 0
+    pix = TP.project_points(*args)
+    torch.cuda.synchronize()
+    launches = TP.LAUNCHES
+    if launches != 1:
+        raise RuntimeError(f'project_points launched {launches} times')
+    plain = TP.project_points_plain(*args)
+    ref = G.perspective_projection(*args)
+    err = max((pix - plain).abs().max().item(),
+              (pix - ref).abs().max().item())
+    if not (pix.shape == (B, 6890, 2) and torch.isfinite(pix).all()
+            and err <= K2_BUDGET):
+        raise RuntimeError(f'K2 disagrees: max abs err {err:.3e} px')
+    flush = torch.empty(64 * 2 ** 20 // 4, device='cuda')
+    ms = _time_ms(lambda: TP.project_points(*args), flush=flush)
+    plain_ms = _time_ms(lambda: TP.project_points_plain(*args), flush=flush)
+    print(f'[projection] B={B} V=6890 max_abs_err={err:.3e} px vs plain and '
+          f'perspective_projection (budget {K2_BUDGET}); kernel={ms:.4f} ms '
+          f'plain={plain_ms:.4f} ms (median of 50, L2 flushed)')
+    return dict(launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms)
+
+
+# Card vs CPU, 2 frames of 64x96: limits on (vertices m, joints2d px,
+# cam_t, vfov, pitch, roll rad, stage-1 features relative L2). In bf16
+# both sides round at the same points but sum in another order (and the
+# CPU's bf16 convolutions are not cuDNN's), so the roundings differ as
+# between any two bf16 trunks: the features get FEATURE_BUDGET's bf16
+# budget.
+CARD_VS_CPU = {
+    'fp32': (5e-3, 0.1, 2e-3, 1e-4, 1e-4, 1e-4, FEATURE_BUDGET['fp32']),
+    'bf16': (1e-2, 0.5, 1e-2, 1e-3, 1e-3, 1e-3, FEATURE_BUDGET['bf16']),
+}
+
+
+def phase_pipeline_card_vs_cpu():
+    """The pipelines (random weights from the same seeds) on the card and
+    on the CPU, 2 frames of 64x96: both trunks in fp32 and the fused
+    trunk in bf16, so card-side K3 (both dtypes) and K1 meet the CPU's
+    plain versions; the stage-1 feature maps are compared too."""
+    import numpy as np
+    import torch
+
+    from spec_tpu_torch.pipeline import build_pipeline
+
+    names = ('vertices', 'joints2d', 'cam_t', 'vfov', 'pitch', 'roll',
+             'features')
+    for stage1, tag, dtype in (('module', 'fp32', torch.float32),
+                               ('fused', 'fp32', torch.float32),
+                               ('fused', 'bf16', torch.bfloat16)):
+        got, feats = {}, {}
+        for dev in ('cuda', 'cpu'):
+            camcalib, *_, pipeline = build_pipeline(
+                compute_dtype=dtype, img_res=64, stage1=stage1, device=dev)
+            args = _pipeline_inputs(2, (64, 96), seed=1, device=dev)
+            got[dev] = [o.cpu().numpy() for o in pipeline(*args)]
+            feats[dev] = _stage1_features(camcalib, stage1, dtype,
+                                          args[0]).cpu()
+        errs = [float(np.abs(a - b).max())
+                for a, b in zip(got['cuda'], got['cpu'])]
+        errs.append(_rel_err(feats['cuda'], feats['cpu']))
+        limits = CARD_VS_CPU[tag]
+        print(f'[card vs cpu] pipeline {stage1} {tag} resnet50 64x96: ' +
+              ', '.join(f'{n} {e:.2e} (limit {lim})'
+                        for n, e, lim in zip(names, errs, limits)))
+        bad = [n for n, e, lim in zip(names, errs, limits) if not e <= lim]
+        if bad:
+            raise RuntimeError(f'{stage1} {tag} pipeline: card and CPU '
+                               f'disagree in {bad}')
+
+
 def main() -> int:
     import torch
 
@@ -370,6 +713,7 @@ def main() -> int:
               'runs only on an NVIDIA GPU', file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    sys.path.append(str(ROOT / 'tests'))     # a card test's helper
     if not (ROOT / 'spec_tpu_torch' / '__init__.py').exists():
         print('chip_smoke: run from the root of a spec-tpu checkout '
               '(spec_tpu_torch/ not found beside this script)',
@@ -387,14 +731,23 @@ def main() -> int:
         return 0
     from spec_tpu_torch.utils.batching import pad_pow2
 
-    # The SMPL batch predict launches K1 with: one padded stage-2 chunk.
+    k3_rows = phase_bottleneck()
+    pred = phase_predictor()
+    pipe = phase_pipeline()
+    # K1 at the batches the two paths gave it: the predictor's one padded
+    # stage-2 chunk, and the pipeline's rows of SMPL (K1 wrote its
+    # vertices).
     main_batch = pad_pow2(min(sum(PERSONS_PER_FRAME), BATCH_SIZE),
                           BATCH_SIZE)
-    lbs_rows = phase_lbs(main_batch)
-    pred = phase_predictor()
+    pipe_batch = pipe['bf16']['fused']['outs'][0].shape[0]
+    lbs_rows = phase_lbs(sorted(set(LBS_BATCHES)
+                                | {main_batch, pipe_batch}))
+    k2 = phase_projection(pipe)
     phase_card_vs_cpu()
+    phase_pipeline_card_vs_cpu()
 
     row = lbs_rows[main_batch]
+    k3 = k3_rows['bf16', 0]     # layer1's block at the pipeline's dtype
     print(json.dumps({'kernels': [{
         'name': 'fused_lbs_vertices',
         'route': 'cuda',
@@ -404,6 +757,24 @@ def main() -> int:
         'max_abs_err': max(r['max_abs_err'] for r in lbs_rows.values()),
         'ms': row['ms'],
         'plain_ms': row['plain_ms'],
+    }, {
+        'name': 'fused_bottleneck_chain',
+        'route': 'cuda',
+        'source': 'spec_tpu_torch/csrc/bottleneck.cu',
+        'replaces': 'spec_tpu/ops/pallas/bottleneck.py:92',
+        'launches': pipe['bf16']['fused']['launches']['K3'],
+        'max_abs_err': max(r['max_abs_err'] for r in k3_rows.values()),
+        'ms': k3['ms'],
+        'plain_ms': k3['plain_ms'],
+    }, {
+        'name': 'project_points',
+        'route': 'cuda',
+        'source': 'spec_tpu_torch/csrc/projection.cu',
+        'replaces': 'spec_tpu/ops/pallas/projection.py:39',
+        'launches': k2['launches'],
+        'max_abs_err': k2['max_abs_err'],
+        'ms': k2['ms'],
+        'plain_ms': k2['plain_ms'],
     }]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

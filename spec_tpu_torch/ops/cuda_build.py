@@ -10,6 +10,7 @@ at first use (never at import). A failed build raises.
 from __future__ import annotations
 
 import ctypes
+import concurrent.futures
 import functools
 import hashlib
 import os
@@ -58,6 +59,15 @@ def build_library(name: str) -> tuple[Path, str, float]:
                            f'(exit {proc.returncode}):\n{proc.stderr}')
     os.replace(tmp, lib)
     return lib, proc.stdout + proc.stderr, seconds
+
+
+def build_libraries(names) -> dict:
+    """Build several sources at once, one ``nvcc`` process each, all
+    started together. Returns {name: build_library(name)}; the first
+    failed build raises."""
+    names = list(names)
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(names))) as ex:
+        return dict(zip(names, ex.map(build_library, names)))
 
 
 @functools.cache

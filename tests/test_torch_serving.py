@@ -192,18 +192,29 @@ def test_unported_options_raise(kwargs, err):
 
 
 def test_import_hygiene():
-    """The port's serving path imports no JAX, flax, PIL, cv2, PyYAML or
-    spec_tpu.data (none of them exist on the machine with the card)."""
+    """The port's serving path, the e2e pipeline and every kernel wrapper
+    import no JAX, flax, PIL, cv2, PyYAML, triton or spec_tpu.data (none
+    of them exist on the machine with the card), and importing them
+    builds no kernel."""
     code = (
         'import sys\n'
         'import spec_tpu_torch.serving\n'
+        'import spec_tpu_torch.pipeline\n'
+        'import spec_tpu_torch.models.backbones.fused_resnet\n'
+        'from spec_tpu_torch.ops import bottleneck, cuda_build, lbs, '
+        'projection\n'
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'yaml') "
+        "('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'yaml', 'triton') "
         "or m.startswith('spec_tpu.data')]\n"
         'assert not bad, bad\n'
         "extra = sorted(m for m in sys.modules\n"
         "               if m.startswith('spec_tpu.'))\n"
-        "assert extra == ['spec_tpu.core', 'spec_tpu.core.constants']\n")
+        "assert extra == ['spec_tpu.core', 'spec_tpu.core.constants']\n"
+        'assert cuda_build.build_library.cache_info().currsize == 0\n'
+        'assert cuda_build.load_library.cache_info().currsize == 0\n'
+        'for mod in (bottleneck, lbs, projection):\n'
+        '    assert mod._kernel.cache_info().currsize == 0, mod\n'
+        '    assert mod.LAUNCHES == 0, mod\n')
     proc = subprocess.run([sys.executable, '-c', code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
