@@ -16,9 +16,10 @@ the JAX package have CUDA counterparts: ``ops/lbs.py``,
 ``ops/bottleneck.py`` and ``ops/projection.py``.
 
 The package imports ``torch`` and ``numpy`` only (plus ``scipy`` when a
-chumpy SMPL pickle is read); from ``spec_tpu`` it uses only the numpy
-tables of ``spec_tpu.core.constants``. CUDA kernels under ``csrc/`` are
-built with ``nvcc`` on first use.
+chumpy SMPL pickle is read) and nothing of ``spec_tpu``: the joint and
+normalization tables it needs are its own copy in ``core/constants.py``.
+CUDA kernels under ``csrc/`` are built with ``nvcc`` on first use; the
+bottleneck kernel's bf16 variant runs its products on the tensor cores.
 """
 
 from __future__ import annotations

@@ -22,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from spec_tpu.core import constants as C
+from spec_tpu_torch.core import constants as C
 from spec_tpu_torch.utils.precision import fp32_matmuls, fp32_precision
 
 

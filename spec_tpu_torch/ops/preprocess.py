@@ -16,7 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from spec_tpu.core import constants as C
+from spec_tpu_torch.core import constants as C
 from spec_tpu_torch.data.transforms import transform_point
 
 
