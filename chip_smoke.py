@@ -12,7 +12,9 @@ printing its own results; any failure raises and exits nonzero:
 3. K3 against its plain version at every ResNet-50 stage's identity-block
    shape on 16 frames of 512x672 (one block each) and at an odd H and W
    (a chain of 3), in fp32 and bf16, timed beside the port's unfused
-   cuDNN ``Bottleneck`` module at the same shape;
+   cuDNN ``Bottleneck`` module at the same shape, with its TFLOP/s and
+   its share of the bound (the larger of operations at the peak rate of
+   the dtype's units and bytes at the HBM rate);
 4. the two-stage SpecPredictor at full ResNet-50 width (random weights
    from fixed seeds, synthetic SMPL) on 720x1280 frames, in fp32 and
    bf16, plus a camcalib_every=3 stream; checks shapes, finiteness and
@@ -40,6 +42,9 @@ printing its own results; any failure raises and exits nonzero:
 the rest, profiles phase 4's predictor (wall medians per stage, device
 busy time, idle share and the top device operations, fp32 and bf16) and
 phase 5's pipeline with each stage-1 trunk.
+``python3 chip_smoke.py --k3-tiles`` runs phases 1-2 and then times the
+bf16 K3 at each stage shape with every candidate output tile forced,
+beside the tile the kernel picks.
 
 Needs no network and no files beyond the checkout; builds go to
 ``build/spec_tpu_torch/``.
@@ -73,6 +78,13 @@ ODD_SHAPE = (2, 13, 11, 256, 64, 3)       # B, H, W, C, M, chain length
 # rounding boundary of h1, h2 or y round the other way on one side).
 K3_BUDGET = {'fp32': 1e-4, 'bf16': 2.0 ** -6}
 K2_BUDGET = 1e-2           # px (TPU_CHECKS_r05.json)
+# One H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): the
+# rate for each kernel's arithmetic (K3 bf16 on the tensor cores, K3 fp32
+# and K1, K2 on the CUDA cores in fp32) and the HBM rate.
+PEAK_FLOPS = {'bf16': 989e12, 'fp32': 67e12}
+HBM_BYTES_PER_S = 3.35e12
+K3_TILES = ((8, 16), (16, 8), (8, 8), (8, 7), (7, 8), (4, 8), (8, 4),
+            (4, 4), (2, 4))
 # Fused vs module stage-1 angles (rad) in fp32: only the BN fold and the
 # summation order differ.
 ANGLE_BUDGET_FP32 = 1e-4
@@ -103,6 +115,53 @@ def _time_ms(fn, n=50, warmup=5, flush=None):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _queued_ms(fn, n=10, reps=3, warmup=2):
+    """Device ms per call of ``fn()`` with ``n`` calls queued back to back
+    between two CUDA events (so the host's time to issue a call hides
+    behind the previous call), the median of ``reps`` such runs."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def _cast_chain(ws, dtype):
+    """A chain's weights in ``dtype`` and its biases in fp32, as
+    FusedResNet holds them (so a timed call casts nothing)."""
+    return tuple(tuple(t.float() if i % 2 else t.to(dtype)
+                       for i, t in enumerate(block)) for block in ws)
+
+
+def _bound(flops, nbytes, peak):
+    """The least time (ms) the card could take for ``flops`` operations at
+    ``peak`` and ``nbytes`` of traffic at the HBM rate, and which of the
+    two bounds it."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def _k3_work(B, H, W, C, M, elem):
+    """Operations and bytes of one identity bottleneck: 2 x pixels x
+    (2 C M + 9 M^2) products; x read and y written once, the weights
+    (in x's type) and fp32 biases read once."""
+    flops = 2.0 * B * H * W * (2 * C * M + 9 * M * M)
+    nbytes = (2 * B * H * W * C + 2 * C * M + 9 * M * M) * elem + \
+        4 * (2 * M + C)
+    return flops, nbytes
 
 
 def phase_device():
@@ -183,10 +242,20 @@ def phase_lbs(batches):
                                                        rel_tf), flush=flush)
             plain_ms = _time_ms(lambda: L.fused_lbs_vertices_plain(
                 packed, coeffs, rel_tf), flush=flush)
-            rows[B] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            # Per vertex and row: 218 x 3 blendshape products, 24 x 12
+            # skinning products, the 3x4 transform; fp32 on CUDA cores.
+            n_coef, V = packed.dirs.shape[1], packed.num_vertices
+            flops = 2.0 * B * V * (3 * n_coef + 24 * 12 + 12)
+            nbytes = 4 * (packed.dirs.numel() + packed.weights_t.numel()
+                          + coeffs.numel() + rel_tf.numel() + out.numel())
+            bound_ms, bound_by = _bound(flops, nbytes, PEAK_FLOPS['fp32'])
+            rows[B] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
             print(f'[lbs] B={B} V=6890 max_abs_err={err:.3e} m '
                   f'kernel={ms:.4f} ms plain={plain_ms:.4f} ms '
-                  '(median of 50, L2 flushed)')
+                  '(median of 50, L2 flushed); bound '
+                  f'{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), '
+                  f'share of bound {bound_ms / ms:.3f}')
     return rows
 
 
@@ -233,24 +302,72 @@ def phase_bottleneck():
                 blk = Bottleneck(C, M).to('cuda').eval().to(
                     dtype=dtype, memory_format=torch.channels_last)
                 nchw = x.permute(0, 3, 1, 2)
+                wt = _cast_chain(ws, dtype)
                 with torch.inference_mode(), fp32_precision():
-                    row['ms'] = _time_ms(
-                        lambda: TB.fused_bottleneck_chain(x, ws), n=10,
-                        warmup=2)
-                    row['plain_ms'] = _time_ms(
-                        lambda: TB.fused_bottleneck_chain_plain(x, ws),
-                        n=10, warmup=2)
-                    row['cudnn_ms'] = _time_ms(lambda: blk(nchw), n=10,
-                                               warmup=2)
+                    row['ms'] = _queued_ms(
+                        lambda: TB.fused_bottleneck_chain(x, wt))
+                    row['plain_ms'] = _queued_ms(
+                        lambda: TB.fused_bottleneck_chain_plain(x, wt))
+                    row['cudnn_ms'] = _queued_ms(lambda: blk(nchw))
+                flops, nbytes = _k3_work(B, H, W, C, M, x.element_size())
+                row['bound_ms'], row['bound_by'] = _bound(
+                    flops, nbytes, PEAK_FLOPS[tag])
+                tile = (TB.picked_tile(B, H, W, C, M) if tag == 'bf16'
+                        else None)
                 line += (f' kernel={row["ms"]:.4f} ms plain='
                          f'{row["plain_ms"]:.4f} ms cudnn_block='
-                         f'{row["cudnn_ms"]:.4f} ms (median of 10)')
+                         f'{row["cudnn_ms"]:.4f} ms (10 queued calls, '
+                         'median of 3); '
+                         f'{flops / 1e9:.2f} GFLOP, kernel '
+                         f'{flops / row["ms"] / 1e9:.1f} TFLOP/s, bound '
+                         f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}), '
+                         f'share of bound '
+                         f'{row["bound_ms"] / row["ms"]:.3f}'
+                         + (f', tile {tile[0]}x{tile[1]} with {tile[2]} '
+                            'stages' if tile else ''))
                 del blk
             rows[tag, si] = row
             print(line, flush=True)
             del x, ws, out, ref
         torch.cuda.empty_cache()
     return rows
+
+
+def phase_k3_tiles():
+    """bf16 K3 at each stage shape with every candidate output tile forced
+    (those whose shared memory fits), beside the tile the kernel picks:
+    the readings behind the tile choice."""
+    import torch
+
+    from spec_tpu_torch.ops import bottleneck as TB
+
+    from test_torch_cuda_bottleneck import random_chain
+
+    for si, (H, W, C, M, _) in enumerate(RESNET50_STAGES):
+        B = PIPE_FRAMES
+        x, ws = random_chain(B, H, W, C, M, 1, seed=si,
+                             dtype=torch.bfloat16, device='cuda')
+        block = _cast_chain(ws, torch.bfloat16)[0]
+        flops, _ = _k3_work(B, H, W, C, M, 2)
+        picked = TB.picked_tile(B, H, W, C, M)
+        cells = []
+        with torch.inference_mode():
+            for tile in ((0, 0),) + K3_TILES:
+                try:
+                    ms = _queued_ms(lambda: TB._launch(x, block, tile))
+                except RuntimeError:
+                    cells.append(f'{tile[0]}x{tile[1]} does not fit')
+                    continue
+                name = ('picked' if tile == (0, 0)
+                        else f'{tile[0]}x{tile[1]}')
+                cells.append(f'{name} {ms:.4f} ms '
+                             f'{flops / ms / 1e9:.1f} TF/s')
+        print(f'[k3 tiles] B={B} {H}x{W} C={C} M={M} picks '
+              f'{picked[0]}x{picked[1]} with {picked[2]} stages: '
+              + '; '.join(cells) + ' (10 queued calls, median of 3)',
+              flush=True)
+        del x, ws
+        torch.cuda.empty_cache()
 
 
 def _frames_and_boxes(n_frames, persons, seed):
@@ -650,11 +767,16 @@ def phase_projection(pipe):
     flush = torch.empty(64 * 2 ** 20 // 4, device='cuda')
     ms = _time_ms(lambda: TP.project_points(*args), flush=flush)
     plain_ms = _time_ms(lambda: TP.project_points_plain(*args), flush=flush)
+    # Per vertex: the 3x4 camera matrix on [X, 1] and the divide.
+    flops = 2.0 * B * 6890 * (12 + 1)
+    nbytes = 4 * (sum(a.numel() for a in args) + pix.numel())
+    bound_ms, bound_by = _bound(flops, nbytes, PEAK_FLOPS['fp32'])
     print(f'[projection] B={B} V=6890 max_abs_err={err:.3e} px vs plain and '
           f'perspective_projection (budget {K2_BUDGET}); kernel={ms:.4f} ms '
-          f'plain={plain_ms:.4f} ms (median of 50, L2 flushed)')
+          f'plain={plain_ms:.4f} ms (median of 50, L2 flushed); bound '
+          f'{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.2f} MB)')
     return dict(launches=launches, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms)
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 # Card vs CPU, 2 frames of 64x96: limits on (vertices m, joints2d px,
@@ -729,6 +851,9 @@ def main() -> int:
     if '--profile' in sys.argv[1:]:
         phase_profile()
         return 0
+    if '--k3-tiles' in sys.argv[1:]:
+        phase_k3_tiles()
+        return 0
     from spec_tpu_torch.utils.batching import pad_pow2
 
     k3_rows = phase_bottleneck()
@@ -757,6 +882,9 @@ def main() -> int:
         'max_abs_err': max(r['max_abs_err'] for r in lbs_rows.values()),
         'ms': row['ms'],
         'plain_ms': row['plain_ms'],
+        'bound_ms': row['bound_ms'],
+        'bound_by': row['bound_by'],
+        'library_ms': None,        # no single PyTorch call computes it
     }, {
         'name': 'fused_bottleneck_chain',
         'route': 'cuda',
@@ -766,6 +894,9 @@ def main() -> int:
         'max_abs_err': max(r['max_abs_err'] for r in k3_rows.values()),
         'ms': k3['ms'],
         'plain_ms': k3['plain_ms'],
+        'bound_ms': k3['bound_ms'],
+        'bound_by': k3['bound_by'],
+        'library_ms': k3['cudnn_ms'],   # the cuDNN Bottleneck module
     }, {
         'name': 'project_points',
         'route': 'cuda',
@@ -775,6 +906,9 @@ def main() -> int:
         'max_abs_err': k2['max_abs_err'],
         'ms': k2['ms'],
         'plain_ms': k2['plain_ms'],
+        'bound_ms': k2['bound_ms'],
+        'bound_by': k2['bound_by'],
+        'library_ms': None,        # no single PyTorch call computes it
     }]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

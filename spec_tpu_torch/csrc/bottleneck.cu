@@ -15,47 +15,79 @@
 // with the 3x3 zero-padding h1 (outside the image h1 is 0, not
 // relu(b1)), fp32 biases and fp32 sums everywhere.
 //
-// Design. A thread block (256 threads) owns a TH x TW tile of output
-// pixels of one image and keeps everything between x and y in shared
-// memory:
+// Two variants behind one C entry (spec_bottleneck_forward, dtype switch),
+// one launch per block of a chain, the same shared-memory plan: a thread
+// block (256 threads, 8 warps) owns a TH x TW tile of output pixels of
+// one image and keeps everything between x and y in shared memory:
 //   1. h1 over the tile plus its one-pixel halo ((TH+2) x (TW+2) rows of
-//      M), x and w1 streamed through shared memory in 16-channel chunks;
-//      bias, ReLU, zero outside the image, rounded;
+//      M), x and w1 streamed through shared memory in K chunks; bias,
+//      ReLU, zero outside the image, rounded;
 //   2. h2 over the tile: the 3x3 as a (9M)-deep product whose A rows are
-//      gathered from h1 in shared memory (tap = 3 dy + dx), w2 streamed;
+//      gathered from h1 in shared memory (tap = 3 dy + dx; no im2col
+//      buffer), w2 streamed;
 //   3. chunk by chunk of output channels, h2 . w3 + b3 + x (x re-read
 //      from device memory), ReLU, stored.
-// Each phase is the same block-level product (block_gemm): every thread
-// holds a 4 pixel x 4 channel tile of fp32 sums in registers, reads A
-// rows from shared memory (row stride an odd number of 32-bit words, so
-// no bank conflicts) and B from a 16-row chunk staged in shared memory.
-// The split of the 256 threads between pixels and channels is chosen
-// per phase to waste the fewest lanes at that phase's sizes. The host
-// picks the largest tile (8x8 down to 1x1) whose h1 + h2 + staging fit
-// in the 227 KB of shared memory: 8x8 up to M = 256 in fp32, 4x8 at
-// M = 512 (ResNet-50 layer4) in fp32, 8x8 everywhere in bf16.
 //
-// Precision: CUDA-core fp32 FMAs for both element types; the float
-// variant is exact fp32 (no TF32), the bf16 variant rounds exactly where
-// the Pallas body does (h1, h2, y).
+// What bounds it on an H100. One bottleneck at ResNet-50's stage shapes
+// is 47.92 GFLOP at B = 16 frames of 512x672 (2 x pixels x 17 M^2):
+// 48.5 us on the tensor cores (989 TFLOP/s dense bf16). x read once and
+// y written once are 352 / 176 / 88 / 44 MB at layer1..4: 105 / 53 / 26
+// / 13 us at 3.35 TB/s. So layer1 and layer2 are bound by memory, layer3
+// and layer4 by the tensor cores, and on the CUDA cores (67 TFLOP/s
+// fp32) every stage is bound by the FMA rate, 0.7 ms at best.
 //
-// What bounds it on an H100, and the cost of this design. One bottleneck
-// at ResNet-50's stage shapes is ~48 GFLOP at B = 16 frames of 512x672
-// (2 x pixels x 17 M^2), so the kernel is compute-bound: on the CUDA
-// cores (67 TFLOP/s fp32 peak) it cannot come near cuDNN on the tensor
-// cores, and its inner loop does two shared-memory loads per 4 FMAs,
-// which caps it near half the FMA rate. The halo recomputes h1 on
-// (TH+2)(TW+2)/(TH TW) of the pixels (1.56x at 8x8, 1.88x at 4x8). One
-// launch per block means the intermediate between two blocks of a chain
-// goes through device memory (read 2x, written 1x per block), unlike the
-// TPU chain that keeps K blocks' halo bands in VMEM: at layer4
-// (C = 2048, M = 512) one block's tile already needs most of the shared
-// memory. Later work: wgmma with TMA-fed tiles for the three products
-// (tensor cores, bf16), then chain fusion at layer1 where M = 64 leaves
-// room for several blocks' halos.
+// bf16 (tc_gemm, bottleneck_tc_kernel): the three products run on the
+// tensor cores as mma.sync.m16n8k16 bf16 x bf16 -> fp32, the same
+// arithmetic as the Pallas body (bf16 operands, exact products, fp32
+// sums; only the order of the sums differs, and it is fixed, so two
+// launches agree bit for bit). The 8 warps of a block form a warp grid
+// picked per phase from six compiled ones (pick_plan); each warp owns up
+// to 4 x 4 m16n8 tiles of a pass. A fragments come through ldmatrix.x4
+// from per-lane row addresses computed once per pass (phase 1: the
+// staged x rows; phase 2: the h1 row of the lane's pixel, shifted per
+// k16 step by the tap's offset, found with a multiply-high instead of a
+// division; phase 3: the h2 rows). Weights (K, N) row-major are staged
+// 32 K-rows at a time with 16-byte cp.async through a ring of 2-4
+// buffers, one barrier per chunk, the passes of a phase run as one
+// sequence so the next pass's first copies overlap this one's last
+// products; they are read with ldmatrix.x4.trans. Phase 1's x rows are
+// staged beside them (zero-filled outside the image). Every bf16 row
+// stride in shared memory is cols + 8 elements: 16-byte aligned for
+// cp.async and ldmatrix, and an odd number of 16-byte units, so the 8
+// rows an ldmatrix phase reads fall in distinct banks. The inner loop
+// has no division and no branch per product: rows past a pass or an
+// operand read a valid row and the epilogue drops them. The epilogues
+// work on the accumulator layout (rows lane/4 and +8, columns
+// 2 (lane%4) and +1) and store bf16 pairs. The kernel takes up to 255
+// registers a thread (one block per SM): capped at 128 for two blocks
+// per SM it spilled ~5.6 KB a thread and ran 1.5-2.6x slower. The host
+// picks the tile by a cost model (pick_tc_tile) and the deepest ring
+// that fits. Left for later: wgmma with B through TMA (mma.sync reaches
+// about two thirds of the card's bf16 rate, and ldmatrix traffic rivals
+// the products at these warp tiles), a persistent grid, coalesced y
+// stores through shared memory, and chain fusion at layer1.
+//
+// fp32 (block_gemm, bottleneck_kernel): exact fp32 FMAs on the CUDA
+// cores (Hopper has no fp32 tensor-core path short of TF32, which would
+// break the fp32 budget). Every thread holds a 4 pixel x 4 channel tile
+// of fp32 sums in registers, reads A rows from shared memory (row stride
+// an odd number of 32-bit words) and B from a 16-row chunk staged in
+// shared memory; the split of the 256 threads between pixels and
+// channels is chosen per phase. The host picks the largest tile (8x8
+// down to 1x1) that fits in the 227 KB of shared memory: 8x8 up to
+// M = 256, 4x8 at M = 512. The halo recomputes h1 on
+// (TH+2)(TW+2)/(TH TW) of the pixels (1.56x at 8x8, 1.88x at 4x8).
+//
+// One launch per block means the intermediate between two blocks of a
+// chain goes through device memory (read 2x, written 1x per block),
+// unlike the TPU chain that keeps K blocks' halo bands in VMEM: at
+// layer4 (C = 2048, M = 512) one block's tile already needs most of the
+// shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -68,16 +100,9 @@ constexpr int kMaxNT = 256;      // TN * CG with CG <= 64
 constexpr size_t kSmemLimit = 232448;  // 227 KB usable per block
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
 }
 
 // Row stride (elements) of a shared-memory matrix with `cols` columns:
@@ -263,6 +288,508 @@ bottleneck_kernel(const T* __restrict__ x,      // (B, H, W, C)
       });
 }
 
+// ---------------------------------------------------------------------
+// bf16 on the tensor cores.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kKB = 32;          // K rows of one staged chunk
+constexpr int kMaxRows = 128;    // rows of one pass (phase-1 x staging)
+constexpr int kMaxCols = 256;    // columns of one pass (weight staging)
+
+// Row stride (elements) of a bf16 shared-memory matrix with `cols`
+// columns (a multiple of 16): 16-byte aligned, and an odd number of
+// 16-byte units, so ldmatrix's 8 rows fall in distinct banks.
+__host__ __device__ inline int tc_ld(int cols) { return cols + 8; }
+
+__host__ __device__ inline int round16(int n) { return (n + 15) & ~15; }
+
+// Shared-memory layout of the bf16 kernel, identical on host and device:
+// h1 and h2, then `stages` buffers of kKB weight rows of up to
+// min(kMaxCols, max(M, C)) columns. Phase 1's x staging (`stages`
+// buffers of `arows` rows) lies over h2, which phase 1 does not use yet.
+struct TcLayout {
+  int ldh, lda, ldb, arows, stages;
+  size_t h1, h2, bs, total;  // byte offsets and total
+};
+
+__host__ __device__ inline TcLayout make_tc_layout(int th, int tw, int M,
+                                                   int C, int stages) {
+  TcLayout L;
+  const int np1 = (th + 2) * (tw + 2), np2 = th * tw;
+  const int wide = M > C ? M : C;
+  L.ldh = tc_ld(M);
+  L.lda = tc_ld(kKB);
+  L.ldb = tc_ld(wide < kMaxCols ? wide : kMaxCols);
+  L.arows = round16(np1) < kMaxRows ? round16(np1) : kMaxRows;
+  L.stages = stages;
+  const size_t e = sizeof(bf16);
+  const size_t h2 = size_t(np2) * L.ldh,
+               as = size_t(stages) * L.arows * L.lda;
+  L.h1 = 0;
+  L.h2 = align16(size_t(np1) * L.ldh * e);
+  L.bs = align16(L.h2 + (h2 > as ? h2 : as) * e);
+  L.total = align16(L.bs + size_t(stages) * kKB * L.ldb * e);
+  return L;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device memory to the shared-memory address dst,
+// asynchronously; zeros when !valid (src is then not read).
+__device__ __forceinline__ void cp_async16_addr(unsigned dst,
+                                                const void* src,
+                                                bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Wait until at most n (0..2) of this thread's groups are in flight.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n <= 0)
+    cp_async_wait<0>();
+  else if (n == 1)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<2>();
+}
+
+// Four 8x8 b16 matrices from the shared-memory address `addr`; lane l
+// gives the address of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x16, row) . b (16x8, col), bf16 operands, fp32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A operands of the three products. Each gives, for a pass whose
+// rows start at m0: row(r, m0, rows), the element offset of pass row r
+// (rows past the pass's or the operand's end read a valid row, and the
+// epilogue drops them); base(buf), the shared-memory address of the
+// chunk in staging buffer buf; kofs(k, kk), the element offset of column
+// k (kk = k - the chunk's first k); and, for an operand staged through
+// shared memory, stage_pass and stage_chunk, which issue its copies.
+
+// Phase 1: x at the tile + halo pixels (p = hy * hw + hx), zero outside
+// the image and past np1. A pass's rows are staged 4 vectors of 8
+// channels a row, two vectors per thread (rows <= kMaxRows).
+struct XRows {
+  const bf16* xb;
+  unsigned as;  // shared address of buffer 0
+  int astride, lda, H, W, C, hw, np1, ty0, tx0;
+  int goff[2], soff[2];  // this thread's vectors: x offset (-1: zero) and
+                         // buffer offset (-1: past the pass's rows)
+
+  __device__ void stage_pass(int m0, int rows) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int v = threadIdx.x + kThreads * j, r = v >> 2, c = (v & 3) * 8;
+      const int p = m0 + r, gy = ty0 - 1 + p / hw, gx = tx0 - 1 + p % hw;
+      soff[j] = r < rows ? r * lda + c : -1;
+      goff[j] = r < rows && p < np1 && gy >= 0 && gy < H && gx >= 0 &&
+                        gx < W
+                    ? (gy * W + gx) * C + c
+                    : -1;
+    }
+  }
+  __device__ void stage_chunk(int k0, int kl, int buf) {
+    const int c = (threadIdx.x & 3) * 8;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (soff[j] >= 0 && c < kl)
+        cp_async16_addr(as + 2 * (buf * astride + soff[j]),
+                        xb + (goff[j] >= 0 ? goff[j] + k0 : 0),
+                        goff[j] >= 0);
+  }
+  __device__ int row(int r, int, int rows) const {
+    return (r < rows ? r : rows - 1) * lda;
+  }
+  __device__ unsigned base(int buf) const { return as + 2 * buf * astride; }
+  __device__ int kofs(int, int kk) const { return kk; }
+};
+
+// Phase 2: the im2col rows of h1, gathered: column k = tap * M + m of
+// pixel q is h1 at (q / tw + dy, q % tw + dx), tap = 3 dy + dx.
+struct H1Taps {
+  unsigned h1;
+  int ldh, hw, tw, np2, M;
+  unsigned minv;  // ceil(2^32 / M): tap = umulhi(k, minv), k < 2^16
+
+  __device__ void stage_pass(int, int) {}
+  __device__ void stage_chunk(int, int, int) {}
+  __device__ int row(int r, int m0, int) const {
+    int q = m0 + r;
+    q = q < np2 ? q : np2 - 1;
+    return ((q / tw) * hw + q % tw) * ldh;
+  }
+  __device__ unsigned base(int) const { return h1; }
+  __device__ int kofs(int k, int) const {
+    const int tap = __umulhi(unsigned(k), minv);
+    const int dy = (tap * 11) >> 5, dx = tap - 3 * dy;  // tap / 3, tap % 3
+    return (dy * hw + dx) * ldh + k - tap * M;
+  }
+};
+
+// Phase 3: the h2 rows.
+struct H2Rows {
+  unsigned h2;
+  int ldh, np2;
+
+  __device__ void stage_pass(int, int) {}
+  __device__ void stage_chunk(int, int, int) {}
+  __device__ int row(int r, int m0, int) const {
+    const int q = m0 + r;
+    return (q < np2 ? q : np2 - 1) * ldh;
+  }
+  __device__ unsigned base(int) const { return h2; }
+  __device__ int kofs(int k, int) const { return k; }
+};
+
+// out[p, n] = epi(p, n, sum_k A[p, k] * B[k, n], the same at n + 1) for
+// p < P and even n < N, on the tensor cores. B: (K, N) row-major bf16 in
+// device memory; K and N multiples of 16.
+//
+// The 8 warps form a WM x (8 / WM) grid; each owns MT m16 tiles by NP2
+// column pairs (n16) of a pass of RP rows by NP columns, NP <= N. The
+// passes and their kKB-deep K chunks run as one sequence of chunks
+// through a ring of `stages` buffers, so the copies of the next pass's
+// first chunks overlap this pass's last ones; one barrier per chunk.
+template <int WM, int MT, int NP2, typename AOp, typename Epi>
+__device__ __forceinline__ void tc_gemm(int P, int N, int K,
+                                        const bf16* __restrict__ B,
+                                        bf16* Bs, int ldb, int stages,
+                                        AOp& A, Epi epi) {
+  constexpr int WN = 8 / WM, RP = WM * MT * 16, NP = WN * NP2 * 16;
+  constexpr int kBVec = (kKB * NP / 8 + kThreads - 1) / kThreads;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = warp / WN * MT * 16, c0 = warp % WN * NP2 * 16;
+  const int lrow = lane % 16, lcol = (lane / 16) * 8;
+  const int rows_all = round16(P);
+  const int npass = (N + NP - 1) / NP, nk = (K + kKB - 1) / kKB;
+  const int total = (rows_all + RP - 1) / RP * npass * nk;
+  const unsigned bs = smem_addr(Bs);
+  const int bstride = kKB * ldb;
+
+  // Copies: the next chunk to stage is (s_pass, s_kc) into buffer s_buf;
+  // this thread's weight vectors in that pass's chunks are (row, col)
+  // pairs packed as row << 16 | col (row kKB: none).
+  int s_pass = -1, s_kc = nk - 1, s_buf = 0, s_n0 = 0;
+  int bvec[kBVec];
+  auto stage = [&](int g) {
+    if (g < total) {
+      if (++s_kc == nk) {
+        s_kc = 0;
+        ++s_pass;
+        const int m0 = s_pass / npass * RP;
+        s_n0 = s_pass % npass * NP;
+        const int cols = N - s_n0 < NP ? N - s_n0 : NP, vpr = cols / 8;
+#pragma unroll
+        for (int j = 0; j < kBVec; ++j) {
+          const int v = threadIdx.x + kThreads * j, r = v / vpr;
+          bvec[j] = r < kKB ? (r << 16) | ((v - r * vpr) * 8) : kKB << 16;
+        }
+        A.stage_pass(m0, rows_all - m0 < RP ? rows_all - m0 : RP);
+      }
+      const int k0 = s_kc * kKB, kl = K - k0 < kKB ? K - k0 : kKB;
+      const bf16* src = B + size_t(k0) * N + s_n0;
+#pragma unroll
+      for (int j = 0; j < kBVec; ++j) {
+        const int r = bvec[j] >> 16, c = bvec[j] & 0xffff;
+        if (r < kl)
+          cp_async16_addr(bs + 2 * (s_buf * bstride + r * ldb + c),
+                          src + size_t(r) * N + c, true);
+      }
+      A.stage_chunk(k0, kl, s_buf);
+      s_buf = s_buf + 1 == stages ? 0 : s_buf + 1;
+    }
+    cp_async_commit();  // possibly empty: one group per chunk slot
+  };
+
+  float acc[MT][2 * NP2][4];
+  unsigned aoff[MT];
+  int pass = -1, kc = nk - 1, buf = 0, m0 = 0, n0 = 0;
+  for (int s = 0; s < stages - 1; ++s) stage(s);
+  for (int g = 0; g < total; ++g) {
+    cp_async_wait_upto(stages - 2);  // chunk g has landed (this thread)
+    __syncthreads();  // ... for all threads; chunk g - 1's readers done
+    stage(g + stages - 1);  // into chunk g - 1's buffer
+    if (++kc == nk) {
+      kc = 0;
+      ++pass;
+      m0 = pass / npass * RP;
+      n0 = pass % npass * NP;
+      const int rows = rows_all - m0 < RP ? rows_all - m0 : RP;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        aoff[i] = 2 * (A.row(r0 + 16 * i + lrow, m0, rows) + lcol);
+#pragma unroll
+        for (int j = 0; j < 2 * NP2; ++j)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+      }
+    }
+    const int k0 = kc * kKB, kl = K - k0 < kKB ? K - k0 : kKB;
+    const unsigned abase = A.base(buf);
+    const unsigned bbase = bs + 2 * (buf * bstride + lrow * ldb + c0 + lcol);
+#pragma unroll
+    for (int ks = 0; ks < kKB; ks += 16) {
+      if (ks < kl) {
+        const unsigned ak = abase + 2 * A.kofs(k0 + ks, ks);
+        uint32_t a[MT][4], b[NP2][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) ldsm_x4(a[i], ak + aoff[i]);
+#pragma unroll
+        for (int j = 0; j < NP2; ++j)
+          ldsm_x4_trans(b[j], bbase + 2 * ks * ldb + 32 * j);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NP2; ++j) {
+            mma_bf16(acc[i][2 * j], a[i], b[j][0], b[j][1]);
+            mma_bf16(acc[i][2 * j + 1], a[i], b[j][2], b[j][3]);
+          }
+      }
+    }
+    if (kc == nk - 1) {
+      // Accumulator (i, jj): rows lane/4 and +8, columns 2 (lane%4), +1.
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int p = m0 + r0 + 16 * i + lane / 4;
+#pragma unroll
+        for (int jj = 0; jj < 2 * NP2; ++jj) {
+          const int n = n0 + c0 + 8 * jj + 2 * (lane % 4);
+          if (n < N) {
+            if (p < P) epi(p, n, acc[i][jj][0], acc[i][jj][1]);
+            if (p + 8 < P) epi(p + 8, n, acc[i][jj][2], acc[i][jj][3]);
+          }
+        }
+      }
+    }
+    buf = buf + 1 == stages ? 0 : buf + 1;
+  }
+  cp_async_wait<0>();  // the trailing empty groups
+  __syncthreads();  // the epilogue's shared-memory writes are visible
+}
+
+// The plan for a P x N product with the fewest estimated cycles: passes
+// x the per-SM cycles of one k16 step, the larger of the products
+// (16 MT NP2 m16n8k16 over 8 warps, about one a cycle) and the
+// ldmatrix.x4 loads (8 (MT + NP2), 4 cycles each at 128 bytes a cycle).
+// Plans wider than N are skipped. The plans are the warp grids tc_gemm
+// is built for (tc_product): (WM, MT, NP2), a pass of 16 WM MT rows by
+// 128 NP2 / WM columns.
+constexpr int kNumPlans = 6;
+
+__device__ __forceinline__ int pick_plan(int P, int N) {
+  const int plans[kNumPlans][3] = {{1, 4, 2}, {2, 4, 2}, {2, 3, 2},
+                                   {4, 2, 2}, {8, 1, 2}, {8, 1, 1}};
+  int best = kNumPlans - 1;
+  long best_cost = -1;
+#pragma unroll
+  for (int i = 0; i < kNumPlans; ++i) {
+    const int wm = plans[i][0], mt = plans[i][1], np2 = plans[i][2];
+    const int rp = wm * mt * 16, np = (8 / wm) * np2 * 16;
+    if (np > N) continue;
+    const long passes =
+        long((round16(P) + rp - 1) / rp) * ((N + np - 1) / np);
+    const long mma = 16L * mt * np2, lds = 32L * (mt + np2);
+    const long cost = passes * (mma > lds ? mma : lds);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = i;
+    }
+  }
+  return best;
+}
+
+template <typename AOp, typename Epi>
+__device__ __forceinline__ void tc_product(int P, int N, int K,
+                                           const bf16* __restrict__ B,
+                                           bf16* Bs, int ldb, int stages,
+                                           AOp& A, Epi epi) {
+  switch (pick_plan(P, N)) {
+    case 0: tc_gemm<1, 4, 2>(P, N, K, B, Bs, ldb, stages, A, epi); break;
+    case 1: tc_gemm<2, 4, 2>(P, N, K, B, Bs, ldb, stages, A, epi); break;
+    case 2: tc_gemm<2, 3, 2>(P, N, K, B, Bs, ldb, stages, A, epi); break;
+    case 3: tc_gemm<4, 2, 2>(P, N, K, B, Bs, ldb, stages, A, epi); break;
+    case 4: tc_gemm<8, 1, 2>(P, N, K, B, Bs, ldb, stages, A, epi); break;
+    default: tc_gemm<8, 1, 1>(P, N, K, B, Bs, ldb, stages, A, epi); break;
+  }
+}
+
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+bottleneck_tc_kernel(const bf16* __restrict__ x,     // (B, H, W, C)
+                     const bf16* __restrict__ w1,    // (C, M)
+                     const float* __restrict__ b1,   // (M,)
+                     const bf16* __restrict__ w2,    // (9, M, M)
+                     const float* __restrict__ b2,   // (M,)
+                     const bf16* __restrict__ w3,    // (M, C)
+                     const float* __restrict__ b3,   // (C,)
+                     bf16* __restrict__ y,           // (B, H, W, C)
+                     int H, int W, int C, int M, int th, int tw,
+                     int stages) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TcLayout L = make_tc_layout(th, tw, M, C, stages);
+  bf16* h1s = reinterpret_cast<bf16*>(smem + L.h1);
+  bf16* h2s = reinterpret_cast<bf16*>(smem + L.h2);
+  bf16* Bs = reinterpret_cast<bf16*>(smem + L.bs);
+  const int ldh = L.ldh;
+  const int hw = tw + 2, np1 = (th + 2) * hw, np2 = th * tw;
+  const int ty0 = blockIdx.y * th, tx0 = blockIdx.x * tw;
+  const bf16* xb = x + size_t(blockIdx.z) * H * W * C;
+  bf16* yb = y + size_t(blockIdx.z) * H * W * C;
+
+  // Phase 1: h1 over the tile and its halo; phase 1's x staging lies
+  // over h2, which is not written before phase 2.
+  XRows xr{xb, smem_addr(h2s), L.arows * L.lda, L.lda, H, W, C, hw, np1,
+           ty0, tx0, {0, 0}, {0, 0}};
+  tc_product(np1, M, C, w1, Bs, L.ldb, stages, xr,
+             [&](int p, int n, float a0, float a1) {
+               const int gy = ty0 - 1 + p / hw, gx = tx0 - 1 + p % hw;
+               const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+               store2(h1s + p * ldh + n, in ? fmaxf(a0 + b1[n], 0.f) : 0.f,
+                      in ? fmaxf(a1 + b1[n + 1], 0.f) : 0.f);
+             });
+
+  // Phase 2: the 3x3 over h1 as a 9M-deep product.
+  H1Taps taps{smem_addr(h1s), ldh, hw, tw, np2, M, 0xffffffffu / M + 1};
+  tc_product(np2, M, 9 * M, w2, Bs, L.ldb, stages, taps,
+             [&](int q, int n, float a0, float a1) {
+               store2(h2s + q * ldh + n, fmaxf(a0 + b2[n], 0.f),
+                      fmaxf(a1 + b2[n + 1], 0.f));
+             });
+
+  // Phase 3: y = relu(h2 . w3 + b3 + x) on the pixels inside the image.
+  H2Rows h2r{smem_addr(h2s), ldh, np2};
+  tc_product(np2, C, M, w3, Bs, L.ldb, stages, h2r,
+             [&](int q, int n, float a0, float a1) {
+               const int gy = ty0 + q / tw, gx = tx0 + q % tw;
+               if (gy < H && gx < W) {
+                 const size_t o = (size_t(gy) * W + gx) * C + n;
+                 const float2 r = __bfloat1622float2(
+                     *reinterpret_cast<const __nv_bfloat162*>(xb + o));
+                 store2(yb + o, fmaxf(a0 + b3[n] + r.x, 0.f),
+                        fmaxf(a1 + b3[n + 1] + r.y, 0.f));
+               }
+             });
+}
+
+// What bounds the bf16 kernel's blocks per SM on the current device.
+struct TcOccupancy {
+  int sms, smem_sm;
+  long reg_cap;  // blocks per SM its registers allow
+};
+
+TcOccupancy tc_occupancy() {
+  static const int regs = [] {
+    cudaFuncAttributes a{};
+    cudaFuncGetAttributes(&a, bottleneck_tc_kernel);
+    return a.numRegs > 0 ? a.numRegs : 128;
+  }();
+  TcOccupancy o{132, 233472, 0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&o.sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&o.smem_sm,
+                         cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  o.reg_cap = 65536L / (kThreads * ((regs + 7) & ~7));
+  return o;
+}
+
+long blocks_per_sm(const TcOccupancy& o, size_t bytes) {
+  long n = o.smem_sm / long(bytes + 1024);  // 1 KB reserved per block
+  n = n < o.reg_cap ? n : o.reg_cap;
+  n = n < 2048 / kThreads ? n : 2048 / kThreads;
+  return n > 1 ? n : 1;
+}
+
+// The deepest ring (4 down to 2 stages) for a tile that keeps as many
+// blocks on an SM as 2 stages do; 0 when the tile does not fit.
+int pick_stages(const TcOccupancy& o, int th, int tw, int M, int C,
+                size_t* bytes, long* per_sm) {
+  const size_t two = make_tc_layout(th, tw, M, C, 2).total;
+  if (two > kSmemLimit) return 0;
+  *per_sm = blocks_per_sm(o, two);
+  for (int s = 4; s > 2; --s) {
+    const size_t b = make_tc_layout(th, tw, M, C, s).total;
+    if (b <= kSmemLimit && blocks_per_sm(o, b) == *per_sm) {
+      *bytes = b;
+      return s;
+    }
+  }
+  *bytes = two;
+  return 2;
+}
+
+// The bf16 kernel's tile for one launch: of the candidates whose shared
+// memory fits, the one with the least estimated time, i.e. waves of
+// blocks (at the blocks per SM that its shared memory and registers
+// allow) x blocks per SM x the cost of one block: its MACs, rows padded
+// to 16, plus 16 per weight element it streams (every block streams all
+// 2 C M + 9 M^2 of them, so small tiles pay for them more often).
+void pick_tc_tile(int B, int H, int W, int C, int M, int* th, int* tw,
+                  int* stages, size_t* bytes) {
+  static const int kTiles[][2] = {{8, 16}, {16, 8}, {8, 8}, {8, 7},
+                                  {7, 8},  {4, 8},  {8, 4}, {4, 4},
+                                  {2, 4},  {2, 2},  {1, 2}, {1, 1}};
+  const TcOccupancy o = tc_occupancy();
+  double best = -1.0;
+  *th = *tw = *stages = 0;
+  *bytes = 0;
+  for (const auto& t : kTiles) {
+    size_t b;
+    long per_sm;
+    const int s = pick_stages(o, t[0], t[1], M, C, &b, &per_sm);
+    if (s == 0) continue;
+    const long blocks = long(B) * ((H + t[0] - 1) / t[0]) *
+                        ((W + t[1] - 1) / t[1]);
+    const long waves = (blocks + o.sms * per_sm - 1) / (o.sms * per_sm);
+    const double work =
+        double(round16((t[0] + 2) * (t[1] + 2))) * C * M +
+        double(round16(t[0] * t[1])) * (9.0 * M * M + double(M) * C) +
+        16.0 * (2.0 * C * M + 9.0 * M * M);
+    const double cost = double(waves) * per_sm * work;
+    if (best < 0 || cost < best) {
+      best = cost;
+      *th = t[0];
+      *tw = t[1];
+      *stages = s;
+      *bytes = b;
+    }
+  }
+}
+
 // The largest output tile whose shared memory fits in one block.
 void pick_tile(int M, int elem, int* th, int* tw, size_t* bytes) {
   static const int kTiles[][2] = {{8, 8}, {4, 8}, {4, 4}, {2, 4},
@@ -302,24 +829,74 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2,
   return int(cudaGetLastError());
 }
 
+// th = tw = 0: the tile of pick_tc_tile; else that tile, if it fits.
+int launch_tc(const void* x, const void* w1, const void* b1, const void* w2,
+              const void* b2, const void* w3, const void* b3, void* y,
+              int B, int H, int W, int C, int M, int th, int tw,
+              cudaStream_t stream) {
+  size_t bytes;
+  int stages;
+  if (th > 0 && tw > 0) {
+    long per_sm;
+    stages = pick_stages(tc_occupancy(), th, tw, M, C, &bytes, &per_sm);
+  } else {
+    pick_tc_tile(B, H, W, C, M, &th, &tw, &stages, &bytes);
+  }
+  if (stages == 0) return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      bottleneck_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(bytes));
+  if (err != cudaSuccess) return int(err);
+  dim3 grid((W + tw - 1) / tw, (H + th - 1) / th, B);
+  bottleneck_tc_kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), static_cast<const bf16*>(w3),
+      static_cast<const float*>(b3), static_cast<bf16*>(y), H, W, C, M, th,
+      tw, stages);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; th = tw = 0 picks the tile, else
+// (bfloat16 only) that tile. Returns a cudaError_t (0 = launched).
+int spec_bottleneck_forward_tile(int dtype, const void* x, const void* w1,
+                                 const void* b1, const void* w2,
+                                 const void* b2, const void* w3,
+                                 const void* b3, void* y, int B, int H,
+                                 int W, int C, int M, int th, int tw,
+                                 void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C % KC || M % KC || B > 65535 ||
+      th < 0 || tw < 0)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && th == 0 && tw == 0)
+    return launch<float>(x, w1, b1, w2, b2, w3, b3, y, B, H, W, C, M, s);
+  if (dtype == 1)
+    return launch_tc(x, w1, b1, w2, b2, w3, b3, y, B, H, W, C, M, th, tw,
+                     s);
+  return int(cudaErrorInvalidValue);
+}
+
+// The same with the picked tile.
 int spec_bottleneck_forward(int dtype, const void* x, const void* w1,
                             const void* b1, const void* w2, const void* b2,
                             const void* w3, const void* b3, void* y, int B,
                             int H, int W, int C, int M, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C % KC || M % KC || B > 65535)
-    return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(x, w1, b1, w2, b2, w3, b3, y, B, H, W, C, M, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w1, b1, w2, b2, w3, b3, y, B, H, W, C,
-                                 M, s);
-  return int(cudaErrorInvalidValue);
+  return spec_bottleneck_forward_tile(dtype, x, w1, b1, w2, b2, w3, b3, y,
+                                      B, H, W, C, M, 0, 0, stream);
+}
+
+// The bf16 tile and ring depth spec_bottleneck_forward picks at this
+// shape, on the current device (for reports). Returns a cudaError_t.
+int spec_bottleneck_pick_tile(int B, int H, int W, int C, int M, int* th,
+                              int* tw, int* stages) {
+  size_t bytes;
+  pick_tc_tile(B, H, W, C, M, th, tw, stages, &bytes);
+  return *th == 0 ? int(cudaErrorInvalidValue) : int(cudaGetLastError());
 }
 
 }  // extern "C"

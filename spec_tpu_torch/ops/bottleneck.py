@@ -112,24 +112,52 @@ def fused_bottleneck_chain_plain(x: torch.Tensor, weights) -> torch.Tensor:
 
 @functools.cache
 def _kernel():
-    """The built kernel's C entry point, with its argument types."""
+    """The built kernel's C entry point (the one that also takes a
+    tile), with its argument types."""
     from spec_tpu_torch.ops.cuda_build import load_library
 
-    fn = load_library('bottleneck').spec_bottleneck_forward
+    fn = load_library('bottleneck').spec_bottleneck_forward_tile
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
+        ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(x: torch.Tensor, block) -> torch.Tensor:
+def picked_tile(B: int, H: int, W: int, C: int, M: int) -> tuple:
+    """(TH, TW, stages): the output tile and the depth of the copy ring
+    that the bf16 kernel picks for x (B, H, W, C) and width M on the
+    current CUDA device."""
+    from spec_tpu_torch.ops.cuda_build import load_library
+
+    fn = load_library('bottleneck').spec_bottleneck_pick_tile
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int() for _ in range(3)]
+    err = fn(B, H, W, C, M, *(ctypes.byref(v) for v in out))
+    if err != 0:
+        raise RuntimeError(f'no bf16 tile fits C={C} M={M} (CUDA error '
+                           f'{err})')
+    return tuple(v.value for v in out)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its data is not 16-byte aligned (the
+    bf16 kernel copies rows with 16-byte cp.async)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(x: torch.Tensor, block, tile=(0, 0)) -> torch.Tensor:
+    """One block on the kernel. ``tile`` (TH, TW) forces the bf16
+    kernel's output tile, for timing the candidates; (0, 0) lets the
+    kernel pick it."""
     global LAUNCHES
     fn = _kernel()
     B, H, W, C = x.shape
     dt = x.dtype
     w1, b1, w2, b2, w3, b3 = block
     M = w1.shape[-1]
-    w1, w2, w3 = (w.to(dt) for w in (w1, w2, w3))
+    x = _aligned(x)
+    w1, w2, w3 = (_aligned(w.to(dt)) for w in (w1, w2, w3))
     b1, b2, b3 = (b.float() for b in (b1, b2, b3))
     out = torch.empty_like(x)
     if x.numel() == 0:
@@ -139,7 +167,7 @@ def _launch(x: torch.Tensor, block) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(_DTYPES[dt], x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                  w2.data_ptr(), b2.data_ptr(), w3.data_ptr(), b3.data_ptr(),
-                 out.data_ptr(), B, H, W, C, M, stream)
+                 out.data_ptr(), B, H, W, C, M, *tile, stream)
     if err != 0:
         raise RuntimeError(f'bottleneck kernel launch failed with CUDA '
                            f'error {err}')

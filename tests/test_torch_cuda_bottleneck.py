@@ -8,7 +8,13 @@ where JAX is not installed, without the suite's conftest:
 
 Shapes: every ResNet-50 stage's identity block on 512x672 frames (the
 pipeline's stage-1 bucket), at batch 2, plus odd H and W; chains of 1-3
-blocks; float32 and bfloat16. Budgets, relative to max(1, max |plain|):
+blocks; float32 and bfloat16. The bf16 kernel runs on the tensor cores
+in m16n8k16 tiles, so further cases put its edges to work: pixel counts
+per tile that are not a multiple of 16, M = 16 (one k16 step), C = 16
+and 48 (a K chunk of 32 cut short), every candidate output tile forced
+at small shapes and the ones that fit at layer4 (C = 2048, M = 512) at
+batch 16, and two launches that must agree bit for bit (no atomics, a
+fixed order of sums). Budgets, relative to max(1, max |plain|):
 fp32 1e-4 (both sides exact fp32, only the summation order differs);
 bf16 2^-6, about two bf16 steps at the largest value (a sum that lands
 near a rounding boundary of h1, h2 or y may round the other way and
@@ -23,7 +29,14 @@ from spec_tpu_torch.ops import bottleneck as TB
 
 STAGES = [(128, 168, 256, 64), (64, 84, 512, 128), (32, 42, 1024, 256),
           (16, 21, 2048, 512)]
-ODD = [(13, 11, 256, 64), (7, 9, 64, 16), (5, 3, 32, 16)]
+ODD = [(13, 11, 256, 64), (7, 9, 64, 16), (5, 3, 32, 16), (4, 5, 16, 16),
+       (9, 14, 48, 32)]
+# (B, H, W, C, M, (TH, TW)): forced bf16 output tiles; the layer4 tiles
+# are the ones whose shared memory fits at M = 512.
+FORCED_TILES = ([(2, 13, 11, 48, 16, t) for t in (
+    (8, 16), (16, 8), (8, 8), (8, 7), (7, 8), (4, 8), (8, 4), (4, 4),
+    (2, 4), (2, 2), (1, 2), (1, 1))] +
+    [(16, 16, 21, 2048, 512, t) for t in ((8, 8), (8, 7), (4, 8))])
 BUDGET = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 
 
@@ -51,9 +64,12 @@ def random_chain(B, H, W, C, M, k, seed, dtype, device):
     return x, ws
 
 
-def _check(x, ws):
+def _check(x, ws, tile=None):
     before = TB.LAUNCHES
-    out = TB.fused_bottleneck_chain(x, ws)
+    if tile is None:
+        out = TB.fused_bottleneck_chain(x, ws)
+    else:
+        out = TB._launch(x, ws[0], tile)
     torch.cuda.synchronize()
     assert TB.LAUNCHES == before + len(ws)
     ref = TB.fused_bottleneck_chain_plain(x, ws)
@@ -72,6 +88,26 @@ def test_kernel_matches_plain(cuda_device, shape, k, dtype):
     H, W, C, M = shape
     _check(*random_chain(2, H, W, C, M, k, seed=H * k, dtype=dtype,
                          device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', FORCED_TILES)
+def test_bf16_forced_tile_matches_plain(cuda_device, case):
+    B, H, W, C, M, tile = case
+    _check(*random_chain(B, H, W, C, M, 1, seed=7, dtype=torch.bfloat16,
+                         device=cuda_device), tile=tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [STAGES[0], STAGES[3], ODD[0]])
+def test_bf16_repeat_launches_agree_bit_for_bit(cuda_device, shape):
+    H, W, C, M = shape
+    x, ws = random_chain(2, H, W, C, M, 2, seed=3, dtype=torch.bfloat16,
+                         device=cuda_device)
+    first = TB.fused_bottleneck_chain(x, ws)
+    second = TB.fused_bottleneck_chain(x, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
