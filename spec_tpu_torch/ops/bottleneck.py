@@ -16,7 +16,9 @@ relu(b1)). A chain of K blocks applies them in turn.
 :func:`fused_bottleneck_chain` launches the kernel once per block for
 CUDA tensors and runs :func:`fused_bottleneck_chain_plain` for CPU
 tensors; nothing falls back from one to the other. ``LAUNCHES`` counts
-kernel launches.
+kernel launches. The kernel's bf16 variant runs its three products on
+the tensor cores (``mma.sync`` bf16 -> fp32); its fp32 variant runs exact
+fp32 FMAs on the CUDA cores (the design note heads the source).
 """
 
 from __future__ import annotations
