@@ -83,8 +83,8 @@ K2_BUDGET = 1e-2           # px (TPU_CHECKS_r05.json)
 # and K1, K2 on the CUDA cores in fp32) and the HBM rate.
 PEAK_FLOPS = {'bf16': 989e12, 'fp32': 67e12}
 HBM_BYTES_PER_S = 3.35e12
-K3_TILES = ((8, 16), (16, 8), (8, 8), (8, 7), (7, 8), (4, 8), (8, 4),
-            (4, 4), (2, 4))
+K3_TILES = ((8, 16), (16, 8), (8, 8), (8, 7), (7, 8), (8, 6), (6, 8),
+            (4, 8), (8, 4), (4, 4))
 # Fused vs module stage-1 angles (rad) in fp32: only the BN fold and the
 # summation order differ.
 ANGLE_BUDGET_FP32 = 1e-4

@@ -41,31 +41,38 @@
 // arithmetic as the Pallas body (bf16 operands, exact products, fp32
 // sums; only the order of the sums differs, and it is fixed, so two
 // launches agree bit for bit). The 8 warps of a block form a warp grid
-// picked per phase from six compiled ones (pick_plan); each warp owns up
+// picked per phase from the compiled ones (pick_plan); each warp owns up
 // to 4 x 4 m16n8 tiles of a pass. A fragments come through ldmatrix.x4
 // from per-lane row addresses computed once per pass (phase 1: the
 // staged x rows; phase 2: the h1 row of the lane's pixel, shifted per
 // k16 step by the tap's offset, found with a multiply-high instead of a
 // division; phase 3: the h2 rows). Weights (K, N) row-major are staged
 // 32 K-rows at a time with 16-byte cp.async through a ring of 2-4
-// buffers, one barrier per chunk, the passes of a phase run as one
-// sequence so the next pass's first copies overlap this one's last
-// products; they are read with ldmatrix.x4.trans. Phase 1's x rows are
-// staged beside them (zero-filled outside the image). Every bf16 row
-// stride in shared memory is cols + 8 elements: 16-byte aligned for
-// cp.async and ldmatrix, and an odd number of 16-byte units, so the 8
-// rows an ldmatrix phase reads fall in distinct banks. The inner loop
-// has no division and no branch per product: rows past a pass or an
-// operand read a valid row and the epilogue drops them. The epilogues
-// work on the accumulator layout (rows lane/4 and +8, columns
-// 2 (lane%4) and +1) and store bf16 pairs. The kernel takes up to 255
-// registers a thread (one block per SM): capped at 128 for two blocks
-// per SM it spilled ~5.6 KB a thread and ran 1.5-2.6x slower. The host
-// picks the tile by a cost model (pick_tc_tile) and the deepest ring
-// that fits. Left for later: wgmma with B through TMA (mma.sync reaches
-// about two thirds of the card's bf16 rate, and ldmatrix traffic rivals
-// the products at these warp tiles), a persistent grid, coalesced y
-// stores through shared memory, and chain fusion at layer1.
+// buffers, one barrier per chunk; the passes of a phase run as one
+// sequence, and each chunk's copies are issued behind the products of
+// the chunk before, so they overlap the tensor cores' work. They are
+// read with ldmatrix.x4.trans. Phase 1's x rows are staged beside them
+// (zero-filled outside the image). Every bf16 row stride in shared
+// memory is cols + 8 elements: 16-byte aligned for cp.async and
+// ldmatrix, and an odd number of 16-byte units, so the 8 rows an
+// ldmatrix phase reads fall in distinct banks. The inner loop has no
+// division and no branch per product: rows past a pass or an operand
+// read a valid row and the epilogue drops them. The epilogues work on
+// the accumulator layout (rows lane/4 and +8, columns 2 (lane%4) and
+// +1): each row's output offset once per pass, the biases once, each
+// m16 tile's residuals loaded together before its bf16-pair stores.
+// Two instantiations: above M = 64 the wide kernel, with warp tiles up
+// to 64 x 32 and up to 255 registers a thread (one block per SM; capped
+// at 128 it spilled ~5.6 KB a thread and ran 1.5-2.6x slower); at and
+// below, the narrow kernel with the small warp grids only (123
+// registers, two blocks per SM), 1.4x faster at M = 64 than the wide
+// one. The host picks the tile by a cost model (pick_tc_tile) and the
+// deepest ring that keeps the blocks per SM. Left for later: wgmma with
+// B through TMA (mma.sync reaches about two thirds of the card's bf16
+// rate; here ldmatrix latency with 8 warps an SM, cp.async issue and
+// the weights re-streamed for every small pixel tile hold it to about a
+// third of that), a persistent grid, 16-byte y stores, and chain fusion
+// at layer1.
 //
 // fp32 (block_gemm, bottleneck_kernel): exact fp32 FMAs on the CUDA
 // cores (Hopper has no fp32 tensor-core path short of TF32, which would
@@ -294,6 +301,7 @@ bottleneck_kernel(const T* __restrict__ x,      // (B, H, W, C)
 using bf16 = __nv_bfloat16;
 
 constexpr int kKB = 32;          // K rows of one staged chunk
+constexpr int kNoRow = -2147483647 - 1;  // an epilogue row to drop
 constexpr int kMaxRows = 128;    // rows of one pass (phase-1 x staging)
 constexpr int kMaxCols = 256;    // columns of one pass (weight staging)
 
@@ -472,9 +480,12 @@ struct H2Rows {
   __device__ int kofs(int k, int) const { return k; }
 };
 
-// out[p, n] = epi(p, n, sum_k A[p, k] * B[k, n], the same at n + 1) for
-// p < P and even n < N, on the tensor cores. B: (K, N) row-major bf16 in
-// device memory; K and N multiples of 16.
+// For p < P and even n < N, with s = sum_k A[p, k] * B[k, n] and s' the
+// same at n + 1, r = epi.row(p): epi.put(r, n, s, s', epi.bias(n),
+// epi.residual(r, n)), on the tensor cores (row: a handle for output
+// row p, kNoRow to drop it; bias: the pair of biases at n, n + 1;
+// residual: the bf16 pair added before the ReLU, as raw bits). B: (K, N)
+// row-major bf16 in device memory; K and N multiples of 16.
 //
 // The 8 warps form a WM x (8 / WM) grid; each owns MT m16 tiles by NP2
 // column pairs (n16) of a pass of RP rows by NP columns, NP <= N. The
@@ -539,7 +550,6 @@ __device__ __forceinline__ void tc_gemm(int P, int N, int K,
   for (int g = 0; g < total; ++g) {
     cp_async_wait_upto(stages - 2);  // chunk g has landed (this thread)
     __syncthreads();  // ... for all threads; chunk g - 1's readers done
-    stage(g + stages - 1);  // into chunk g - 1's buffer
     if (++kc == nk) {
       kc = 0;
       ++pass;
@@ -577,18 +587,48 @@ __device__ __forceinline__ void tc_gemm(int P, int N, int K,
           }
       }
     }
+    // Chunk g + stages - 1 into chunk g - 1's buffer, issued behind this
+    // chunk's products so the copies overlap the tensor cores' work.
+    stage(g + stages - 1);
     if (kc == nk - 1) {
       // Accumulator (i, jj): rows lane/4 and +8, columns 2 (lane%4), +1.
+      // Per pass: each of this thread's 2 MT rows once (epi.row), the
+      // biases once, then per m16 tile all residuals before any store,
+      // so their loads overlap instead of waiting on each store.
+      int row[MT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = m0 + r0 + 16 * i + lane / 4 + 8 * h;
+          row[i][h] = p < P ? epi.row(p) : kNoRow;
+        }
+      float2 bias[2 * NP2];
+#pragma unroll
+      for (int jj = 0; jj < 2 * NP2; ++jj) {
+        const int n = n0 + c0 + 8 * jj + 2 * (lane % 4);
+        bias[jj] = n < N ? epi.bias(n) : make_float2(0.f, 0.f);
+      }
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        const int p = m0 + r0 + 16 * i + lane / 4;
+        uint32_t res[2 * NP2][2];
 #pragma unroll
         for (int jj = 0; jj < 2 * NP2; ++jj) {
           const int n = n0 + c0 + 8 * jj + 2 * (lane % 4);
-          if (n < N) {
-            if (p < P) epi(p, n, acc[i][jj][0], acc[i][jj][1]);
-            if (p + 8 < P) epi(p + 8, n, acc[i][jj][2], acc[i][jj][3]);
-          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            res[jj][h] = n < N && row[i][h] != kNoRow
+                             ? epi.residual(row[i][h], n)
+                             : 0u;
+        }
+#pragma unroll
+        for (int jj = 0; jj < 2 * NP2; ++jj) {
+          const int n = n0 + c0 + 8 * jj + 2 * (lane % 4);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (n < N && row[i][h] != kNoRow)
+              epi.put(row[i][h], n, acc[i][jj][2 * h],
+                      acc[i][jj][2 * h + 1], bias[jj], res[jj][h]);
         }
       }
     }
@@ -604,16 +644,20 @@ __device__ __forceinline__ void tc_gemm(int P, int N, int K,
 // ldmatrix.x4 loads (8 (MT + NP2), 4 cycles each at 128 bytes a cycle).
 // Plans wider than N are skipped. The plans are the warp grids tc_gemm
 // is built for (tc_product): (WM, MT, NP2), a pass of 16 WM MT rows by
-// 128 NP2 / WM columns.
-constexpr int kNumPlans = 6;
+// 128 NP2 / WM columns. The first kWidePlans are built only into the
+// wide kernel: their accumulators need more than the 128 registers a
+// thread has at two blocks per SM.
+constexpr int kNumPlans = 7, kWidePlans = 4;
 
+template <bool kWide>
 __device__ __forceinline__ int pick_plan(int P, int N) {
   const int plans[kNumPlans][3] = {{1, 4, 2}, {2, 4, 2}, {2, 3, 2},
-                                   {4, 2, 2}, {8, 1, 2}, {8, 1, 1}};
+                                   {1, 3, 2}, {4, 2, 2}, {8, 1, 2},
+                                   {8, 1, 1}};
   int best = kNumPlans - 1;
   long best_cost = -1;
 #pragma unroll
-  for (int i = 0; i < kNumPlans; ++i) {
+  for (int i = kWide ? 0 : kWidePlans; i < kNumPlans; ++i) {
     const int wm = plans[i][0], mt = plans[i][1], np2 = plans[i][2];
     const int rp = wm * mt * 16, np = (8 / wm) * np2 * 16;
     if (np > N) continue;
@@ -629,17 +673,24 @@ __device__ __forceinline__ int pick_plan(int P, int N) {
   return best;
 }
 
-template <typename AOp, typename Epi>
+template <bool kWide, typename AOp, typename Epi>
 __device__ __forceinline__ void tc_product(int P, int N, int K,
                                            const bf16* __restrict__ B,
                                            bf16* Bs, int ldb, int stages,
                                            AOp& A, Epi epi) {
-  switch (pick_plan(P, N)) {
-    case 0: tc_gemm<1, 4, 2>(P, N, K, B, Bs, ldb, stages, A, epi); break;
-    case 1: tc_gemm<2, 4, 2>(P, N, K, B, Bs, ldb, stages, A, epi); break;
-    case 2: tc_gemm<2, 3, 2>(P, N, K, B, Bs, ldb, stages, A, epi); break;
-    case 3: tc_gemm<4, 2, 2>(P, N, K, B, Bs, ldb, stages, A, epi); break;
-    case 4: tc_gemm<8, 1, 2>(P, N, K, B, Bs, ldb, stages, A, epi); break;
+  const int plan = pick_plan<kWide>(P, N);
+  if constexpr (kWide) {
+    switch (plan) {
+      case 0: tc_gemm<1, 4, 2>(P, N, K, B, Bs, ldb, stages, A, epi); return;
+      case 1: tc_gemm<2, 4, 2>(P, N, K, B, Bs, ldb, stages, A, epi); return;
+      case 2: tc_gemm<2, 3, 2>(P, N, K, B, Bs, ldb, stages, A, epi); return;
+      case 3: tc_gemm<1, 3, 2>(P, N, K, B, Bs, ldb, stages, A, epi); return;
+      default: break;
+    }
+  }
+  switch (plan) {
+    case 4: tc_gemm<4, 2, 2>(P, N, K, B, Bs, ldb, stages, A, epi); break;
+    case 5: tc_gemm<8, 1, 2>(P, N, K, B, Bs, ldb, stages, A, epi); break;
     default: tc_gemm<8, 1, 1>(P, N, K, B, Bs, ldb, stages, A, epi); break;
   }
 }
@@ -648,7 +699,77 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+__device__ __forceinline__ float2 load_bias(const float* b, int n) {
+  return *reinterpret_cast<const float2*>(b + n);
+}
+
+// Phase 1's epilogue: h1 = relu(s + b1), 0 outside the image, into
+// shared memory. Row handle: the row's offset in h1, or -1 - offset for
+// a pixel outside the image.
+struct H1Out {
+  bf16* h1s;
+  const float* b1;
+  int ldh, hw, ty0, tx0, H, W;
+  __device__ int row(int p) const {
+    const int gy = ty0 - 1 + p / hw, gx = tx0 - 1 + p % hw;
+    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    return in ? p * ldh : -1 - p * ldh;
+  }
+  __device__ float2 bias(int n) const { return load_bias(b1, n); }
+  __device__ uint32_t residual(int, int) const { return 0u; }
+  __device__ void put(int r, int n, float a0, float a1, float2 b,
+                      uint32_t) const {
+    if (r >= 0)
+      store2(h1s + r + n, fmaxf(a0 + b.x, 0.f), fmaxf(a1 + b.y, 0.f));
+    else
+      store2(h1s + (-1 - r) + n, 0.f, 0.f);
+  }
+};
+
+// Phase 2's epilogue: h2 = relu(s + b2) into shared memory. Row handle:
+// the row's offset in h2.
+struct H2Out {
+  bf16* h2s;
+  const float* b2;
+  int ldh;
+  __device__ int row(int q) const { return q * ldh; }
+  __device__ float2 bias(int n) const { return load_bias(b2, n); }
+  __device__ uint32_t residual(int, int) const { return 0u; }
+  __device__ void put(int r, int n, float a0, float a1, float2 b,
+                      uint32_t) const {
+    store2(h2s + r + n, fmaxf(a0 + b.x, 0.f), fmaxf(a1 + b.y, 0.f));
+  }
+};
+
+// Phase 3's epilogue: y = relu(s + b3 + x) on the pixels inside the
+// image, stored to device memory. Row handle: the pixel's offset in the
+// image's x and y, kNoRow outside the image.
+struct YOut {
+  const bf16* xb;
+  bf16* yb;
+  const float* b3;
+  int tw, ty0, tx0, H, W, C;
+  __device__ int row(int q) const {
+    const int gy = ty0 + q / tw, gx = tx0 + q % tw;
+    return gy < H && gx < W ? (gy * W + gx) * C : kNoRow;
+  }
+  __device__ float2 bias(int n) const { return load_bias(b3, n); }
+  __device__ uint32_t residual(int r, int n) const {
+    return *reinterpret_cast<const uint32_t*>(xb + r + n);
+  }
+  __device__ void put(int r, int n, float a0, float a1, float2 b,
+                      uint32_t x) const {
+    const float2 xf = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&x));
+    store2(yb + r + n, fmaxf(a0 + b.x + xf.x, 0.f),
+           fmaxf(a1 + b.y + xf.y, 0.f));
+  }
+};
+
+// kWide: all warp grids, up to 255 registers a thread (one block per
+// SM); else the small grids only, at 128 (two blocks per SM).
+template <bool kWide>
+__global__ void __launch_bounds__(kThreads, kWide ? 1 : 2)
 bottleneck_tc_kernel(const bf16* __restrict__ x,     // (B, H, W, C)
                      const bf16* __restrict__ w1,    // (C, M)
                      const float* __restrict__ b1,   // (M,)
@@ -674,35 +795,18 @@ bottleneck_tc_kernel(const bf16* __restrict__ x,     // (B, H, W, C)
   // over h2, which is not written before phase 2.
   XRows xr{xb, smem_addr(h2s), L.arows * L.lda, L.lda, H, W, C, hw, np1,
            ty0, tx0, {0, 0}, {0, 0}};
-  tc_product(np1, M, C, w1, Bs, L.ldb, stages, xr,
-             [&](int p, int n, float a0, float a1) {
-               const int gy = ty0 - 1 + p / hw, gx = tx0 - 1 + p % hw;
-               const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-               store2(h1s + p * ldh + n, in ? fmaxf(a0 + b1[n], 0.f) : 0.f,
-                      in ? fmaxf(a1 + b1[n + 1], 0.f) : 0.f);
-             });
+  tc_product<kWide>(np1, M, C, w1, Bs, L.ldb, stages, xr,
+             H1Out{h1s, b1, ldh, hw, ty0, tx0, H, W});
 
   // Phase 2: the 3x3 over h1 as a 9M-deep product.
   H1Taps taps{smem_addr(h1s), ldh, hw, tw, np2, M, 0xffffffffu / M + 1};
-  tc_product(np2, M, 9 * M, w2, Bs, L.ldb, stages, taps,
-             [&](int q, int n, float a0, float a1) {
-               store2(h2s + q * ldh + n, fmaxf(a0 + b2[n], 0.f),
-                      fmaxf(a1 + b2[n + 1], 0.f));
-             });
+  tc_product<kWide>(np2, M, 9 * M, w2, Bs, L.ldb, stages, taps,
+             H2Out{h2s, b2, ldh});
 
   // Phase 3: y = relu(h2 . w3 + b3 + x) on the pixels inside the image.
   H2Rows h2r{smem_addr(h2s), ldh, np2};
-  tc_product(np2, C, M, w3, Bs, L.ldb, stages, h2r,
-             [&](int q, int n, float a0, float a1) {
-               const int gy = ty0 + q / tw, gx = tx0 + q % tw;
-               if (gy < H && gx < W) {
-                 const size_t o = (size_t(gy) * W + gx) * C + n;
-                 const float2 r = __bfloat1622float2(
-                     *reinterpret_cast<const __nv_bfloat162*>(xb + o));
-                 store2(yb + o, fmaxf(a0 + b3[n] + r.x, 0.f),
-                        fmaxf(a1 + b3[n + 1] + r.y, 0.f));
-               }
-             });
+  tc_product<kWide>(np2, C, M, w3, Bs, L.ldb, stages, h2r,
+             YOut{xb, yb, b3, tw, ty0, tx0, H, W, C});
 }
 
 // What bounds the bf16 kernel's blocks per SM on the current device.
@@ -711,12 +815,25 @@ struct TcOccupancy {
   long reg_cap;  // blocks per SM its registers allow
 };
 
-TcOccupancy tc_occupancy() {
-  static const int regs = [] {
+// The bf16 kernel for width M: the wide warp grids pay above M = 64
+// (timed at ResNet-50's stage shapes), the narrow kernel at and below.
+bool tc_wide(int M) { return M > 64; }
+
+int tc_regs(bool wide) {
+  auto regs = [](const void* fn) {
     cudaFuncAttributes a{};
-    cudaFuncGetAttributes(&a, bottleneck_tc_kernel);
-    return a.numRegs > 0 ? a.numRegs : 128;
-  }();
+    cudaFuncGetAttributes(&a, fn);
+    return a.numRegs > 0 ? a.numRegs : 255;
+  };
+  static const int wide_regs =
+      regs(reinterpret_cast<const void*>(bottleneck_tc_kernel<true>));
+  static const int narrow_regs =
+      regs(reinterpret_cast<const void*>(bottleneck_tc_kernel<false>));
+  return wide ? wide_regs : narrow_regs;
+}
+
+TcOccupancy tc_occupancy(bool wide) {
+  const int regs = tc_regs(wide);
   TcOccupancy o{132, 233472, 0};
   int dev = 0;
   cudaGetDevice(&dev);
@@ -761,9 +878,10 @@ int pick_stages(const TcOccupancy& o, int th, int tw, int M, int C,
 void pick_tc_tile(int B, int H, int W, int C, int M, int* th, int* tw,
                   int* stages, size_t* bytes) {
   static const int kTiles[][2] = {{8, 16}, {16, 8}, {8, 8}, {8, 7},
-                                  {7, 8},  {4, 8},  {8, 4}, {4, 4},
-                                  {2, 4},  {2, 2},  {1, 2}, {1, 1}};
-  const TcOccupancy o = tc_occupancy();
+                                  {7, 8},  {8, 6},  {6, 8}, {4, 8},
+                                  {8, 4},  {4, 4},  {2, 4}, {2, 2},
+                                  {1, 2},  {1, 1}};
+  const TcOccupancy o = tc_occupancy(tc_wide(M));
   double best = -1.0;
   *th = *tw = *stages = 0;
   *bytes = 0;
@@ -834,21 +952,24 @@ int launch_tc(const void* x, const void* w1, const void* b1, const void* w2,
               const void* b2, const void* w3, const void* b3, void* y,
               int B, int H, int W, int C, int M, int th, int tw,
               cudaStream_t stream) {
+  if (size_t(H) * W * C > size_t(1) << 30)  // int offsets in one image
+    return int(cudaErrorInvalidValue);
   size_t bytes;
   int stages;
+  const bool wide = tc_wide(M);
   if (th > 0 && tw > 0) {
     long per_sm;
-    stages = pick_stages(tc_occupancy(), th, tw, M, C, &bytes, &per_sm);
+    stages = pick_stages(tc_occupancy(wide), th, tw, M, C, &bytes, &per_sm);
   } else {
     pick_tc_tile(B, H, W, C, M, &th, &tw, &stages, &bytes);
   }
   if (stages == 0) return int(cudaErrorInvalidValue);
+  auto kernel = wide ? bottleneck_tc_kernel<true> : bottleneck_tc_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      bottleneck_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(bytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return int(err);
   dim3 grid((W + tw - 1) / tw, (H + th - 1) / th, B);
-  bottleneck_tc_kernel<<<grid, kThreads, bytes, stream>>>(
+  kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2),
       static_cast<const float*>(b2), static_cast<const bf16*>(w3),

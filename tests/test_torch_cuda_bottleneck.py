@@ -34,9 +34,10 @@ ODD = [(13, 11, 256, 64), (7, 9, 64, 16), (5, 3, 32, 16), (4, 5, 16, 16),
 # (B, H, W, C, M, (TH, TW)): forced bf16 output tiles; the layer4 tiles
 # are the ones whose shared memory fits at M = 512.
 FORCED_TILES = ([(2, 13, 11, 48, 16, t) for t in (
-    (8, 16), (16, 8), (8, 8), (8, 7), (7, 8), (4, 8), (8, 4), (4, 4),
-    (2, 4), (2, 2), (1, 2), (1, 1))] +
-    [(16, 16, 21, 2048, 512, t) for t in ((8, 8), (8, 7), (4, 8))])
+    (8, 16), (16, 8), (8, 8), (8, 7), (7, 8), (8, 6), (6, 8), (4, 8),
+    (8, 4), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))] +
+    [(16, 16, 21, 2048, 512, t) for t in ((8, 8), (8, 7), (8, 6), (4, 8))] +
+    [(2, 13, 11, 256, 128, t) for t in ((8, 6), (1, 1))])
 BUDGET = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 
 
