@@ -317,7 +317,7 @@ __host__ __device__ inline int round16(int n) { return (n + 15) & ~15; }
 // min(kMaxCols, max(M, C)) columns. Phase 1's x staging (`stages`
 // buffers of `arows` rows) lies over h2, which phase 1 does not use yet.
 struct TcLayout {
-  int ldh, lda, ldb, arows, stages;
+  int ldh, lda, ldb, arows;
   size_t h1, h2, bs, total;  // byte offsets and total
 };
 
@@ -330,7 +330,6 @@ __host__ __device__ inline TcLayout make_tc_layout(int th, int tw, int M,
   L.lda = tc_ld(kKB);
   L.ldb = tc_ld(wide < kMaxCols ? wide : kMaxCols);
   L.arows = round16(np1) < kMaxRows ? round16(np1) : kMaxRows;
-  L.stages = stages;
   const size_t e = sizeof(bf16);
   const size_t h2 = size_t(np2) * L.ldh,
                as = size_t(stages) * L.arows * L.lda;

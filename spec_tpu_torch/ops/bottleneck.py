@@ -144,7 +144,8 @@ def picked_tile(B: int, H: int, W: int, C: int, M: int) -> tuple:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it when its data is not 16-byte aligned (the
-    bf16 kernel copies rows with 16-byte cp.async)."""
+    bf16 kernel copies rows with 16-byte cp.async and reads bias
+    pairs)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -160,7 +161,7 @@ def _launch(x: torch.Tensor, block, tile=(0, 0)) -> torch.Tensor:
     M = w1.shape[-1]
     x = _aligned(x)
     w1, w2, w3 = (_aligned(w.to(dt)) for w in (w1, w2, w3))
-    b1, b2, b3 = (b.float() for b in (b1, b2, b3))
+    b1, b2, b3 = (_aligned(b.float()) for b in (b1, b2, b3))
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
