@@ -67,12 +67,13 @@
 // below, the narrow kernel with the small warp grids only (123
 // registers, two blocks per SM), 1.4x faster at M = 64 than the wide
 // one. The host picks the tile by a cost model (pick_tc_tile) and the
-// deepest ring that keeps the blocks per SM. Left for later: wgmma with
-// B through TMA (mma.sync reaches about two thirds of the card's bf16
-// rate; here ldmatrix latency with 8 warps an SM, cp.async issue and
-// the weights re-streamed for every small pixel tile hold it to about a
-// third of that), a persistent grid, 16-byte y stores, and chain fusion
-// at layer1.
+// deepest ring that keeps the blocks per SM. On an H100 it runs 95-121
+// TFLOP/s at ResNet-50's stage shapes (PERF.md): ldmatrix latency with
+// 8 warps an SM, cp.async issue and the weights re-streamed for every
+// small pixel tile hold it there. Left for later: wgmma with B through
+// TMA (mma.sync alone reaches only about two thirds of the card's bf16
+// rate), a persistent grid, 16-byte y stores, and chain fusion at
+// layer1.
 //
 // fp32 (block_gemm, bottleneck_kernel): exact fp32 FMAs on the CUDA
 // cores (Hopper has no fp32 tensor-core path short of TF32, which would
@@ -983,12 +984,11 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; th = tw = 0 picks the tile, else
 // (bfloat16 only) that tile. Returns a cudaError_t (0 = launched).
-int spec_bottleneck_forward_tile(int dtype, const void* x, const void* w1,
-                                 const void* b1, const void* w2,
-                                 const void* b2, const void* w3,
-                                 const void* b3, void* y, int B, int H,
-                                 int W, int C, int M, int th, int tw,
-                                 void* stream) {
+int spec_bottleneck_forward(int dtype, const void* x, const void* w1,
+                            const void* b1, const void* w2, const void* b2,
+                            const void* w3, const void* b3, void* y, int B,
+                            int H, int W, int C, int M, int th, int tw,
+                            void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C % KC || M % KC || B > 65535 ||
       th < 0 || tw < 0)
     return int(cudaErrorInvalidValue);
@@ -999,15 +999,6 @@ int spec_bottleneck_forward_tile(int dtype, const void* x, const void* w1,
     return launch_tc(x, w1, b1, w2, b2, w3, b3, y, B, H, W, C, M, th, tw,
                      s);
   return int(cudaErrorInvalidValue);
-}
-
-// The same with the picked tile.
-int spec_bottleneck_forward(int dtype, const void* x, const void* w1,
-                            const void* b1, const void* w2, const void* b2,
-                            const void* w3, const void* b3, void* y, int B,
-                            int H, int W, int C, int M, void* stream) {
-  return spec_bottleneck_forward_tile(dtype, x, w1, b1, w2, b2, w3, b3, y,
-                                      B, H, W, C, M, 0, 0, stream);
 }
 
 // The bf16 tile and ring depth spec_bottleneck_forward picks at this

@@ -114,11 +114,10 @@ def fused_bottleneck_chain_plain(x: torch.Tensor, weights) -> torch.Tensor:
 
 @functools.cache
 def _kernel():
-    """The built kernel's C entry point (the one that also takes a
-    tile), with its argument types."""
+    """The built kernel's C entry point, with its argument types."""
     from spec_tpu_torch.ops.cuda_build import load_library
 
-    fn = load_library('bottleneck').spec_bottleneck_forward_tile
+    fn = load_library('bottleneck').spec_bottleneck_forward
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [
         ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
