@@ -28,10 +28,14 @@ printing its own results; any failure raises and exits nonzero:
    frames;
 6. K1 against its plain PyTorch version on the card (synthetic SMPL,
    V = 6890, 1e-5 m budget) at several batch sizes, among them the
-   batches phases 4 and 5 gave it, timed with CUDA events;
+   batches phases 4 and 5 gave it;
 7. K2 projects the fp32 fused pipeline's meshes (16 x 6890 vertices) with
    its cameras, against its plain version and
-   ``geometry.perspective_projection`` (0.01 px budget), timed;
+   ``geometry.perspective_projection`` (0.01 px budget).
+   Phases 6 and 7 time each kernel apart from its wrapper: the kernel's
+   own device time (torch.profiler, by kernel name, L2 flushed before
+   each call), the wrapper's host wall per call (with a sync) and the
+   device operations per call;
 8. small models on the card and on the CPU must agree: the predictor
    (ResNet-18) and the pipelines (ResNet-50, 64x96 frames; both trunks
    in fp32 and the fused trunk in bf16, where the CPU runs K3's plain
@@ -45,6 +49,9 @@ phase 5's pipeline with each stage-1 trunk.
 ``python3 chip_smoke.py --k3-tiles`` runs phases 1-2 and then times the
 bf16 K3 at each stage shape with every candidate output tile forced,
 beside the tile the kernel picks.
+``python3 chip_smoke.py --k1-k2`` runs phases 1-2 and then phases 6 and 7
+alone, K2 on K1's meshes at the pipeline's 16 rows with cameras drawn
+from a seed.
 
 Needs no network and no files beyond the checkout; builds go to
 ``build/spec_tpu_torch/``.
@@ -61,7 +68,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-LBS_BATCHES = (1, 3, 8, 32)
+LBS_BATCHES = (1, 3, 8, 16, 32, 64)
 LBS_BUDGET = 1e-5          # m, the fused kernel's budget vs fp32
 FRAME_HW = (720, 1280)
 PERSONS_PER_FRAME = (1, 2, 3, 2)
@@ -115,6 +122,40 @@ def _time_ms(fn, n=50, warmup=5, flush=None):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _kernel_ms(fn, kernel, n=50, warmup=5, flush=None):
+    """The kernel's own device time and the device work of one call.
+
+    Runs ``fn()`` ``n`` times under torch.profiler, with the L2 cache
+    flushed before each call when ``flush`` is given, and returns the
+    median duration (ms) of the device kernels whose name contains
+    ``kernel``: the wrapper's host work lies outside every such interval.
+    A second, unflushed profile of ``n`` calls gives the device
+    operations per call. Returns (ms, device ops per call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_events(flushed):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                if flushed:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    durs = [(e.time_range.end - e.time_range.start) / 1e3
+            for e in device_events(flush is not None) if kernel in e.name]
+    if len(durs) != n:
+        raise RuntimeError(f'the profiler saw {len(durs)} launches of '
+                           f'{kernel!r} in {n} calls')
+    ops = len(device_events(False)) / n
+    return statistics.median(durs), ops
 
 
 def _queued_ms(fn, n=10, reps=3, warmup=2):
@@ -238,8 +279,10 @@ def phase_lbs(batches):
                 raise RuntimeError(f'LBS kernel disagrees at B={B}: '
                                    f'shape {tuple(out.shape)}, max abs err '
                                    f'{err:.3e} > {LBS_BUDGET:.0e}')
-            ms = _time_ms(lambda: L.fused_lbs_vertices(packed, coeffs,
-                                                       rel_tf), flush=flush)
+            call = lambda: L.fused_lbs_vertices(   # noqa: E731
+                packed, coeffs, rel_tf)
+            ms, ops = _kernel_ms(call, 'lbs_kernel', flush=flush)
+            wrapper_ms = _wall_ms(call, 50)
             plain_ms = _time_ms(lambda: L.fused_lbs_vertices_plain(
                 packed, coeffs, rel_tf), flush=flush)
             # Per vertex and row: 218 x 3 blendshape products, 24 x 12
@@ -249,13 +292,17 @@ def phase_lbs(batches):
             nbytes = 4 * (packed.dirs.numel() + packed.weights_t.numel()
                           + coeffs.numel() + rel_tf.numel() + out.numel())
             bound_ms, bound_by = _bound(flops, nbytes, PEAK_FLOPS['fp32'])
-            rows[B] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=bound_by)
+            rows[B] = dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
+                           plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
             print(f'[lbs] B={B} V=6890 max_abs_err={err:.3e} m '
-                  f'kernel={ms:.4f} ms plain={plain_ms:.4f} ms '
-                  '(median of 50, L2 flushed); bound '
-                  f'{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), '
-                  f'share of bound {bound_ms / ms:.3f}')
+                  f'kernel={ms:.4f} ms (profiler, median of 50, L2 '
+                  f'flushed) wrapper={wrapper_ms:.4f} ms per call (host '
+                  f'wall with a sync, median of 50) device_ops={ops:g} per '
+                  f'call plain={plain_ms:.4f} ms (events, median of 50, L2 '
+                  f'flushed); bound {bound_ms:.4f} ms ({bound_by}, '
+                  f'{nbytes / 1e6:.1f} MB), share of bound '
+                  f'{bound_ms / ms:.3f}', flush=True)
     return rows
 
 
@@ -309,6 +356,8 @@ def phase_bottleneck():
                     row['plain_ms'] = _queued_ms(
                         lambda: TB.fused_bottleneck_chain_plain(x, wt))
                     row['cudnn_ms'] = _queued_ms(lambda: blk(nchw))
+                    row['wrapper_ms'] = _wall_ms(
+                        lambda: TB.fused_bottleneck_chain(x, wt), 50)
                 flops, nbytes = _k3_work(B, H, W, C, M, x.element_size())
                 row['bound_ms'], row['bound_by'] = _bound(
                     flops, nbytes, PEAK_FLOPS[tag])
@@ -317,7 +366,9 @@ def phase_bottleneck():
                 line += (f' kernel={row["ms"]:.4f} ms plain='
                          f'{row["plain_ms"]:.4f} ms cudnn_block='
                          f'{row["cudnn_ms"]:.4f} ms (10 queued calls, '
-                         'median of 3); '
+                         'median of 3); wrapper '
+                         f'{row["wrapper_ms"]:.4f} ms per call (host wall '
+                         'with a sync, median of 50); '
                          f'{flops / 1e9:.2f} GFLOP, kernel '
                          f'{flops / row["ms"] / 1e9:.1f} TFLOP/s, bound '
                          f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}), '
@@ -735,22 +786,56 @@ def phase_pipeline():
     return out
 
 
-def phase_projection(pipe):
-    """K2 on the fp32 fused pipeline's meshes and cameras."""
+def _projection_operands(verts, cam_t, vfov, pitch, roll):
+    """K2's operands for meshes (B, V, 3) seen by the pipeline's cameras:
+    points, R (B, 3, 3), t (B, 3), K (B, 3, 3) on PIPE_HW frames."""
     import torch
 
     from spec_tpu_torch.core import geometry as G
-    from spec_tpu_torch.ops import projection as TP
     from spec_tpu_torch.utils.precision import fp32_precision
 
-    verts, _, cam_t, vfov, pitch, roll = pipe['fp32']['fused']['outs']
     B = verts.shape[0]
     h, w = (torch.full((B,), float(v), device='cuda') for v in PIPE_HW)
     with fp32_precision():
         R = G.euler_to_rotmat(
             torch.stack([pitch, torch.zeros_like(pitch), roll], -1))
         K = G.build_cam_intrinsics(G.focal_length_from_vfov(vfov, h), w, h)
-    args = (verts.contiguous(), R, cam_t, K)
+    return verts.contiguous(), R, cam_t, K
+
+
+def _synthetic_projection_operands(B):
+    """Meshes from K1 at ``B`` rows (synthetic SMPL) placed 5 m in front of
+    cameras drawn from a seed: the projection phase's shapes without the
+    pipeline."""
+    import numpy as np
+    import torch
+
+    from spec_tpu_torch.core import smpl as S
+    from spec_tpu_torch.ops import lbs as L
+
+    assets = S.create_test_assets().to('cuda')
+    packed = L.pack_lbs_operands(assets).to('cuda')
+    with torch.inference_mode():
+        verts = L.fused_lbs_vertices(
+            packed, *_lbs_operands(packed, assets, B, seed=0))
+    rng = np.random.RandomState(0)
+    draw = lambda *shape, s: torch.from_numpy(   # noqa: E731
+        (rng.randn(*shape) * s).astype('f4')).to('cuda')
+    cam_t = draw(B, 3, s=0.1) + torch.tensor([0.0, 0.0, 5.0], device='cuda')
+    vfov = 0.9 + draw(B, s=0.05)
+    return _projection_operands(verts, cam_t, vfov, draw(B, s=0.1),
+                                draw(B, s=0.1))
+
+
+def phase_projection(args):
+    """K2 on ``args`` = (points, R, t, K), against its plain version and
+    ``geometry.perspective_projection``, timed."""
+    import torch
+
+    from spec_tpu_torch.core import geometry as G
+    from spec_tpu_torch.ops import projection as TP
+
+    B = args[0].shape[0]
     TP.LAUNCHES = 0
     pix = TP.project_points(*args)
     torch.cuda.synchronize()
@@ -765,7 +850,9 @@ def phase_projection(pipe):
             and err <= K2_BUDGET):
         raise RuntimeError(f'K2 disagrees: max abs err {err:.3e} px')
     flush = torch.empty(64 * 2 ** 20 // 4, device='cuda')
-    ms = _time_ms(lambda: TP.project_points(*args), flush=flush)
+    call = lambda: TP.project_points(*args)     # noqa: E731
+    ms, ops = _kernel_ms(call, 'project_kernel', flush=flush)
+    wrapper_ms = _wall_ms(call, 50)
     plain_ms = _time_ms(lambda: TP.project_points_plain(*args), flush=flush)
     # Per vertex: the 3x4 camera matrix on [X, 1] and the divide.
     flops = 2.0 * B * 6890 * (12 + 1)
@@ -773,10 +860,15 @@ def phase_projection(pipe):
     bound_ms, bound_by = _bound(flops, nbytes, PEAK_FLOPS['fp32'])
     print(f'[projection] B={B} V=6890 max_abs_err={err:.3e} px vs plain and '
           f'perspective_projection (budget {K2_BUDGET}); kernel={ms:.4f} ms '
-          f'plain={plain_ms:.4f} ms (median of 50, L2 flushed); bound '
-          f'{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.2f} MB)')
+          f'(profiler, median of 50, L2 flushed) wrapper={wrapper_ms:.4f} '
+          f'ms per call (host wall with a sync, median of 50) '
+          f'device_ops={ops:g} per call plain={plain_ms:.4f} ms (events, '
+          f'median of 50, L2 flushed); bound {bound_ms:.4f} ms ({bound_by}, '
+          f'{nbytes / 1e6:.2f} MB), share of bound {bound_ms / ms:.3f}',
+          flush=True)
     return dict(launches=launches, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 # Card vs CPU, 2 frames of 64x96: limits on (vertices m, joints2d px,
@@ -854,6 +946,10 @@ def main() -> int:
     if '--k3-tiles' in sys.argv[1:]:
         phase_k3_tiles()
         return 0
+    if '--k1-k2' in sys.argv[1:]:
+        phase_lbs(LBS_BATCHES)
+        phase_projection(_synthetic_projection_operands(PIPE_FRAMES))
+        return 0
     from spec_tpu_torch.utils.batching import pad_pow2
 
     k3_rows = phase_bottleneck()
@@ -867,7 +963,9 @@ def main() -> int:
     pipe_batch = pipe['bf16']['fused']['outs'][0].shape[0]
     lbs_rows = phase_lbs(sorted(set(LBS_BATCHES)
                                 | {main_batch, pipe_batch}))
-    k2 = phase_projection(pipe)
+    verts, _, cam_t, vfov, pitch, roll = pipe['fp32']['fused']['outs']
+    k2 = phase_projection(_projection_operands(verts, cam_t, vfov, pitch,
+                                               roll))
     phase_card_vs_cpu()
     phase_pipeline_card_vs_cpu()
 
@@ -881,6 +979,7 @@ def main() -> int:
         'launches': pred['fp32']['launches'],
         'max_abs_err': max(r['max_abs_err'] for r in lbs_rows.values()),
         'ms': row['ms'],
+        'wrapper_ms': row['wrapper_ms'],
         'plain_ms': row['plain_ms'],
         'bound_ms': row['bound_ms'],
         'bound_by': row['bound_by'],
@@ -893,6 +992,7 @@ def main() -> int:
         'launches': pipe['bf16']['fused']['launches']['K3'],
         'max_abs_err': max(r['max_abs_err'] for r in k3_rows.values()),
         'ms': k3['ms'],
+        'wrapper_ms': k3['wrapper_ms'],
         'plain_ms': k3['plain_ms'],
         'bound_ms': k3['bound_ms'],
         'bound_by': k3['bound_by'],
@@ -905,6 +1005,7 @@ def main() -> int:
         'launches': k2['launches'],
         'max_abs_err': k2['max_abs_err'],
         'ms': k2['ms'],
+        'wrapper_ms': k2['wrapper_ms'],
         'plain_ms': k2['plain_ms'],
         'bound_ms': k2['bound_ms'],
         'bound_by': k2['bound_by'],
