@@ -10,9 +10,11 @@ unset: it divides by depth before applying K). Then per point
 
 :func:`project_points` launches the kernel for CUDA tensors and runs
 :func:`project_points_plain` for CPU tensors; nothing falls back from
-one to the other. ``LAUNCHES`` counts kernel launches. The model heads
-keep ``geometry.perspective_projection`` for their 49 joints, as the
-JAX heads do; this is the full-mesh primitive.
+one to the other. ``LAUNCHES`` counts kernel launches. The kernel
+collapses the camera itself, so a call on fp32 contiguous operands is
+one device operation; :func:`camera_matrix` serves the plain version.
+The model heads keep ``geometry.perspective_projection`` for their 49
+joints, as the JAX heads do; this is the full-mesh primitive.
 """
 
 from __future__ import annotations
@@ -78,13 +80,22 @@ def project_points_plain(points: torch.Tensor, rotation: torch.Tensor,
     return uvw[..., :2] * inv_w
 
 
+def _fp32_contiguous(a: torch.Tensor) -> torch.Tensor:
+    """``a`` itself when it is float32 and contiguous, else a float32
+    contiguous copy made by one device operation."""
+    if a.dtype == torch.float32 and a.is_contiguous():
+        return a
+    return torch.empty(a.shape, dtype=torch.float32,
+                       device=a.device).copy_(a)
+
+
 @functools.cache
 def _kernel():
     """The built kernel's C entry point, with its argument types."""
     from spec_tpu_torch.ops.cuda_build import load_library
 
     fn = load_library('projection').spec_project_points
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -98,7 +109,9 @@ def project_points(points: torch.Tensor, rotation: torch.Tensor,
     points (B, V, 3) float32 contiguous; rotation (B, 3, 3), translation
     (B, 3), cam_intrinsics (B, 3, 3) on the same device. CUDA tensors
     launch the kernel; CPU tensors run the plain version; any other
-    device raises.
+    device raises. The kernel takes R, t and K as fp32 contiguous
+    tensors: one that is not is cast or copied first (one more device
+    operation each).
     """
     global LAUNCHES
     _check_operands(points, rotation, translation, cam_intrinsics)
@@ -110,14 +123,15 @@ def project_points(points: torch.Tensor, rotation: torch.Tensor,
                          f'(plain version), not {points.device}')
     fn = _kernel()
     B, V, _ = points.shape
-    P = camera_matrix(rotation, translation, cam_intrinsics)
     out = torch.empty((B, V, 2), dtype=torch.float32, device=points.device)
     if out.numel() == 0:
         return out
+    R, t, K = (_fp32_contiguous(a)
+               for a in (rotation, translation, cam_intrinsics))
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream
-        err = fn(points.data_ptr(), P.data_ptr(), out.data_ptr(), B, V,
-                 stream)
+        err = fn(points.data_ptr(), R.data_ptr(), t.data_ptr(),
+                 K.data_ptr(), out.data_ptr(), B, V, stream)
     if err != 0:
         raise RuntimeError(f'projection kernel launch failed with CUDA '
                            f'error {err}')

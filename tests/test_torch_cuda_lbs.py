@@ -6,6 +6,8 @@ where JAX is not installed, without the suite's conftest:
     python -m pytest tests/test_torch_cuda_lbs.py -m cuda --noconftest
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -38,9 +40,14 @@ def _operands(V, B, seed, device):
     return packed, L.lbs_coeffs(betas, rot), rel_tf
 
 
+# Batches on both sides of every pass width (the kernel walks the batch
+# in passes of up to 16 rows over one staged vertex tile); V = 20 is under
+# the 32-vertex tile, 333 and 1000 end in a partial tile.
 @pytest.mark.cuda
-@pytest.mark.parametrize('B,V', [(1, 6890), (3, 6890), (8, 6890),
-                                 (32, 6890), (40, 6890), (5, 333)])
+@pytest.mark.parametrize('B,V', [
+    (1, 6890), (2, 6890), (3, 6890), (8, 6890), (16, 6890), (31, 6890),
+    (32, 6890), (33, 6890), (40, 6890), (64, 6890), (5, 333), (1, 20),
+    (17, 20), (6, 1000)])
 def test_kernel_matches_plain(cuda_device, B, V):
     packed, coeffs, rel_tf = _operands(V, B, seed=B, device=cuda_device)
     before = L.LAUNCHES
@@ -79,4 +86,40 @@ def test_mixed_devices_raise_before_launch(cuda_device):
     before = L.LAUNCHES
     with pytest.raises(ValueError, match='is on'):
         L.fused_lbs_vertices(packed, coeffs, rel_tf.cpu())
+    assert L.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B', [1, 8, 33])
+def test_repeat_launches_agree_bit_for_bit(cuda_device, B):
+    """No atomics: the partial sums meet in a fixed order."""
+    packed, coeffs, rel_tf = _operands(6890, B, seed=7, device=cuda_device)
+    first = L.fused_lbs_vertices(packed, coeffs, rel_tf)
+    second = L.fused_lbs_vertices(packed, coeffs, rel_tf)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_one_launch_per_call_at_b64(cuda_device):
+    packed, coeffs, rel_tf = _operands(6890, 64, seed=1, device=cuda_device)
+    before = L.LAUNCHES
+    for k in range(1, 4):
+        L.fused_lbs_vertices(packed, coeffs, rel_tf)
+        assert L.LAUNCHES == before + k
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_refused_launch_raises(cuda_device):
+    """dirs 4 bytes off a 16-byte boundary: the kernel's 16-byte copies
+    refuse it, and the wrapper raises without counting a launch."""
+    packed, coeffs, rel_tf = _operands(100, 2, seed=0, device=cuda_device)
+    flat = torch.empty(packed.dirs.numel() + 1, device=cuda_device)
+    shifted = flat[1:].view(packed.dirs.shape)
+    shifted.copy_(packed.dirs)
+    bad = dataclasses.replace(packed, dirs=shifted)
+    before = L.LAUNCHES
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        L.fused_lbs_vertices(bad, coeffs, rel_tf)
     assert L.LAUNCHES == before
