@@ -88,7 +88,7 @@ struct Plan {
   static constexpr int kH = BT / kBPW;          // batch groups
   static constexpr int kG = kWarps / kH;        // row groups
   // Row stride of the transposed coefficients: a multiple of 4 keeps the
-  // 16-byte broadcasts aligned; + 4 spreads the staging stores over banks.
+  // 16-byte broadcasts aligned; + 4 spreads the staging copies over banks.
   static constexpr int kCS = BT % 4 == 0 ? BT + 4 : BT;
 };
 
@@ -96,7 +96,7 @@ constexpr int kTf = kJoints * kRows;  // floats of one batch row's transforms
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
 
-// Floats of shared memory: the dirs tile (3, C, 32); a region that holds
+// Floats of shared memory: the dirs tile (C, 3, 32); a region that holds
 // the pass's coefficients (C, CS) and then its partial sums (G, 3, BT,
 // 32); per warp, one batch row's transforms (288) and its output (96).
 template <int BT>

@@ -205,8 +205,7 @@ class _FusedLBS(torch.autograd.Function):
         raise NotImplementedError(
             'the fused LBS kernel has no backward yet; it comes with the '
             'training port (ROADMAP.md §1 item 9, "Open items" 5, §2 K1). '
-            'Use '
-            'smpl_forward(..., fused=False) to differentiate.')
+            'Use smpl_forward(..., fused=False) to differentiate.')
 
 
 def fused_lbs_vertices(packed: PackedLBSOperands, coeffs: torch.Tensor,
