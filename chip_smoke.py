@@ -49,9 +49,6 @@ phase 5's pipeline with each stage-1 trunk.
 ``python3 chip_smoke.py --k3-tiles`` runs phases 1-2 and then times the
 bf16 K3 at each stage shape with every candidate output tile forced,
 beside the tile the kernel picks.
-``python3 chip_smoke.py --k1-k2`` runs phases 1-2 and then phases 6 and 7
-alone, K2 on K1's meshes at the pipeline's 16 rows with cameras drawn
-from a seed.
 
 Needs no network and no files beyond the checkout; builds go to
 ``build/spec_tpu_torch/``.
@@ -287,10 +284,12 @@ def phase_lbs(batches):
                 packed, coeffs, rel_tf), flush=flush)
             # Per vertex and row: 218 x 3 blendshape products, 24 x 12
             # skinning products, the 3x4 transform; fp32 on CUDA cores.
+            # Bytes: the V vertices' columns of dirs and weights_t (not
+            # the padding to Vp), coeffs, rel_tf and the output.
             n_coef, V = packed.dirs.shape[1], packed.num_vertices
             flops = 2.0 * B * V * (3 * n_coef + 24 * 12 + 12)
-            nbytes = 4 * (packed.dirs.numel() + packed.weights_t.numel()
-                          + coeffs.numel() + rel_tf.numel() + out.numel())
+            nbytes = 4 * (3 * n_coef * V + 24 * V + coeffs.numel()
+                          + rel_tf.numel() + out.numel())
             bound_ms, bound_by = _bound(flops, nbytes, PEAK_FLOPS['fp32'])
             rows[B] = dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
                            plain_ms=plain_ms, bound_ms=bound_ms,
@@ -803,30 +802,6 @@ def _projection_operands(verts, cam_t, vfov, pitch, roll):
     return verts.contiguous(), R, cam_t, K
 
 
-def _synthetic_projection_operands(B):
-    """Meshes from K1 at ``B`` rows (synthetic SMPL) placed 5 m in front of
-    cameras drawn from a seed: the projection phase's shapes without the
-    pipeline."""
-    import numpy as np
-    import torch
-
-    from spec_tpu_torch.core import smpl as S
-    from spec_tpu_torch.ops import lbs as L
-
-    assets = S.create_test_assets().to('cuda')
-    packed = L.pack_lbs_operands(assets).to('cuda')
-    with torch.inference_mode():
-        verts = L.fused_lbs_vertices(
-            packed, *_lbs_operands(packed, assets, B, seed=0))
-    rng = np.random.RandomState(0)
-    draw = lambda *shape, s: torch.from_numpy(   # noqa: E731
-        (rng.randn(*shape) * s).astype('f4')).to('cuda')
-    cam_t = draw(B, 3, s=0.1) + torch.tensor([0.0, 0.0, 5.0], device='cuda')
-    vfov = 0.9 + draw(B, s=0.05)
-    return _projection_operands(verts, cam_t, vfov, draw(B, s=0.1),
-                                draw(B, s=0.1))
-
-
 def phase_projection(args):
     """K2 on ``args`` = (points, R, t, K), against its plain version and
     ``geometry.perspective_projection``, timed."""
@@ -945,10 +920,6 @@ def main() -> int:
         return 0
     if '--k3-tiles' in sys.argv[1:]:
         phase_k3_tiles()
-        return 0
-    if '--k1-k2' in sys.argv[1:]:
-        phase_lbs(LBS_BATCHES)
-        phase_projection(_synthetic_projection_operands(PIPE_FRAMES))
         return 0
     from spec_tpu_torch.utils.batching import pad_pow2
 

@@ -16,10 +16,12 @@
 // Precision: exact fp32 FMAs on the CUDA cores; no tensor cores, no TF32
 // and no narrower dirs (the vertex budget is 1e-5 m against fp32).
 //
-// What bounds it on an H100. dirs is 3 x 218 x Vp floats (18.8 MB at
-// Vp = 7168); weights, coefficients and transforms add under 1 MB and the
-// output B x V x 12 bytes. At B <= 8 the kernel is bound by reading dirs
-// (~6 us at 3.35 TB/s). The FMAs grow with B: 218 x 3 + 24 x 12 + 12 per
+// What bounds it on an H100. dirs is 3 x 218 x Vp floats, of which the
+// V = 6890 vertices' columns are 18.0 MB (the 216 tiles of 32 read 18.1
+// MB; the padding up to Vp = 7168 is never read); weights, coefficients
+// and transforms add under 1 MB and the output B x V x 12 bytes. At
+// B <= 8 the kernel is bound by reading dirs
+// (~5.4 us at 3.35 TB/s). The FMAs grow with B: 218 x 3 + 24 x 12 + 12 per
 // (row, vertex), 0.42 GFLOP at B = 32, ~6 us at 67 TFLOP/s, so near B = 32
 // bytes and FMAs balance, and above it the FMAs bound it.
 //

@@ -127,6 +127,14 @@ def _check_operands(packed: PackedLBSOperands, coeffs: torch.Tensor,
         raise ValueError('fused_lbs_vertices: dirs must be (3, C, Vp), got '
                          f'{tuple(packed.dirs.shape)}')
     _, C, Vp = packed.dirs.shape
+    # The kernel copies dirs rows and rel_tf in 16-byte vectors.
+    if Vp % 4:
+        raise ValueError(f'fused_lbs_vertices: dirs rows must hold a '
+                         f'multiple of 4 vertices, got Vp = {Vp}')
+    for name in ('dirs', 'rel_tf'):
+        if named[name].data_ptr() % 16:
+            raise ValueError(f'fused_lbs_vertices: {name} must start on a '
+                             '16-byte boundary')
     if tuple(packed.weights_t.shape) != (NUM_JOINTS, Vp):
         raise ValueError(f'fused_lbs_vertices: weights_t must be '
                          f'({NUM_JOINTS}, {Vp}), got '

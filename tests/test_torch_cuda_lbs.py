@@ -112,14 +112,18 @@ def test_one_launch_per_call_at_b64(cuda_device):
 
 @pytest.mark.cuda
 def test_refused_launch_raises(cuda_device):
-    """dirs 4 bytes off a 16-byte boundary: the kernel's 16-byte copies
-    refuse it, and the wrapper raises without counting a launch."""
+    """dirs 4 bytes off a 16-byte boundary: the wrapper names it before any
+    launch, and the kernel's C entry, called past the wrapper's checks,
+    refuses it with a CUDA error; neither counts a launch."""
     packed, coeffs, rel_tf = _operands(100, 2, seed=0, device=cuda_device)
     flat = torch.empty(packed.dirs.numel() + 1, device=cuda_device)
     shifted = flat[1:].view(packed.dirs.shape)
     shifted.copy_(packed.dirs)
     bad = dataclasses.replace(packed, dirs=shifted)
     before = L.LAUNCHES
-    with pytest.raises(RuntimeError, match='CUDA error'):
+    with pytest.raises(ValueError, match='dirs must start on a 16-byte'):
         L.fused_lbs_vertices(bad, coeffs, rel_tf)
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        L._launch(shifted, packed.weights_t, coeffs, rel_tf,
+                  packed.num_vertices)
     assert L.LAUNCHES == before

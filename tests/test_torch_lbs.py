@@ -8,6 +8,8 @@ kernel itself is compared with the plain version on a card by
 tests/test_torch_cuda_lbs.py.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -61,7 +63,12 @@ def test_lbs_coeffs_equal(rng):
         atol=0)
 
 
-@pytest.mark.parametrize('B,V', [(4, 640), (3, 333), (2, 6890)])
+# Besides the first three, the card test's edge shapes (the CUDA kernel's
+# 16-row passes and 32-vertex tiles), so that its reference, the plain
+# version, is held to Pallas at those shapes too.
+@pytest.mark.parametrize('B,V', [(4, 640), (3, 333), (2, 6890), (1, 20),
+                                 (17, 20), (2, 333), (33, 333), (64, 333),
+                                 (6, 1000)])
 def test_fused_vertices_match_jax(rng, B, V):
     assets, betas, rotmats = _inputs(rng, B, V)
     packed_j, coeffs, rel_tf = _kernel_operands(assets, betas, rotmats)
@@ -98,20 +105,44 @@ def test_wrong_dtype_raises(rng, dtype):
     assert TL.LAUNCHES == before
 
 
+def _off_16_bytes(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype)
+    start = (-flat.data_ptr() // 4) % 4 + 1
+    out = flat[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.parametrize('bad', ['coeffs_width', 'rel_tf_shape',
-                                 'batch_mismatch', 'noncontiguous'])
+                                 'batch_mismatch', 'noncontiguous',
+                                 'dirs_misaligned', 'rel_tf_misaligned',
+                                 'rows_not_multiple_of_4'])
 def test_wrong_shape_or_layout_raises(rng, bad):
     packed, coeffs, rel_tf = _valid_operands(rng)
     before = TL.LAUNCHES
+    match = None
     if bad == 'coeffs_width':
         coeffs = coeffs[:, :-1].contiguous()
     elif bad == 'rel_tf_shape':
         rel_tf = torch.zeros(2, 24, 4, 4)
     elif bad == 'batch_mismatch':
         rel_tf = rel_tf[:1].contiguous()
-    else:
+    elif bad == 'noncontiguous':
         rel_tf = rel_tf.transpose(-1, -2).contiguous().transpose(-1, -2)
-    with pytest.raises(ValueError):
+    elif bad == 'dirs_misaligned':
+        packed = dataclasses.replace(packed, dirs=_off_16_bytes(packed.dirs))
+        match = 'dirs must start on a 16-byte boundary'
+    elif bad == 'rel_tf_misaligned':
+        rel_tf = _off_16_bytes(rel_tf)
+        match = 'rel_tf must start on a 16-byte boundary'
+    else:
+        packed = dataclasses.replace(
+            packed, dirs=packed.dirs[..., :102].contiguous(),
+            weights_t=packed.weights_t[:, :102].contiguous())
+        match = 'multiple of 4 vertices'
+    with pytest.raises(ValueError, match=match):
         TL.fused_lbs_vertices(packed, coeffs, rel_tf)
     assert TL.LAUNCHES == before
 

@@ -27,7 +27,10 @@ def _inputs(rng, B, V):
     return pts, np.array(R), t, np.array(K)
 
 
-@pytest.mark.parametrize('B,V', [(8, 49), (3, 700), (80, 130)])
+# The last four: point counts that are not a multiple of the CUDA kernel's
+# 4-point vectors, and the pipeline's 16 meshes.
+@pytest.mark.parametrize('B,V', [(8, 49), (3, 700), (80, 130), (1, 1),
+                                 (3, 7), (40, 1), (16, 6890)])
 def test_plain_matches_pallas_and_perspective_projection(rng, B, V):
     pts, R, t, K = _inputs(rng, B, V)
     args_t = [torch.from_numpy(np.ascontiguousarray(a)) for a in
@@ -44,11 +47,27 @@ def test_plain_matches_pallas_and_perspective_projection(rng, B, V):
         assert np.abs(out.numpy() - other).max() <= BUDGET
 
 
-def test_wrapper_on_cpu_runs_plain_and_counts_no_launch(rng):
+@pytest.mark.parametrize('camera', [
+    None, ('float64', 1), ('float64', 2), ('float64', 3), ('strided', 1),
+    ('strided', 2), ('strided', 3)])
+def test_wrapper_on_cpu_runs_plain_and_counts_no_launch(rng, camera):
+    """Also with R, t or K (argument 1, 2, 3) as float64 or as a
+    non-contiguous view: the same pixels as the float32 originals."""
     args = [torch.from_numpy(np.ascontiguousarray(a))
             for a in _inputs(rng, 4, 100)]
+    given = list(args)
+    if camera is not None:
+        case, which = camera
+        a = args[which]
+        if case == 'float64':
+            given[which] = a.double()
+        else:
+            wide = torch.zeros(a.shape + (2,), dtype=a.dtype)
+            wide[..., 0] = a
+            given[which] = wide[..., 0]
+            assert not given[which].is_contiguous()
     before = TP.LAUNCHES
-    out = TP.project_points(*args)
+    out = TP.project_points(*given)
     assert TP.LAUNCHES == before
     torch.testing.assert_close(out, TP.project_points_plain(*args), rtol=0,
                                atol=0)
