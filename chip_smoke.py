@@ -12,9 +12,10 @@ printing its own results; any failure raises and exits nonzero:
 3. K3 against its plain version at every ResNet-50 stage's identity-block
    shape on 16 frames of 512x672 (one block each) and at an odd H and W
    (a chain of 3), in fp32 and bf16, timed beside the port's unfused
-   cuDNN ``Bottleneck`` module at the same shape, with its TFLOP/s and
-   its share of the bound (the larger of operations at the peak rate of
-   the dtype's units and bytes at the HBM rate);
+   cuDNN ``Bottleneck`` module at the same shape, with its TFLOP/s, the
+   tile it picks and its share of the bound (the larger of operations at
+   the peak rate of the tensor cores for the dtype, bf16 or three TF32
+   products per fp32 one, and bytes at the HBM rate);
 4. the two-stage SpecPredictor at full ResNet-50 width (random weights
    from fixed seeds, synthetic SMPL) on 720x1280 frames, in fp32 and
    bf16, plus a camcalib_every=3 stream; checks shapes, finiteness and
@@ -46,9 +47,14 @@ printing its own results; any failure raises and exits nonzero:
 the rest, profiles phase 4's predictor (wall medians per stage, device
 busy time, idle share and the top device operations, fp32 and bf16) and
 phase 5's pipeline with each stage-1 trunk.
-``python3 chip_smoke.py --k3-tiles`` runs phases 1-2 and then times the
-bf16 K3 at each stage shape with every candidate output tile forced,
-beside the tile the kernel picks.
+``python3 chip_smoke.py --k3-tiles`` runs phases 1-2 and then times K3
+in fp32 and bf16 at each stage shape with every candidate output tile
+forced, beside the tile the kernel picks.
+``python3 chip_smoke.py --k3-ab PARENT`` runs phases 1-2, builds the
+bottleneck kernel of another checkout (``PARENT``, e.g. the parent
+commit unpacked by ``git archive``) beside this one, and at phase 3's
+shapes holds both to the plain version, compares their bf16 outputs bit
+for bit and times them in turns (parent, this, this, parent).
 
 Needs no network and no files beyond the checkout; builds go to
 ``build/spec_tpu_torch/``.
@@ -77,15 +83,18 @@ PIPE_FRAMES, PIPE_HW = 16, (512, 672)
 RESNET50_STAGES = ((128, 168, 256, 64, 2), (64, 84, 512, 128, 3),
                    (32, 42, 1024, 256, 5), (16, 21, 2048, 512, 2))
 ODD_SHAPE = (2, 13, 11, 256, 64, 3)       # B, H, W, C, M, chain length
-# K3 budgets, relative to max(1, max |plain|): exact fp32 on both sides;
-# bf16 about two bf16 steps at the largest value (sums that land near a
-# rounding boundary of h1, h2 or y round the other way on one side).
+# K3 budgets, relative to max(1, max |plain|): fp32, the plain version
+# in exact fp32 and the kernel in 3xTF32 (each product within about 2^-21
+# of fp32's) with its sums in another order; bf16 about two bf16 steps
+# at the largest value (sums that land near a rounding boundary of h1,
+# h2 or y round the other way on one side).
 K3_BUDGET = {'fp32': 1e-4, 'bf16': 2.0 ** -6}
 K2_BUDGET = 1e-2           # px (TPU_CHECKS_r05.json)
 # One H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): the
-# rate for each kernel's arithmetic (K3 bf16 on the tensor cores, K3 fp32
-# and K1, K2 on the CUDA cores in fp32) and the HBM rate.
-PEAK_FLOPS = {'bf16': 989e12, 'fp32': 67e12}
+# rate for each kernel's arithmetic (K3 on the tensor cores, bf16 or
+# TF32, the fp32 variant as three TF32 products per fp32 one; K1 and K2
+# on the CUDA cores in fp32) and the HBM rate.
+PEAK_FLOPS = {'bf16': 989e12, 'tf32': 494.7e12, 'fp32': 67e12}
 HBM_BYTES_PER_S = 3.35e12
 K3_TILES = ((8, 16), (16, 8), (8, 8), (8, 7), (7, 8), (8, 6), (6, 8),
             (4, 8), (8, 4), (4, 4))
@@ -200,6 +209,14 @@ def _k3_work(B, H, W, C, M, elem):
     nbytes = (2 * B * H * W * C + 2 * C * M + 9 * M * M) * elem + \
         4 * (2 * M + C)
     return flops, nbytes
+
+
+def _k3_bound(tag, flops, nbytes):
+    """K3's bound: bf16 products at the bf16 rate; fp32 ones as 3xTF32,
+    three TF32 products each at the TF32 rate."""
+    if tag == 'fp32':
+        return _bound(3 * flops, nbytes, PEAK_FLOPS['tf32'])
+    return _bound(flops, nbytes, PEAK_FLOPS['bf16'])
 
 
 def phase_device():
@@ -358,10 +375,9 @@ def phase_bottleneck():
                     row['wrapper_ms'] = _wall_ms(
                         lambda: TB.fused_bottleneck_chain(x, wt), 50)
                 flops, nbytes = _k3_work(B, H, W, C, M, x.element_size())
-                row['bound_ms'], row['bound_by'] = _bound(
-                    flops, nbytes, PEAK_FLOPS[tag])
-                tile = (TB.picked_tile(B, H, W, C, M) if tag == 'bf16'
-                        else None)
+                row['bound_ms'], row['bound_by'] = _k3_bound(tag, flops,
+                                                             nbytes)
+                tile = TB.picked_tile(B, H, W, C, M, dtype)
                 line += (f' kernel={row["ms"]:.4f} ms plain='
                          f'{row["plain_ms"]:.4f} ms cudnn_block='
                          f'{row["cudnn_ms"]:.4f} ms (10 queued calls, '
@@ -372,9 +388,8 @@ def phase_bottleneck():
                          f'{flops / row["ms"] / 1e9:.1f} TFLOP/s, bound '
                          f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}), '
                          f'share of bound '
-                         f'{row["bound_ms"] / row["ms"]:.3f}'
-                         + (f', tile {tile[0]}x{tile[1]} with {tile[2]} '
-                            'stages' if tile else ''))
+                         f'{row["bound_ms"] / row["ms"]:.3f}, tile '
+                         f'{tile[0]}x{tile[1]} with {tile[2]} stages')
                 del blk
             rows[tag, si] = row
             print(line, flush=True)
@@ -384,40 +399,126 @@ def phase_bottleneck():
 
 
 def phase_k3_tiles():
-    """bf16 K3 at each stage shape with every candidate output tile forced
-    (those whose shared memory fits), beside the tile the kernel picks:
-    the readings behind the tile choice."""
+    """K3 in fp32 and bf16 at each stage shape with every candidate
+    output tile forced (those whose shared memory fits), beside the tile
+    the kernel picks: the readings behind the tile choice."""
     import torch
 
     from spec_tpu_torch.ops import bottleneck as TB
 
     from test_torch_cuda_bottleneck import random_chain
 
-    for si, (H, W, C, M, _) in enumerate(RESNET50_STAGES):
-        B = PIPE_FRAMES
-        x, ws = random_chain(B, H, W, C, M, 1, seed=si,
-                             dtype=torch.bfloat16, device='cuda')
-        block = _cast_chain(ws, torch.bfloat16)[0]
-        flops, _ = _k3_work(B, H, W, C, M, 2)
-        picked = TB.picked_tile(B, H, W, C, M)
-        cells = []
-        with torch.inference_mode():
-            for tile in ((0, 0),) + K3_TILES:
-                try:
-                    ms = _queued_ms(lambda: TB._launch(x, block, tile))
-                except RuntimeError:
-                    cells.append(f'{tile[0]}x{tile[1]} does not fit')
-                    continue
-                name = ('picked' if tile == (0, 0)
-                        else f'{tile[0]}x{tile[1]}')
-                cells.append(f'{name} {ms:.4f} ms '
-                             f'{flops / ms / 1e9:.1f} TF/s')
-        print(f'[k3 tiles] B={B} {H}x{W} C={C} M={M} picks '
-              f'{picked[0]}x{picked[1]} with {picked[2]} stages: '
-              + '; '.join(cells) + ' (10 queued calls, median of 3)',
-              flush=True)
-        del x, ws
-        torch.cuda.empty_cache()
+    for tag, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
+        for si, (H, W, C, M, _) in enumerate(RESNET50_STAGES):
+            B = PIPE_FRAMES
+            x, ws = random_chain(B, H, W, C, M, 1, seed=si, dtype=dtype,
+                                 device='cuda')
+            block = _cast_chain(ws, dtype)[0]
+            flops, _ = _k3_work(B, H, W, C, M, x.element_size())
+            picked = TB.picked_tile(B, H, W, C, M, dtype)
+            cells = []
+            with torch.inference_mode():
+                for tile in ((0, 0),) + K3_TILES:
+                    try:
+                        ms = _queued_ms(lambda: TB._launch(x, block, tile))
+                    except RuntimeError:
+                        cells.append(f'{tile[0]}x{tile[1]} does not fit')
+                        continue
+                    name = ('picked' if tile == (0, 0)
+                            else f'{tile[0]}x{tile[1]}')
+                    cells.append(f'{name} {ms:.4f} ms '
+                                 f'{flops / ms / 1e9:.1f} TF/s')
+            print(f'[k3 tiles {tag}] B={B} {H}x{W} C={C} M={M} picks '
+                  f'{picked[0]}x{picked[1]} with {picked[2]} stages: '
+                  + '; '.join(cells) + ' (10 queued calls, median of 3)',
+                  flush=True)
+            del x, ws
+            torch.cuda.empty_cache()
+
+
+def _chain_with(fn, x, ws):
+    """The chain on the C entry ``fn``, block by block."""
+    from spec_tpu_torch.ops import bottleneck as TB
+
+    for block in ws:
+        x = TB._launch(x, block, fn=fn)
+    return x
+
+
+def phase_k3_ab(parent):
+    """K3 of the checkout at ``parent`` against this one's, in one
+    process, at phase 3's shapes in fp32 and bf16: both held to the plain
+    version, bf16 outputs compared bit for bit (raises if they differ),
+    and the stage shapes timed in turns parent, this, this, parent (10
+    queued calls, median of 3 each), beside cuDNN's Bottleneck."""
+    import ctypes
+
+    import torch
+
+    from spec_tpu_torch.models.backbones.resnet import Bottleneck
+    from spec_tpu_torch.ops import bottleneck as TB
+    from spec_tpu_torch.ops import cuda_build as CB
+    from spec_tpu_torch.utils.precision import fp32_precision
+
+    from test_torch_cuda_bottleneck import random_chain
+
+    src = Path(parent).resolve() / 'spec_tpu_torch' / 'csrc' / 'bottleneck.cu'
+    lib = CB.BUILD_DIR / 'parent' / 'libbottleneck.so'
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([CB._nvcc(), *CB.NVCC_FLAGS, '-o', str(lib), str(src)],
+                   check=True, capture_output=True, timeout=600)
+    fns = {'parent': TB.bind_forward(ctypes.CDLL(str(lib))),
+           'this': TB._kernel()}
+    shapes = [(PIPE_FRAMES, H, W, C, M, 1)
+              for H, W, C, M, _ in RESNET50_STAGES] + [ODD_SHAPE]
+    differ = []
+    for tag, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
+        for si, (B, H, W, C, M, k) in enumerate(shapes):
+            x, ws = random_chain(B, H, W, C, M, k, seed=si, dtype=dtype,
+                                 device='cuda')
+            wt = _cast_chain(ws, dtype)
+            with torch.inference_mode():
+                outs = {n: _chain_with(fn, x, wt) for n, fn in fns.items()}
+                ref = TB.fused_bottleneck_chain_plain(x, ws).float()
+            scale = max(1.0, ref.abs().max().item())
+            errs = {n: (o.float() - ref).abs().max().item() / scale
+                    for n, o in outs.items()}
+            same = torch.equal(outs['parent'], outs['this'])
+            line = (f'[k3 ab {tag}] B={B} {H}x{W} C={C} M={M} k={k}: '
+                    f'error / max(1, |plain|) parent {errs["parent"]:.3e} '
+                    f'this {errs["this"]:.3e}; outputs bit-identical '
+                    f'{same}')
+            if tag == 'bf16' and not same:
+                differ.append((B, H, W, C, M, k))
+            if k == 1:
+                ms = {'parent': [], 'this': []}
+                with torch.inference_mode():
+                    for n in ('parent', 'this', 'this', 'parent'):
+                        ms[n].append(_queued_ms(
+                            lambda: _chain_with(fns[n], x, wt)))
+                    blk = Bottleneck(C, M).to('cuda').eval().to(
+                        dtype=dtype, memory_format=torch.channels_last)
+                    nchw = x.permute(0, 3, 1, 2)
+                    with fp32_precision():
+                        cudnn = _queued_ms(lambda: blk(nchw))
+                flops, nbytes = _k3_work(B, H, W, C, M, x.element_size())
+                bound, by = _k3_bound(tag, flops, nbytes)
+                best = min(ms['this'])
+                line += (f'; parent {ms["parent"][0]:.4f} / '
+                         f'{ms["parent"][1]:.4f} ms, this '
+                         f'{ms["this"][0]:.4f} / {ms["this"][1]:.4f} ms '
+                         f'(turns 1, 4 / 2, 3; 10 queued calls, median of '
+                         f'3), cudnn_block {cudnn:.4f} ms; this '
+                         f'{flops / best / 1e9:.1f} TFLOP/s, bound '
+                         f'{bound:.4f} ms ({by}), share of bound '
+                         f'{bound / best:.3f}')
+                del blk
+            print(line, flush=True)
+            del x, ws, wt, outs, ref
+            torch.cuda.empty_cache()
+    if differ:
+        raise RuntimeError(f'bf16 K3 outputs differ from the parent at '
+                           f'{differ}')
 
 
 def _frames_and_boxes(n_frames, persons, seed):
@@ -547,8 +648,8 @@ def _device_profile(label, fn, call_ms, n_prof, top):
     """torch.profiler over ``n_prof`` calls of ``fn``: prints the device
     busy time per call (union of the kernel and copy intervals), the
     device operations per call, the idle share (1 - busy per call /
-    ``call_ms``, the unprofiled call median) and the ``top`` device
-    operations by time."""
+    ``call_ms``, the unprofiled call median), K3's device time per call
+    and the ``top`` device operations by time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -575,6 +676,11 @@ def _device_profile(label, fn, call_ms, n_prof, top):
           f'{len(dev) / n_prof:.0f} device ops per call; idle share '
           f'{1.0 - busy / call_ms:.3f}')
     total = sum(by_name.values())
+    k3 = sum(us for name, us in by_name.items() if 'bottleneck' in name)
+    if k3:
+        print(f'[profile {label}] K3 (bottleneck kernels) '
+              f'{k3 / 1e3 / n_prof:.3f} ms per call ({k3 / total:.1%} of '
+              'device time)')
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f'[profile {label}]   {us / 1e3 / n_prof:8.3f} ms per call '
               f'({us / total:6.1%})  {name[:110]}')
@@ -921,6 +1027,9 @@ def main() -> int:
     if '--k3-tiles' in sys.argv[1:]:
         phase_k3_tiles()
         return 0
+    if '--k3-ab' in sys.argv[1:]:
+        phase_k3_ab(sys.argv[sys.argv.index('--k3-ab') + 1])
+        return 0
     from spec_tpu_torch.utils.batching import pad_pow2
 
     k3_rows = phase_bottleneck()
@@ -941,7 +1050,28 @@ def main() -> int:
     phase_pipeline_card_vs_cpu()
 
     row = lbs_rows[main_batch]
-    k3 = k3_rows['bf16', 0]     # layer1's block at the pipeline's dtype
+
+    def k3_entry(tag):
+        """K3 in ``tag`` (bf16, or fp32 as 3xTF32): layer1's block at
+        B = 16, launches in one fused-pipeline call of that dtype."""
+        k3 = k3_rows[tag, 0]
+        return {
+            'name': 'fused_bottleneck_chain'
+                    + (' (fp32, 3xTF32)' if tag == 'fp32' else ''),
+            'route': 'cuda',
+            'source': 'spec_tpu_torch/csrc/bottleneck.cu',
+            'replaces': 'spec_tpu/ops/pallas/bottleneck.py:92',
+            'launches': pipe[tag]['fused']['launches']['K3'],
+            'max_abs_err': max(r['max_abs_err']
+                               for (t, _), r in k3_rows.items() if t == tag),
+            'ms': k3['ms'],
+            'wrapper_ms': k3['wrapper_ms'],
+            'plain_ms': k3['plain_ms'],
+            'bound_ms': k3['bound_ms'],
+            'bound_by': k3['bound_by'],
+            'share_of_bound': k3['bound_ms'] / k3['ms'],
+            'library_ms': k3['cudnn_ms'],   # the cuDNN Bottleneck module
+        }
     print(json.dumps({'kernels': [{
         'name': 'fused_lbs_vertices',
         'route': 'cuda',
@@ -955,20 +1085,7 @@ def main() -> int:
         'bound_ms': row['bound_ms'],
         'bound_by': row['bound_by'],
         'library_ms': None,        # no single PyTorch call computes it
-    }, {
-        'name': 'fused_bottleneck_chain',
-        'route': 'cuda',
-        'source': 'spec_tpu_torch/csrc/bottleneck.cu',
-        'replaces': 'spec_tpu/ops/pallas/bottleneck.py:92',
-        'launches': pipe['bf16']['fused']['launches']['K3'],
-        'max_abs_err': max(r['max_abs_err'] for r in k3_rows.values()),
-        'ms': k3['ms'],
-        'wrapper_ms': k3['wrapper_ms'],
-        'plain_ms': k3['plain_ms'],
-        'bound_ms': k3['bound_ms'],
-        'bound_by': k3['bound_by'],
-        'library_ms': k3['cudnn_ms'],   # the cuDNN Bottleneck module
-    }, {
+    }, k3_entry('bf16'), k3_entry('fp32'), {
         'name': 'project_points',
         'route': 'cuda',
         'source': 'spec_tpu_torch/csrc/projection.cu',

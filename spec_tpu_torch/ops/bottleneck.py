@@ -16,9 +16,14 @@ relu(b1)). A chain of K blocks applies them in turn.
 :func:`fused_bottleneck_chain` launches the kernel once per block for
 CUDA tensors and runs :func:`fused_bottleneck_chain_plain` for CPU
 tensors; nothing falls back from one to the other. ``LAUNCHES`` counts
-kernel launches. The kernel's bf16 variant runs its three products on
-the tensor cores (``mma.sync`` bf16 -> fp32); its fp32 variant runs exact
-fp32 FMAs on the CUDA cores (the design note heads the source).
+kernel launches. The kernel runs its three products on the tensor cores
+(``mma.sync``): bf16 x bf16 -> fp32 for bf16, and 3xTF32 for fp32. Each
+fp32 operand splits into a TF32 ``hi`` and a TF32 ``lo`` (the rounded
+remainder, so ``hi + lo`` is within 2^-22 of the operand), and a product
+is ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` with fp32 sums: within about
+2^-21 of the fp32 product, the order of fp32's own rounding of the sums,
+where one TF32 pass errs by up to 2^-10. So the fp32 variant keeps the
+fp32 budget (the design note heads the source).
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from spec_tpu_torch.utils.precision import fp32_precision
 LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_CHANNEL_QUANTUM = 16   # the kernel's K-chunk: C and M are multiples of it
+_CHANNEL_QUANTUM = 16   # the kernel's quantum: C and M are multiples of it
 
 
 def fold_bn(weight: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -112,48 +117,55 @@ def fused_bottleneck_chain_plain(x: torch.Tensor, weights) -> torch.Tensor:
     return y.contiguous()
 
 
-@functools.cache
-def _kernel():
-    """The built kernel's C entry point, with its argument types."""
-    from spec_tpu_torch.ops.cuda_build import load_library
-
-    fn = load_library('bottleneck').spec_bottleneck_forward
+def bind_forward(lib: ctypes.CDLL):
+    """The C entry ``spec_bottleneck_forward`` of a built library, with
+    its argument types."""
+    fn = lib.spec_bottleneck_forward
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [
         ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def picked_tile(B: int, H: int, W: int, C: int, M: int) -> tuple:
+@functools.cache
+def _kernel():
+    """The built kernel's C entry point, with its argument types."""
+    from spec_tpu_torch.ops.cuda_build import load_library
+
+    return bind_forward(load_library('bottleneck'))
+
+
+def picked_tile(B: int, H: int, W: int, C: int, M: int,
+                dtype: torch.dtype) -> tuple:
     """(TH, TW, stages): the output tile and the depth of the copy ring
-    that the bf16 kernel picks for x (B, H, W, C) and width M on the
-    current CUDA device."""
+    that the kernel picks for x (B, H, W, C) in ``dtype`` and width M on
+    the current CUDA device."""
     from spec_tpu_torch.ops.cuda_build import load_library
 
     fn = load_library('bottleneck').spec_bottleneck_pick_tile
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 3
     fn.restype = ctypes.c_int
     out = [ctypes.c_int() for _ in range(3)]
-    err = fn(B, H, W, C, M, *(ctypes.byref(v) for v in out))
+    err = fn(_DTYPES[dtype], B, H, W, C, M, *(ctypes.byref(v) for v in out))
     if err != 0:
-        raise RuntimeError(f'no bf16 tile fits C={C} M={M} (CUDA error '
+        raise RuntimeError(f'no {dtype} tile fits C={C} M={M} (CUDA error '
                            f'{err})')
     return tuple(v.value for v in out)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it when its data is not 16-byte aligned (the
-    bf16 kernel copies rows with 16-byte cp.async and reads bias
-    pairs)."""
+    kernel copies rows with 16-byte cp.async and reads bias pairs)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(x: torch.Tensor, block, tile=(0, 0)) -> torch.Tensor:
-    """One block on the kernel. ``tile`` (TH, TW) forces the bf16
-    kernel's output tile, for timing the candidates; (0, 0) lets the
-    kernel pick it."""
+def _launch(x: torch.Tensor, block, tile=(0, 0), fn=None) -> torch.Tensor:
+    """One block on the kernel. ``tile`` (TH, TW) forces the kernel's
+    output tile, for timing the candidates; (0, 0) lets the kernel pick
+    it. ``fn``: another build's C entry (:func:`bind_forward`), for
+    comparing two builds; None, this package's."""
     global LAUNCHES
-    fn = _kernel()
+    fn = fn or _kernel()
     B, H, W, C = x.shape
     dt = x.dtype
     w1, b1, w2, b2, w3, b3 = block

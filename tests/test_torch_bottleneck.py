@@ -7,9 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from spec_tpu.ops.pallas import bottleneck as JB
 from spec_tpu_torch.ops import bottleneck as TB
+from test_torch_cuda_bottleneck import (F64_BUDGET, STAGES, chain_float64,
+                                        random_chain)
 
 
 def _block_weights(rng, C, M):
@@ -153,3 +156,65 @@ def test_k_ge_h_raises_like_jax(rng):
         JB.fused_bottleneck_chain(jnp.asarray(x), _jax(ws), interpret=True)
     with pytest.raises(ValueError, match='height'):
         TB.fused_bottleneck_chain(torch.from_numpy(x), _torch(ws))
+
+
+def _tf32(t):
+    """fp32 rounded to TF32, to nearest with ties away from zero (as
+    cvt.rna.tf32.f32), on the bit pattern: the 13 low mantissa bits go."""
+    return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(t):
+    hi = _tf32(t)
+    return hi, _tf32(t - hi)
+
+
+def _tf32_matmul(a, b, passes):
+    """a @ b from TF32 parts with fp32 sums: 3 passes (a_lo b_hi + a_hi
+    b_lo + a_hi b_hi, as the kernel's 3xTF32) or 1 (a_hi b_hi). Products
+    of TF32 values are exact in fp32, so one fp32 product over the
+    stacked parts takes the three with fp32 sums."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    if passes == 1:
+        return ah @ bh
+    return torch.cat([al, ah, ah], 1) @ torch.cat([bh, bl, bh], 0)
+
+
+def _bottleneck_tf32(x, block, passes):
+    """One bottleneck with every product emulated as ``passes`` TF32
+    passes; the 3x3 as one product over the 9 taps' h1 (k = tap M + m)."""
+    w1, b1, w2, b2, w3, b3 = block
+    B, H, W, C = x.shape
+    M = w1.shape[1]
+    h1 = torch.relu(_tf32_matmul(x.reshape(-1, C), w1, passes) + b1)
+    h1 = F.pad(h1.reshape(B, H, W, M), (0, 0, 1, 1, 1, 1))
+    taps = torch.cat([h1[:, dy:dy + H, dx:dx + W] for dy in range(3)
+                      for dx in range(3)], -1).reshape(-1, 9 * M)
+    h2 = torch.relu(_tf32_matmul(taps, w2.reshape(9 * M, M), passes) + b2)
+    y = _tf32_matmul(h2, w3, passes) + b3 + x.reshape(-1, C)
+    return torch.relu(y).reshape(B, H, W, C)
+
+
+@pytest.mark.parametrize('stage', [2, 3])
+def test_3xtf32_is_within_the_float64_budget_and_one_pass_is_not(stage):
+    """The card test's float64 budget (F64_BUDGET) sized on the CPU: one
+    bottleneck at layer3's or layer4's widths (the 3x3 is 9 M deep) on
+    the card test's operands, every product emulated from TF32 parts.
+    3xTF32 stays 4x under the budget, one TF32 pass 4x over it."""
+    _, _, C, M = STAGES[stage]
+    x, ws = random_chain(1, 6, 6, C, M, 1, seed=stage, dtype=torch.float32,
+                         device='cpu')
+    for t in (x,) + ws[0]:
+        hi, lo = _split(t)
+        assert ((hi.view(torch.int32) & 0x1fff) == 0).all()
+        assert ((lo.view(torch.int32) & 0x1fff) == 0).all()
+        assert ((hi + lo - t).abs() <= 2.0 ** -22 * t.abs()).all()
+    ref = chain_float64(x, ws)
+    scale = max(1.0, ref.abs().max().item())
+
+    def err(passes):
+        out = _bottleneck_tf32(x, ws[0], passes)
+        return (out.double() - ref).abs().max().item() / scale
+
+    assert 4 * err(3) <= F64_BUDGET
+    assert err(1) >= 4 * F64_BUDGET
