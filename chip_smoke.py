@@ -41,12 +41,26 @@ printing its own results; any failure raises and exits nonzero:
    (ResNet-18) and the pipelines (ResNet-50, 64x96 frames; both trunks
    in fp32 and the fused trunk in bf16, where the CPU runs K3's plain
    version);
-9. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
+9. graphs: on the card every stage replays a CUDA graph
+   (``spec_tpu_torch/utils/graphs.py``). The replays are held to the
+   eager stage bodies (bit for bit where they agree so, else within the
+   card-vs-CPU limits of phase 8): ``predict`` in fp32 and bf16 at phase
+   4's input, the camcalib_every=3 stream, calls of 40 and 64 persons
+   (stage-2 chunks 32 + 8 and 32 + 32, the latter one graph replayed
+   twice in a call) and both pipelines in both dtypes; per call, the
+   device operations, the host's launch calls, the wall ms and the
+   profiler's count of ``lbs_kernel`` and ``bottleneck_tc_kernel``
+   launches; then ``python -m spec_tpu_torch.bench`` once per mode
+   (pipeline at B = 128, serving with and without ``--compute_only``,
+   latency) at a small ``--iters``, each printing its JSON line;
+10. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then, instead of
 the rest, profiles phase 4's predictor (wall medians per stage, device
-busy time, idle share and the top device operations, fp32 and bf16) and
-phase 5's pipeline with each stage-1 trunk.
+busy time, idle share, device operations and host launch calls, and the
+top device operations, fp32 and bf16) and phase 5's pipeline with each
+stage-1 trunk, each replaying its graphs and, for comparison, with its
+eager stage bodies.
 ``python3 chip_smoke.py --k3-tiles`` runs phases 1-2 and then times K3
 in fp32 and bf16 at each stage shape with every candidate output tile
 forced, beside the tile the kernel picks.
@@ -62,6 +76,7 @@ Needs no network and no files beyond the checkout; builds go to
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -71,14 +86,16 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-LBS_BATCHES = (1, 3, 8, 16, 32, 64)
+LBS_BATCHES = (1, 3, 8, 16, 32, 64, 128)
 LBS_BUDGET = 1e-5          # m, the fused kernel's budget vs fp32
 FRAME_HW = (720, 1280)
 PERSONS_PER_FRAME = (1, 2, 3, 2)
 BATCH_SIZE = 32
 KERNELS = ('lbs', 'bottleneck', 'projection')
-# The pipeline's input: bench.py's default stage-1 bucket, 16 frames.
+# The pipeline's input: bench.py's default stage-1 bucket, 16 frames;
+# the bench's batch of frames.
 PIPE_FRAMES, PIPE_HW = 16, (512, 672)
+BENCH_BATCH = 128
 # ResNet-50 identity blocks on PIPE_HW: (H, W, C, M, blocks in the stage).
 RESNET50_STAGES = ((128, 168, 256, 64, 2), (64, 84, 512, 128, 3),
                    (32, 42, 1024, 256, 5), (16, 21, 2048, 512, 2))
@@ -322,25 +339,42 @@ def phase_lbs(batches):
     return rows
 
 
+def _k3_operands(B, H, W, C, M, k, seed, dtype):
+    """The card tests' operands; at the bench's batch x is drawn on the
+    card (a host draw of 704 M values takes seconds)."""
+    import torch
+
+    # The card tests' helper (tests/ is put on sys.path by main).
+    from test_torch_cuda_bottleneck import random_chain
+
+    if B <= PIPE_FRAMES:
+        return random_chain(B, H, W, C, M, k, seed=seed, dtype=dtype,
+                            device='cuda')
+    _, ws = random_chain(1, 4, 4, C, M, k, seed=seed, dtype=dtype,
+                         device='cuda')
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    x = torch.relu(torch.randn(B, H, W, C, generator=g, device='cuda'))
+    return x.to(dtype), ws
+
+
 def phase_bottleneck():
-    """K3 vs its plain version at the pipeline's identity-block shapes,
-    and the time of one block: kernel, plain version, cuDNN module."""
+    """K3 vs its plain version at the pipeline's identity-block shapes
+    (and layer1 at the bench's batch of 128, past 2^31 bytes of x in
+    fp32), and the time of one block at B = 16: kernel, plain version,
+    cuDNN module."""
     import torch
 
     from spec_tpu_torch.models.backbones.resnet import Bottleneck
     from spec_tpu_torch.ops import bottleneck as TB
     from spec_tpu_torch.utils.precision import fp32_precision
 
-    # The card tests' operands (tests/ is put on sys.path by main).
-    from test_torch_cuda_bottleneck import random_chain
-
     rows = {}
     shapes = [(PIPE_FRAMES, H, W, C, M, 1)
-              for H, W, C, M, _ in RESNET50_STAGES] + [ODD_SHAPE]
+              for H, W, C, M, _ in RESNET50_STAGES] + [ODD_SHAPE] + [
+                  (BENCH_BATCH, *RESNET50_STAGES[0][:4], 1)]
     for tag, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
         for si, (B, H, W, C, M, k) in enumerate(shapes):
-            x, ws = random_chain(B, H, W, C, M, k, seed=si, dtype=dtype,
-                                 device='cuda')
+            x, ws = _k3_operands(B, H, W, C, M, k, si, dtype)
             before = TB.LAUNCHES
             with torch.inference_mode():
                 out = TB.fused_bottleneck_chain(x, ws)
@@ -361,7 +395,7 @@ def phase_bottleneck():
             line = (f'[bottleneck {tag}] B={B} {H}x{W} C={C} M={M} k={k}: '
                     f'max_abs_err={err:.3e} (budget {K3_BUDGET[tag]:.1e} x '
                     f'{scale:.3f})')
-            if k == 1:
+            if k == 1 and B == PIPE_FRAMES:
                 blk = Bottleneck(C, M).to('cuda').eval().to(
                     dtype=dtype, memory_format=torch.channels_last)
                 nchw = x.permute(0, 3, 1, 2)
@@ -644,46 +678,64 @@ def _wall_ms(fn, n):
     return statistics.median(times)
 
 
-def _device_profile(label, fn, call_ms, n_prof, top):
-    """torch.profiler over ``n_prof`` calls of ``fn``: prints the device
-    busy time per call (union of the kernel and copy intervals), the
-    device operations per call, the idle share (1 - busy per call /
-    ``call_ms``, the unprofiled call median), K3's device time per call
-    and the ``top`` device operations by time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def _device_profile(label, fn, call_ms, n_prof, top=0):
+    """torch.profiler over ``n_prof`` calls of ``fn``
+    (``spec_tpu_torch.bench.device_profile``): prints the device busy
+    time per call (union of the kernel and copy intervals), the idle
+    share (1 - busy per call / ``call_ms``, the unprofiled call median),
+    the device operations and the host's launch calls per call, the
+    launches of K1 and K3 the profiler names, K3's device time per call
+    and the ``top`` device operations by time. Returns the profile."""
+    from spec_tpu_torch.bench import device_profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_prof):
-            fn()
-        torch.cuda.synchronize()
-    dev = sorted((e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
-    if not dev:
-        raise RuntimeError('the profiler saw no device operations')
-    busy_us, end = 0.0, float('-inf')
-    by_name: dict = {}
-    for e in dev:
-        s, t = e.time_range.start, e.time_range.end
-        busy_us += max(0.0, t - max(s, end))
-        end = max(end, t)
-        by_name[e.name] = by_name.get(e.name, 0.0) + (t - s)
-    busy = busy_us / 1e3 / n_prof
-    print(f'[profile {label}] device busy {busy:.3f} ms per call; '
-          f'{len(dev) / n_prof:.0f} device ops per call; idle share '
-          f'{1.0 - busy / call_ms:.3f}')
+    prof = device_profile(fn, n_prof)
+    by_name, counts = prof['by_name'], prof['count_by_name']
+
+    def count(kernel):
+        return sum(n for name, n in counts.items() if kernel in name)
+
+    print(f'[profile {label}] device busy {prof["busy_ms"]:.3f} ms per '
+          f'call; {prof["device_ops"]:.0f} device ops and '
+          f'{prof["host_launches"]:.0f} host launch calls per call; idle '
+          f'share {1.0 - prof["busy_ms"] / call_ms:.3f}; lbs_kernel '
+          f'{count("lbs_kernel"):g}, bottleneck_tc_kernel '
+          f'{count("bottleneck_tc_kernel"):g} per call', flush=True)
     total = sum(by_name.values())
-    k3 = sum(us for name, us in by_name.items() if 'bottleneck' in name)
+    k3 = sum(ms for name, ms in by_name.items() if 'bottleneck' in name)
     if k3:
-        print(f'[profile {label}] K3 (bottleneck kernels) '
-              f'{k3 / 1e3 / n_prof:.3f} ms per call ({k3 / total:.1%} of '
-              'device time)')
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
-        print(f'[profile {label}]   {us / 1e3 / n_prof:8.3f} ms per call '
-              f'({us / total:6.1%})  {name[:110]}')
+        print(f'[profile {label}] K3 (bottleneck kernels) {k3:.3f} ms per '
+              f'call ({k3 / total:.1%} of device time)')
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f'[profile {label}]   {ms:8.3f} ms per call '
+              f'({ms / total:6.1%})  {name[:110]}')
+    host = sorted(prof['host_by_name'].items(), key=lambda kv: -kv[1])
+    if top:
+        print(f'[profile {label}] host: ' + '; '.join(
+            f'{name[:40]} {ms:.3f} ms' for name, ms in host[:top])
+            + ' per call (self time)')
+    prof['lbs_kernel'] = count('lbs_kernel')
+    prof['bottleneck_tc_kernel'] = count('bottleneck_tc_kernel')
+    return prof
+
+
+@contextlib.contextmanager
+def _eager(pred):
+    """``pred``'s stages run their eager bodies (no graphs) inside."""
+    stages = pred._stage1, pred._stage2
+    pred._stage1, pred._stage2 = stages[0].fn, stages[1].fn
+    try:
+        yield
+    finally:
+        pred._stage1, pred._stage2 = stages
+
+
+def _release():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_profile(n_wall=10, n_prof=3, top=8):
@@ -691,7 +743,9 @@ def phase_profile(n_wall=10, n_prof=3, top=8):
     phase 4's input, with the wall medians of the call, of stage 1 alone
     (``estimate_cameras``) and of stage 2 alone (``predict`` with the
     cameras given); (b) one call of phase 5's pipeline with each stage-1
-    trunk. Each is followed by :func:`_device_profile`."""
+    trunk. Each replays its graphs and is followed by
+    :func:`_device_profile`; then the same call with the eager stage
+    bodies, for comparison."""
     import torch
 
     from spec_tpu_torch.pipeline import build_pipeline
@@ -700,29 +754,50 @@ def phase_profile(n_wall=10, n_prof=3, top=8):
     for tag, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
         pred = _full_width_predictor(dtype)
         cams = pred.estimate_cameras(frames)
-        call = _wall_ms(lambda: pred.predict(frames, boxes), n_wall)
-        stage1 = _wall_ms(lambda: pred.estimate_cameras(frames), n_wall)
-        stage2 = _wall_ms(lambda: pred.predict(frames, boxes, cameras=cams),
-                          n_wall)
-        print(f'[profile {tag}] predict median of {n_wall} {call:.3f} ms; '
-              f'stage 1 alone {stage1:.3f} ms; stage 2 alone {stage2:.3f} '
-              'ms')
-        _device_profile(tag, lambda: pred.predict(frames, boxes), call,
-                        n_prof, top)
+        for mode in ('graphs', 'eager'):
+            ctx = _eager(pred) if mode == 'eager' else contextlib.nullcontext()
+            with ctx:
+                call = _wall_ms(lambda: pred.predict(frames, boxes), n_wall)
+                stage1 = _wall_ms(lambda: pred.estimate_cameras(frames),
+                                  n_wall)
+                stage2 = _wall_ms(
+                    lambda: pred.predict(frames, boxes, cameras=cams), n_wall)
+                label = f'{tag} {mode}'
+                print(f'[profile {label}] predict median of {n_wall} '
+                      f'{call:.3f} ms; stage 1 alone {stage1:.3f} ms; stage '
+                      f'2 alone {stage2:.3f} ms')
+                _device_profile(label, lambda: pred.predict(frames, boxes),
+                                call, n_prof, top if mode == 'graphs' else 0)
         del pred
-        torch.cuda.empty_cache()
+        _release()
     args = _pipeline_inputs(PIPE_FRAMES, PIPE_HW, seed=0, device='cuda')
     for tag, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
         for stage1 in ('module', 'fused'):
             *_, pipeline = build_pipeline(compute_dtype=dtype,
                                           stage1=stage1, device='cuda')
-            call = _wall_ms(lambda: pipeline(*args), n_wall)
-            label = f'pipeline {tag} {stage1}'
-            print(f'[profile {label}] call median of {n_wall} {call:.3f} ms')
-            _device_profile(label, lambda: pipeline(*args), call, n_prof,
-                            top)
+            for mode, fn in (('graphs', pipeline), ('eager', pipeline.fn)):
+                call = _wall_ms(lambda: fn(*args), n_wall)
+                label = f'pipeline {tag} {stage1} {mode}'
+                print(f'[profile {label}] call median of {n_wall} '
+                      f'{call:.3f} ms')
+                _device_profile(label, lambda: fn(*args), call, n_prof,
+                                top if mode == 'graphs' else 0)
             del pipeline
-            torch.cuda.empty_cache()
+            _release()
+
+
+# Card vs CPU for the predictor (ResNet-18, fp32): limits per output,
+# and on the camera angles (rad). The graphs phase holds bf16 replays to
+# the pipelines' bf16 limits (CARD_VS_CPU below).
+PREDICT_LIMITS = {
+    'fp32': dict(pred_pose=2e-3, pred_pose_6d=2e-3, pred_shape=2e-3,
+                 pred_cam=2e-3, pred_cam_t=2e-3, smpl_vertices=5e-3,
+                 smpl_joints3d=5e-3, smpl_joints2d=0.1),
+    'bf16': dict(pred_pose=1e-2, pred_pose_6d=1e-2, pred_shape=1e-2,
+                 pred_cam=1e-2, pred_cam_t=1e-2, smpl_vertices=1e-2,
+                 smpl_joints3d=1e-2, smpl_joints2d=0.5),
+}
+ANGLE_LIMIT = {'fp32': 1e-4, 'bf16': 1e-3}
 
 
 def phase_card_vs_cpu():
@@ -746,22 +821,19 @@ def phase_card_vs_cpu():
     cam_err = max(abs(g[k] - c[k]) for g, c in zip(cams_g, cams_c)
                   for k in ('vfov', 'pitch', 'roll'))
     f_err = max(abs(g['f_pix'] - c['f_pix']) for g, c in zip(cams_g, cams_c))
-    errs = {k: 0.0 for k in ('pred_pose', 'pred_shape', 'pred_cam',
-                             'pred_cam_t', 'smpl_vertices', 'smpl_joints3d',
-                             'smpl_joints2d')}
+    errs = {k: 0.0 for k in PREDICT_LIMITS['fp32']}
     for rg, rc in zip(res_g, res_c):
         for pg, pc in zip(rg, rc):
             for k in errs:
                 errs[k] = max(errs[k], float(np.abs(pg[k] - pc[k]).max()))
-    limits = dict(pred_pose=2e-3, pred_shape=2e-3, pred_cam=2e-3,
-                  pred_cam_t=2e-3, smpl_vertices=5e-3, smpl_joints3d=5e-3,
-                  smpl_joints2d=0.1)
+    limits = PREDICT_LIMITS['fp32']
     print(f'[card vs cpu] resnet18 min_size 96 img_res 64: camera angles '
-          f'{cam_err:.2e} rad (limit 1e-4), f_pix {f_err:.2e} px '
-          '(limit 0.05), ' + ', '.join(f'{k} {v:.2e} (limit {limits[k]})'
-                                        for k, v in errs.items()))
+          f'{cam_err:.2e} rad (limit {ANGLE_LIMIT["fp32"]}), f_pix '
+          f'{f_err:.2e} px (limit 0.05), '
+          + ', '.join(f'{k} {v:.2e} (limit {limits[k]})'
+                      for k, v in errs.items()))
     bad = [k for k in errs if not errs[k] <= limits[k]]
-    if cam_err > 1e-4 or f_err > 0.05 or bad:
+    if cam_err > ANGLE_LIMIT['fp32'] or f_err > 0.05 or bad:
         raise RuntimeError(f'card and CPU disagree: {bad or "cameras"}')
 
 
@@ -1000,6 +1072,133 @@ def phase_pipeline_card_vs_cpu():
                                f'disagree in {bad}')
 
 
+def _predict_diff(got, want):
+    """Two ``predict(..., return_cameras=True)`` results: (bit for bit,
+    {output: max |difference|} over every person, max camera angle
+    difference)."""
+    import numpy as np
+
+    (res_g, cams_g), (res_w, cams_w) = got, want
+    if [len(r) for r in res_g] != [len(r) for r in res_w]:
+        raise RuntimeError('replay and eager differ in persons per frame')
+    same, errs = True, {}
+    for rg, rw in zip(res_g, res_w):
+        for pg, pw in zip(rg, rw):
+            for k, v in pg.items():
+                if k == 'camera':
+                    continue
+                same = same and np.array_equal(v, pw[k])
+                errs[k] = max(errs.get(k, 0.0),
+                              float(np.abs(v - pw[k]).max()))
+    cam = max(abs(g[k] - w[k]) for g, w in zip(cams_g, cams_w)
+              for k in ('vfov', 'pitch', 'roll'))
+    return same and cam == 0.0, errs, cam
+
+
+def _hold_predict(label, got, want, tag):
+    same, errs, cam = _predict_diff(got, want)
+    limits = PREDICT_LIMITS[tag]
+    print(f'[graphs {label}] replay vs eager: bit-identical {same}; camera '
+          f'angles {cam:.2e} rad (limit {ANGLE_LIMIT[tag]}), '
+          + ', '.join(f'{k} {errs[k]:.2e} (limit {lim})'
+                      for k, lim in limits.items()), flush=True)
+    bad = [k for k, lim in limits.items() if not errs[k] <= lim]
+    if cam > ANGLE_LIMIT[tag] or bad:
+        raise RuntimeError(f'{label}: replays disagree with the eager '
+                           f'stages in {bad or "cameras"}')
+
+
+def _graph_call(label, fn, lbs, k3):
+    """Wall ms (median of 5) and the profile of one graph call; raises
+    unless the profiler saw ``lbs`` K1 and ``k3`` K3 launches per call."""
+    wall = _wall_ms(fn, 5)
+    print(f'[graphs {label}] {wall:.3f} ms per call (median of 5)')
+    prof = _device_profile(f'graphs {label}', fn, wall, 3)
+    if (prof['lbs_kernel'], prof['bottleneck_tc_kernel']) != (lbs, k3):
+        raise RuntimeError(f'{label}: the profiler saw '
+                           f'{prof["lbs_kernel"]:g} lbs_kernel and '
+                           f'{prof["bottleneck_tc_kernel"]:g} '
+                           f'bottleneck_tc_kernel launches per call, '
+                           f'expected {lbs} and {k3}')
+
+
+def phase_graphs():
+    """CUDA graph replays against the eager stage bodies, and the bench
+    once per mode (see the module docstring, phase 9)."""
+    import torch
+
+    from spec_tpu_torch import bench
+    from spec_tpu_torch.ops import bottleneck as TB
+    from spec_tpu_torch.pipeline import build_pipeline
+
+    frames, boxes = _frames_and_boxes(4, PERSONS_PER_FRAME, seed=0)
+    for tag, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
+        pred = _full_width_predictor(dtype)
+        got = pred.predict(frames, boxes, return_cameras=True)
+        with _eager(pred):
+            want = pred.predict(frames, boxes, return_cameras=True)
+        _hold_predict(f'predict {tag}', got, want, tag)
+        _graph_call(f'predict {tag}', lambda: pred.predict(frames, boxes),
+                    lbs=1, k3=0)
+        if tag == 'fp32':
+            sf, sb = _frames_and_boxes(6, (1,), seed=1)
+            pred.camcalib_every, pred.cut_threshold = 3, 0.0
+            got = pred.predict(sf, sb, stream='graphs', return_cameras=True)
+            with _eager(pred):
+                want = pred.predict(sf, sb, stream='eager',
+                                    return_cameras=True)
+            _hold_predict('predict fp32 camcalib_every=3', got, want, tag)
+            pred.camcalib_every = 1
+            for n_frames in (10, 16):
+                cf, cb = _frames_and_boxes(n_frames, (4,), seed=2)
+                got = pred.predict(cf, cb, return_cameras=True)
+                with _eager(pred):
+                    want = pred.predict(cf, cb, return_cameras=True)
+                n = 4 * n_frames
+                _hold_predict(f'predict fp32 {n} persons (stage-2 chunks '
+                              f'32 + {n - 32})', got, want, tag)
+            padded = sorted(key[0][0][0] for key in pred._stage2.signatures())
+            print(f'[graphs predict fp32] stage-2 graphs captured for '
+                  f'padded batches {padded}')
+            if 32 not in padded:
+                raise RuntimeError('no stage-2 graph of 32 rows')
+        del pred
+        _release()
+
+    args = _pipeline_inputs(PIPE_FRAMES, PIPE_HW, seed=0, device='cuda')
+    names = ('vertices', 'joints2d', 'cam_t', 'vfov', 'pitch', 'roll')
+    for tag, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
+        for stage1 in ('module', 'fused'):
+            *_, pipeline = build_pipeline(compute_dtype=dtype,
+                                          stage1=stage1, device='cuda')
+            TB.LAUNCHES = 0
+            want = pipeline.fn(*args)
+            k3 = TB.LAUNCHES
+            got = pipeline(*args)
+            errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            label = f'pipeline {tag} {stage1}'
+            print(f'[graphs {label}] replay vs eager: bit-identical {same}; '
+                  + ', '.join(f'{n} {e:.2e} (limit {lim})' for n, e, lim
+                              in zip(names, errs, CARD_VS_CPU[tag])),
+                  flush=True)
+            if not all(e <= lim for e, lim in zip(errs, CARD_VS_CPU[tag])):
+                raise RuntimeError(f'{label}: replays disagree with the '
+                                   'eager pipeline')
+            _graph_call(label, lambda: pipeline(*args), lbs=1, k3=k3)
+            del pipeline, got, want
+            _release()
+
+    for argv in (['--iters', '1'], ['--mode', 'serving', '--iters', '1'],
+                 ['--mode', 'serving', '--compute_only', '--iters', '1'],
+                 ['--mode', 'latency', '--iters', '2']):
+        print(f'[graphs bench] python -m spec_tpu_torch.bench '
+              f'{" ".join(argv)}', flush=True)
+        if bench.main(argv) != 0:
+            raise RuntimeError(f'the bench failed: {argv}')
+        _release()
+
+
 def main() -> int:
     import torch
 
@@ -1048,6 +1247,7 @@ def main() -> int:
                                                roll))
     phase_card_vs_cpu()
     phase_pipeline_card_vs_cpu()
+    phase_graphs()
 
     row = lbs_rows[main_batch]
 

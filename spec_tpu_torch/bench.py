@@ -1,0 +1,406 @@
+"""The port's benchmark: ``python -m spec_tpu_torch.bench``.
+
+The counterpart of ``bench.py``'s ``pipeline``, ``serving`` and
+``latency`` modes (argument names and defaults from there; ``--stage1
+flax`` is ``module`` here, and ``--dtype`` picks the compute dtype):
+
+* ``pipeline`` (default): ``pipeline.build_pipeline`` on B = 128 raw
+  frames of 512x672 in device memory, one person per frame: img/s per
+  GPU, timed by CUDA events over windows of ``--iters`` calls.
+* ``serving``: ``SpecPredictor.predict`` on ``--frames`` 480x640 frames
+  with ``--persons`` boxes each (``batch_size`` 32, ``--min_size``,
+  ``--camcalib_every``): persons/s and ms per call by the host clock
+  (``predict`` fetches its results to the host). ``--compute_only``
+  replays the predictor's stage graphs on inputs staged on the device
+  (the reference's jitted stage bodies on staged inputs), by CUDA
+  events.
+* ``latency``: ``predict`` on one 480x640 frame with one box: e2e ms per
+  call, and stage-1 and stage-2 ms from replays on staged inputs.
+
+Every mode warms up first (the graph captures included) and times
+``WINDOWS`` windows; the last line is one JSON object with ``metric``,
+``value`` (the median window), ``unit``, ``spread`` (min and max over the
+windows), ``device`` and ``card`` (the card's name and power limit, as
+nvidia-smi gives them). ``--profile`` prints, on an earlier line, the
+device busy time per call, the idle share, the device operations and the
+host's launch calls per call (torch.profiler).
+
+Weights are random (fixed seeds) and SMPL synthetic. The default device
+is ``cuda``: without a card the bench exits non-zero; ``--device cpu``
+runs it on the CPU (tests, at tiny sizes), where times are host times.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+WINDOWS = 10
+# Frame sizes per mode when --frame_h/--frame_w are not given: the
+# pipeline's stage-1 bucket, and the serving and latency frames.
+FRAME_HW = {'pipeline': (512, 672), 'serving': (480, 640),
+            'latency': (480, 640)}
+# CUDA runtime calls that put work on the device, as the profiler names
+# them: what the host issues per call.
+_LAUNCH_CALLS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
+                 'cuLaunchKernelEx', 'cudaMemcpyAsync', 'cudaMemsetAsync',
+                 'cudaGraphLaunch')
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        prog='python -m spec_tpu_torch.bench',
+        description='spec_tpu_torch e2e bench (pipeline, serving, latency)')
+    parser.add_argument('--mode', choices=['pipeline', 'serving', 'latency'],
+                        default='pipeline')
+    parser.add_argument('--batch', type=int, default=128,
+                        help='[pipeline] frames per call')
+    parser.add_argument('--frame_h', type=int, default=None,
+                        help='default: 512 (pipeline) / 480 (serving, '
+                             'latency)')
+    parser.add_argument('--frame_w', type=int, default=None,
+                        help='default: 672 (pipeline) / 640 (serving, '
+                             'latency)')
+    parser.add_argument('--stage1', choices=['module', 'fused'],
+                        default='module',
+                        help='[pipeline] stage-1 trunk: the CamCalib module '
+                             'or the folded-BN FusedResNet (kernel K3)')
+    parser.add_argument('--dtype', choices=['bf16', 'fp32'], default='bf16',
+                        help='compute dtype of the backbones and heads')
+    parser.add_argument('--iters', type=int, default=10,
+                        help='calls per timed window')
+    parser.add_argument('--frames', type=int, default=16,
+                        help='[serving] frames per predict() call')
+    parser.add_argument('--persons', type=int, default=4,
+                        help='[serving] persons per frame')
+    parser.add_argument('--min_size', type=int, default=600,
+                        help='[serving, latency] stage-1 resize target')
+    parser.add_argument('--camcalib_every', type=int, default=1,
+                        help='[serving] CamCalib on every Nth frame only')
+    parser.add_argument('--compute_only', action='store_true',
+                        help='[serving] replay the stage graphs on inputs '
+                             'staged on the device')
+    parser.add_argument('--profile', action='store_true',
+                        help='also print device busy time, idle share and '
+                             'operations per call (torch.profiler)')
+    parser.add_argument('--device', default='cuda',
+                        help="'cuda' (default) or 'cpu'")
+    args = parser.parse_args(argv)
+    default_hw = FRAME_HW[args.mode]
+    args.frame_h = args.frame_h or default_hw[0]
+    args.frame_w = args.frame_w or default_hw[1]
+    if args.iters < 1:
+        parser.error('--iters must be >= 1')
+    return args
+
+
+def _dtype(args) -> torch.dtype:
+    return torch.bfloat16 if args.dtype == 'bf16' else torch.float32
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+
+
+def _device_ms(fn, device: torch.device) -> float:
+    """ms of ``fn()``: CUDA events around it on a card (the device's
+    time for the work queued), the host clock on the CPU."""
+    if device.type != 'cuda':
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    _sync(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _host_ms(fn, device: torch.device) -> float:
+    """Host-clock ms of ``fn()``, bracketed by device syncs."""
+    _sync(device)
+    t0 = time.perf_counter()
+    fn()
+    _sync(device)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _windows(timer, fn, iters, device) -> list:
+    """ms per call in each of ``WINDOWS`` windows of ``iters`` calls."""
+
+    def window():
+        for _ in range(iters):
+            fn()
+
+    return [timer(window, device) / iters for _ in range(WINDOWS)]
+
+
+def device_profile(fn, n_calls: int = 3) -> dict:
+    """torch.profiler over ``n_calls`` calls of ``fn`` on the card.
+    Returns per call: ``busy_ms`` (the union of the device's kernel and
+    copy intervals), ``device_ops`` (device kernels and copies, those
+    inside graph replays included), ``host_launches`` (the host's CUDA
+    calls that put work on the device: kernel launches, copies, memsets
+    and graph launches), ``by_name`` (device ms per operation name),
+    ``count_by_name`` (device operations per name) and ``host_by_name``
+    (the host's own ms per operator or CUDA call name)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    if not dev:
+        raise RuntimeError('the profiler saw no device operations')
+    busy_us, end = 0.0, float('-inf')
+    by_name: dict = {}
+    count_by_name: dict = {}
+    for e in dev:
+        s, t = e.time_range.start, e.time_range.end
+        busy_us += max(0.0, t - max(s, end))
+        end = max(end, t)
+        by_name[e.name] = by_name.get(e.name, 0.0) + (t - s) / 1e3 / n_calls
+        count_by_name[e.name] = count_by_name.get(e.name, 0) + 1 / n_calls
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    launches = sum(1 for e in host if e.name.startswith(_LAUNCH_CALLS))
+    host_by_name: dict = {}
+    for e in host:
+        host_by_name[e.name] = (host_by_name.get(e.name, 0.0)
+                                + e.self_cpu_time_total / 1e3 / n_calls)
+    return {'busy_ms': busy_us / 1e3 / n_calls,
+            'device_ops': len(dev) / n_calls,
+            'host_launches': launches / n_calls,
+            'by_name': by_name, 'count_by_name': count_by_name,
+            'host_by_name': host_by_name}
+
+
+def _print_profile(label, fn, call_ms) -> None:
+    p = device_profile(fn)
+    print(f'[profile] {label}: device busy {p["busy_ms"]:.3f} ms per call, '
+          f'idle share {1.0 - p["busy_ms"] / call_ms:.3f} (of '
+          f'{call_ms:.3f} ms per call), {p["device_ops"]:.0f} device ops '
+          f'and {p["host_launches"]:.0f} host launch calls per call',
+          flush=True)
+
+
+def _card() -> str | None:
+    """The card's name and power limit as nvidia-smi prints them."""
+    try:
+        out = subprocess.run(
+            ['nvidia-smi', '--query-gpu=name,power.limit',
+             '--format=csv,noheader'], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    return out[0] if out else None
+
+
+def _emit(args, device, metric, ms_list, value_of, unit, **extra) -> dict:
+    """Print and return the result line: ``value_of(ms)`` over the
+    windows' ms per call, the median as the value."""
+    values = [value_of(ms) for ms in ms_list]
+    payload = {
+        'metric': metric,
+        'value': statistics.median(values),
+        'unit': unit,
+        'spread': {'min': min(values), 'max': max(values),
+                   'windows': len(values), 'iters': args.iters},
+        'device': (torch.cuda.get_device_name(device)
+                   if device.type == 'cuda' else 'cpu'),
+        'card': _card() if device.type == 'cuda' else None,
+        **extra,
+    }
+    print(json.dumps(payload), flush=True)
+    return payload
+
+
+def pipeline_bench(args, device) -> dict:
+    """``build_pipeline`` on ``--batch`` raw frames, as ``bench.py``'s
+    default mode draws them."""
+    from spec_tpu_torch.ops.preprocess import spin_crop_corners
+    from spec_tpu_torch.pipeline import build_pipeline
+
+    B, hw = args.batch, (args.frame_h, args.frame_w)
+    rng = np.random.RandomState(0)
+    raw = (rng.rand(B, *hw, 3) * 255).astype('f4')
+    center = (rng.rand(B, 2) * 300 + np.array([180, 100])).astype('f4')
+    scale = (rng.rand(B) * 0.8 + 0.8).astype('f4')
+    corners = spin_crop_corners(center, scale)
+    inputs = tuple(torch.from_numpy(a).to(device)
+                   for a in (raw, corners, center, scale))
+    del raw
+    *_, pipeline = build_pipeline(compute_dtype=_dtype(args),
+                                  stage1=args.stage1, device=device)
+    for _ in range(2):          # capture, then one replay
+        outs = pipeline(*inputs)
+    _sync(device)
+    if not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise RuntimeError('non-finite pipeline output')
+    ms = _windows(_device_ms, lambda: pipeline(*inputs), args.iters, device)
+    if args.profile and device.type == 'cuda':
+        _print_profile(f'pipeline {args.stage1} {args.dtype} B={B}',
+                       lambda: pipeline(*inputs), statistics.median(ms))
+    bucket = f'{hw[0]}x{hw[1]}'
+    return _emit(args, device,
+                 f'camcalib+spec e2e inference throughput (raw frames in, '
+                 f'on-device preprocessing, stage-1 bucket {bucket}, '
+                 f'stage1={args.stage1}, {args.dtype}, B={B})',
+                 ms, lambda m: B / m * 1e3, 'img/s/gpu',
+                 ms_per_call=statistics.median(ms))
+
+
+def _predictor(args, device, camcalib_every=1):
+    from spec_tpu_torch.serving import SpecPredictor
+
+    return SpecPredictor(batch_size=32, min_size=args.min_size,
+                         dtype=_dtype(args), camcalib_every=camcalib_every,
+                         device=device)
+
+
+def _serving_inputs(args):
+    """``bench.py``'s serving frames and boxes, the boxes scaled from its
+    480x640 frames to ``--frame_h`` x ``--frame_w``."""
+    rng = np.random.RandomState(0)
+    h, w = args.frame_h, args.frame_w
+    sx, sy = w / 640.0, h / 480.0
+    frames = [(rng.rand(h, w, 3) * 255).astype(np.uint8)
+              for _ in range(args.frames)]
+    boxes = [np.stack([
+        np.array([(160 + 60 * k + rng.rand() * 30) * sx,
+                  (240 + rng.rand() * 40) * sy, (90 + rng.rand() * 30) * sx,
+                  (200 + rng.rand() * 40) * sy], np.float32)
+        for k in range(args.persons)]) for _ in range(args.frames)]
+    return frames, boxes
+
+
+def _staged(pred, frames, boxes, every=1):
+    """The predictor's stage-1 batches (every ``every``-th frame) and
+    stage-2 chunks, staged on the device as ``predict`` stages them."""
+    with torch.inference_mode():
+        frames_dev = [pred._upload(f) for f in frames]
+        cams = pred.estimate_cameras(frames)
+        s1 = [b for _, b in pred._stage1_batches(frames_dev[::every])]
+        s2 = [x for *_, x in pred._stage2_batches(frames_dev, boxes, cams)]
+    return s1, s2
+
+
+def serving_bench(args, device) -> dict:
+    frames, boxes = _serving_inputs(args)
+    n_persons = args.frames * args.persons
+    pred = _predictor(args, device, args.camcalib_every)
+    for _ in range(2):          # captures for every padded shape
+        pred.predict(frames, boxes)
+        pred.reset_camera_stream()
+    every = f', camcalib_every={args.camcalib_every}' \
+        if args.camcalib_every > 1 else ''
+    where = (f'{args.persons} persons/frame, {args.frames} frames of '
+             f'{args.frame_h}x{args.frame_w}, stage-1 min_size='
+             f'{args.min_size}, {args.dtype}{every}')
+
+    if args.compute_only:
+        s1, s2 = _staged(pred, frames, boxes, args.camcalib_every)
+
+        def one_pass():
+            for b in s1:
+                pred._stage1(b)
+            for x in s2:
+                pred._stage2(*x)
+
+        one_pass()
+        ms = _windows(_device_ms, one_pass, args.iters, device)
+        if args.profile and device.type == 'cuda':
+            _print_profile(f'serving compute_only ({where})', one_pass,
+                           statistics.median(ms))
+        return _emit(args, device,
+                     f'serving engine throughput (stage graphs replayed on '
+                     f'inputs staged on the device), {where}', ms,
+                     lambda m: n_persons / m * 1e3, 'persons/s/gpu',
+                     ms_per_pass=statistics.median(ms),
+                     stage1_batches=len(s1), stage2_chunks=len(s2))
+
+    def call():
+        results = pred.predict(frames, boxes)
+        if sum(len(r) for r in results) != n_persons:
+            raise RuntimeError('predict lost persons')
+
+    ms = _windows(_host_ms, call, args.iters, device)
+    if args.profile and device.type == 'cuda':
+        _print_profile(f'serving predict ({where})', call,
+                       statistics.median(ms))
+    return _emit(args, device, f'serving predict() e2e, {where}', ms,
+                 lambda m: n_persons / m * 1e3, 'persons/s/gpu',
+                 ms_per_call=statistics.median(ms),
+                 ms_per_call_spread=[min(ms), max(ms)])
+
+
+def latency_bench(args, device) -> dict:
+    rng = np.random.RandomState(0)
+    h, w = args.frame_h, args.frame_w
+    frame = (rng.rand(h, w, 3) * 255).astype(np.uint8)
+    box = np.array([[320.0 * w / 640, 240.0 * h / 480, 100.0 * w / 640,
+                     220.0 * h / 480]], np.float32)
+    pred = _predictor(args, device)
+    for _ in range(3):          # both batch-1 stage captures
+        out = pred.predict([frame], [box])
+    if len(out[0]) != 1:
+        raise RuntimeError('predict lost the person')
+    e2e = _windows(_host_ms, lambda: pred.predict([frame], [box]),
+                   args.iters, device)
+    (s1,), (s2,) = _staged(pred, [frame], [box])
+    stage1 = _windows(_device_ms, lambda: pred._stage1(s1), args.iters,
+                      device)
+    stage2 = _windows(_device_ms, lambda: pred._stage2(*s2), args.iters,
+                      device)
+    if args.profile and device.type == 'cuda':
+        _print_profile(f'latency predict ({h}x{w}, 1 person)',
+                       lambda: pred.predict([frame], [box]),
+                       statistics.median(e2e))
+    s1_ms, s2_ms = statistics.median(stage1), statistics.median(stage2)
+    return _emit(args, device,
+                 f'single-frame latency ({h}x{w}, 1 person, stage-1 '
+                 f'min_size={args.min_size}, {args.dtype})', e2e,
+                 lambda m: m, 'ms/frame e2e',
+                 stage1_ms=s1_ms, stage2_ms=s2_ms, compute_ms=s1_ms + s2_ms,
+                 stage1_spread=[min(stage1), max(stage1)],
+                 stage2_spread=[min(stage2), max(stage2)])
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        print('spec_tpu_torch.bench: no CUDA card (torch.cuda.is_available() '
+              'is False); the bench measures an NVIDIA GPU and never runs on '
+              'the CPU unasked: pass --device cpu for a CPU run',
+              file=sys.stderr)
+        return 2
+    if device.type not in ('cuda', 'cpu'):
+        print(f'spec_tpu_torch.bench: unsupported device {device}',
+              file=sys.stderr)
+        return 2
+    bench = {'pipeline': pipeline_bench, 'serving': serving_bench,
+             'latency': latency_bench}[args.mode]
+    with torch.inference_mode():
+        bench(args, device)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from spec_tpu_torch.utils.graphs import device_constant
+
 NUM_BINS = 256  # logits per head
 NUM_EDGES = 255
 
@@ -88,7 +90,7 @@ def soft_idx_to_angle(soft_idx, lo: float, hi: float):
 def bins_to_angle_argmax(logits: torch.Tensor,
                          centers: np.ndarray) -> torch.Tensor:
     """argmax over the logits -> bin-center lookup (ce/kl decode)."""
-    table = torch.as_tensor(centers, device=logits.device)
+    table = device_constant(centers, logits.device)
     return table[logits.argmax(dim=-1)]
 
 

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from spec_tpu_torch.core import constants as C
+from spec_tpu_torch.utils.graphs import device_constant
 from spec_tpu_torch.utils.precision import fp32_matmuls, fp32_precision
 
 
@@ -249,10 +250,11 @@ def _rigid_transform_chain(rotmats: torch.Tensor, joints: torch.Tensor,
     """
     B, J = rotmats.shape[:2]
     par = list(parents)
-    rel = torch.cat([joints[:, :1], joints[:, 1:] - joints[:, par[1:]]],
+    parent_idx = device_constant(par[1:], joints.device, torch.long)
+    rel = torch.cat([joints[:, :1], joints[:, 1:] - joints[:, parent_idx]],
                     dim=1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rotmats.dtype,
-                          device=rotmats.device).expand(B, 1, 4)
+    bottom = device_constant([0.0, 0.0, 0.0, 1.0], rotmats.device,
+                             rotmats.dtype).expand(B, 1, 4)
 
     def make_tf(R, t):
         return torch.cat([torch.cat([R, t[..., None]], dim=-1), bottom],
@@ -394,12 +396,12 @@ def smpl_forward(
         with fp32_precision():
             extra = torch.einsum('jv,bvc->bjc', assets.j_regressor_extra,
                                  verts)
-        joints = torch.cat(
-            [joints24, verts[:, list(assets.extra_vertex_ids)], extra], dim=1)
+        extra_ids = device_constant(assets.extra_vertex_ids, verts.device,
+                                    torch.long)
+        joints = torch.cat([joints24, verts[:, extra_ids], extra], dim=1)
         if joint_set == 'spin49':
-            joints = joints[:, torch.as_tensor(C.JOINT49_TO_SMPL54,
-                                               dtype=torch.long,
-                                               device=joints.device)]
+            joints = joints[:, device_constant(C.JOINT49_TO_SMPL54,
+                                               joints.device, torch.long)]
 
     if transl is not None:
         t = transl[:, None, :]

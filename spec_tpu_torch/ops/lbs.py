@@ -212,7 +212,7 @@ class _FusedLBS(torch.autograd.Function):
     def backward(ctx, grad_out):
         raise NotImplementedError(
             'the fused LBS kernel has no backward yet; it comes with the '
-            'training port (ROADMAP.md §1 item 9, "Open items" 5, §2 K1). '
+            'training port (ROADMAP.md §1 item 9 and §2 K1). '
             'Use smpl_forward(..., fused=False) to differentiate.')
 
 

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from spec_tpu_torch.core import constants as C
 from spec_tpu_torch.data.transforms import transform_point
+from spec_tpu_torch.utils.graphs import device_constant
 
 
 def spin_crop_corners(centers, scales, res: int = 224) -> np.ndarray:
@@ -38,8 +39,8 @@ def spin_crop_corners(centers, scales, res: int = 224) -> np.ndarray:
 
 def normalize_image(x: torch.Tensor) -> torch.Tensor:
     """[0, 1] RGB (..., 3) -> ImageNet-normalized."""
-    mean = torch.as_tensor(C.IMG_NORM_MEAN, device=x.device)
-    std = torch.as_tensor(C.IMG_NORM_STD, device=x.device)
+    mean = device_constant(C.IMG_NORM_MEAN, x.device)
+    std = device_constant(C.IMG_NORM_STD, x.device)
     return (x - mean) / std
 
 
@@ -70,22 +71,27 @@ def _axis_taps(ul: torch.Tensor, box: torch.Tensor, size: int, res: int):
 
 
 def crop_resize_normalize(
-    frames: torch.Tensor,    # (B, H, W, 3) float32 RGB in [0, 255]
+    frames: torch.Tensor,    # (F, H, W, 3) float32 RGB in [0, 255]
     corners: torch.Tensor,   # (B, 4) int [ulx, uly, brx, bry]
     res: int = 224,
     normalize: bool = True,
+    frame_index: torch.Tensor | None = None,   # (B,) int, box -> frame
 ) -> torch.Tensor:
     """-> (B, res, res, 3) float32: /255 and, with ``normalize``,
     ImageNet-normalized. Taps outside the frame read zero (zero padding).
-    Runs on the frames' device; ``frames`` may be an expanded view that
-    repeats one frame for several boxes."""
-    B, H, W, _ = frames.shape
+    Runs on the frames' device. Box b crops frame ``frame_index[b]``
+    (default: frame b, with F = B), so one call crops many boxes of
+    several frames of one size."""
+    H, W = frames.shape[1:3]
+    B = corners.shape[0]
     corners = corners.to(device=frames.device, dtype=torch.float32)
     ulx, uly = corners[:, 0:1], corners[:, 1:2]
     y0, y1, my0, my1, fy = _axis_taps(uly, corners[:, 3:4] - uly, H, res)
     x0, x1, mx0, mx1, fx = _axis_taps(ulx, corners[:, 2:3] - ulx, W, res)
 
-    bi = torch.arange(B, device=frames.device)[:, None, None]
+    bi = (torch.arange(B, device=frames.device) if frame_index is None
+          else frame_index.to(device=frames.device, dtype=torch.long)
+          )[:, None, None]
     wy0 = ((1.0 - fy) * my0)[:, :, None, None]          # (B, res, 1, 1)
     wy1 = (fy * my1)[:, :, None, None]
     wx0 = ((1.0 - fx) * mx0)[:, None, :, None]          # (B, 1, res, 1)
@@ -100,16 +106,18 @@ def crop_resize_normalize(
 
 
 def resize_min_side(img_u8: torch.Tensor, min_size: int) -> torch.Tensor:
-    """(H, W, 3) uint8 -> uint8 with the short side at ``min_size``,
-    aspect kept: torchvision ``Resize(min_size)`` on a PIL image
-    (``Image.BILINEAR``), computed on the image's device with the
-    antialiased bilinear filter, then rounded and clamped to uint8."""
-    h, w = img_u8.shape[:2]
+    """(H, W, 3) uint8, or a batch (N, H, W, 3) of one size -> uint8 with
+    the short side at ``min_size``, aspect kept: torchvision
+    ``Resize(min_size)`` on a PIL image (``Image.BILINEAR``), computed on
+    the image's device with the antialiased bilinear filter, then rounded
+    and clamped to uint8. A batch resizes each image as alone."""
+    h, w = img_u8.shape[-3:-1]
     s = min_size / min(w, h)
     out_h, out_w = round(h * s), round(w * s)
     if (out_h, out_w) == (h, w):
         return img_u8
-    x = img_u8.permute(2, 0, 1)[None].float()
+    x = img_u8.reshape(-1, h, w, 3).permute(0, 3, 1, 2).float()
     y = F.interpolate(x, size=(out_h, out_w), mode='bilinear',
                       align_corners=False, antialias=True)
-    return y[0].round().clamp(0, 255).to(torch.uint8).permute(1, 2, 0)
+    y = y.round().clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1)
+    return y.reshape(*img_u8.shape[:-3], out_h, out_w, 3)

@@ -12,6 +12,10 @@ fused_resnet.FusedResNet` over the same backbone with the mean pool and
 the three heads in the compute dtype (``stage1='fused'``, which runs the
 bottleneck-chain kernel K3).
 
+On a GPU the pipeline replays one CUDA graph per input shape
+(``utils/graphs.py``), as ``bench.py`` compiles the whole step with
+``jax.jit``; on the CPU it runs eagerly.
+
 Differences from ``bench.build_pipeline``: the weights live in the
 modules (``build_pipeline`` takes optional state_dicts, else a random
 init from fixed seeds), so the pipeline takes no per-call variables;
@@ -36,6 +40,7 @@ from spec_tpu_torch.ops.preprocess import (
     crop_resize_normalize,
     normalize_image,
 )
+from spec_tpu_torch.utils.graphs import StageGraph
 from spec_tpu_torch.utils.precision import fp32_precision
 
 STAGE1 = ('module', 'fused')
@@ -71,7 +76,8 @@ def build_pipeline(compute_dtype: torch.dtype = torch.bfloat16,
     bbox_center, bbox_scale)`` takes (B, H, W, 3) float32 RGB in
     [0, 255], (B, 4) int32 SPIN crop corners (one person per frame),
     (B, 2) and (B,) and returns (vertices, joints2d, pred_cam_t, vfov,
-    pitch, roll).
+    pitch, roll). ``pipeline`` is a :class:`~spec_tpu_torch.utils.graphs.
+    StageGraph`: a CUDA graph per input shape on a GPU.
     """
     if stage1 not in STAGE1:
         raise ValueError(f'stage1 must be one of {STAGE1}, got {stage1!r}')
@@ -112,4 +118,4 @@ def build_pipeline(compute_dtype: torch.dtype = torch.bfloat16,
         return (out['smpl_vertices'], out['smpl_joints2d'],
                 out['pred_cam_t'], vfov, pitch, roll)
 
-    return camcalib, spec, assets, pipeline
+    return camcalib, spec, assets, StageGraph('pipeline', pipeline)

@@ -7,7 +7,11 @@ stage-1 resize and normalization, the stage-2 SPIN crops and the SMPL
 forward (through the fused LBS CUDA kernel on a GPU) all run on the
 device. Stage-1 and stage-2 batches are padded to a power of two (capped
 at ``batch_size``), and every stage-2 chunk is queued before any result
-is fetched.
+is fetched. On a GPU each stage replays a CUDA graph captured once per
+padded shape (``utils/graphs.py``), the counterpart of the reference's
+jitted ``_cam_forward`` and ``_spec_forward``. The resize (one call per
+frame size), the crops (one call per frame size in a chunk), the uploads
+and the fetches stay outside the graphs.
 
 Example:
     predictor = SpecPredictor(spec_ckpt=..., camcalib_ckpt=...,
@@ -18,6 +22,7 @@ Example:
 
 from __future__ import annotations
 
+import functools
 import os
 from collections import OrderedDict, defaultdict
 from typing import Dict, List, Optional, Sequence
@@ -44,6 +49,7 @@ from spec_tpu_torch.utils.checkpoints import (
     load_torch_state_dict,
     select_state_dict,
 )
+from spec_tpu_torch.utils.graphs import StageGraph
 
 
 def frame_signature(frame: np.ndarray, bins: int = 32,
@@ -92,6 +98,24 @@ class KeyframeSelector:
         return key
 
 
+def _cam_forward(camcalib, loss_type: str,
+                 batch_u8: torch.Tensor) -> torch.Tensor:
+    """Stage 1 on one padded bucket of resized uint8 frames (B, H, W, 3):
+    normalize, CamCalib, bin decode -> angles (3, B) = (vfov, pitch,
+    roll)."""
+    logits = camcalib(normalize_u8(batch_u8))
+    return torch.stack(bins.convert_preds_to_angles(*logits,
+                                                    loss_type=loss_type))
+
+
+def _spec_forward(spec, assets, crops, rotmat, K, bbox_scale, bbox_center,
+                  img_w, img_h) -> dict:
+    """Stage 2 on one padded chunk of normalized crops: HMR, SMPL
+    through K1 and the camera (``HMR.forward``'s outputs)."""
+    return spec(assets, crops, rotmat, K, bbox_scale, bbox_center, img_w,
+                img_h)
+
+
 class SpecPredictor:
     """Persistent camera-aware human mesh recovery predictor.
 
@@ -100,7 +124,9 @@ class SpecPredictor:
     (``torch.float32`` or ``torch.bfloat16``; None = float32). SMPL
     vertices always go through ``ops.lbs.fused_lbs_vertices``, which
     launches the CUDA kernel on a GPU and runs its plain version on the
-    CPU, so ``use_fused_lbs=False`` raises. ``uint8_crops=True`` raises
+    CPU, so ``use_fused_lbs=False`` raises. On a GPU both stages replay
+    CUDA graphs (one per padded shape, at most 8 per stage, in one memory
+    pool); on the CPU they run eagerly. ``uint8_crops=True`` raises
     too: it shrinks the reference's host-to-device crop upload, and here
     crops are cut on the device from the frame already uploaded. Missing
     checkpoints give a random init from fixed seeds, with a warning
@@ -206,6 +232,14 @@ class SpecPredictor:
             self.spec.reset_parameters(torch.Generator().manual_seed(1))
         self.spec.to(self.device).eval()
 
+        # One graph memory pool for both stages (none on the CPU).
+        pool = (torch.cuda.graph_pool_handle()
+                if self.device.type == 'cuda' else None)
+        self._stage1 = StageGraph('stage1', functools.partial(
+            _cam_forward, self.camcalib, self.loss_type), pool)
+        self._stage2 = StageGraph('stage2', functools.partial(
+            _spec_forward, self.spec, self.assets), pool)
+
     # -- stage 1 ------------------------------------------------------------
 
     def _upload(self, frame) -> torch.Tensor:
@@ -216,30 +250,41 @@ class SpecPredictor:
             arr = arr.astype(np.float32)
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
-    @torch.inference_mode()
-    def _cameras_dispatch(self, frames_dev: Sequence[torch.Tensor]):
-        """Resize on the device, bucket by size and queue every stage-1
-        batch (no fetch). Returns the pending chunks for
-        :meth:`_cameras_fetch`."""
-        resized, buckets = [], defaultdict(list)
+    def _stage1_batches(self, frames_dev: Sequence[torch.Tensor]):
+        """Resize on the device (one call per frame size and up to
+        ``batch_size`` frames) and bucket by the resized size: yields
+        (frame indices, the bucket's padded uint8 batch), stage 1's
+        inputs."""
+        by_size = defaultdict(list)
         for i, fr in enumerate(frames_dev):
-            # Stage 1 sees uint8 (float frames truncate, as numpy's astype).
-            img = resize_min_side(fr.to(torch.uint8), self.min_size)
-            resized.append(img)
+            by_size[tuple(fr.shape)].append(i)
+        resized: List[torch.Tensor] = [None] * len(frames_dev)
+        for same in by_size.values():
+            for s0 in range(0, len(same), self.batch_size):
+                idxs = same[s0:s0 + self.batch_size]
+                # Stage 1 sees uint8 (float frames truncate, as numpy's
+                # astype).
+                batch = resize_min_side(torch.stack(
+                    [frames_dev[i] for i in idxs]).to(torch.uint8),
+                    self.min_size)
+                for k, i in enumerate(idxs):
+                    resized[i] = batch[k]
+        buckets = defaultdict(list)
+        for i, img in enumerate(resized):
             buckets[tuple(img.shape[:2])].append(i)
-
-        pending = []
         for idxs in buckets.values():
             for s0 in range(0, len(idxs), self.batch_size):
                 chunk = idxs[s0:s0 + self.batch_size]
                 bp = pad_pow2(len(chunk), self.batch_size)
                 pad = chunk + [chunk[-1]] * (bp - len(chunk))
-                batch = normalize_u8(torch.stack([resized[i] for i in pad]))
-                logits = self.camcalib(batch)
-                pending.append((chunk, torch.stack(
-                    bins.convert_preds_to_angles(
-                        *logits, loss_type=self.loss_type))))
-        return pending
+                yield chunk, torch.stack([resized[i] for i in pad])
+
+    @torch.inference_mode()
+    def _cameras_dispatch(self, frames_dev: Sequence[torch.Tensor]):
+        """Queue every stage-1 batch (no fetch). Returns the pending
+        chunks for :meth:`_cameras_fetch`."""
+        return [(chunk, self._stage1(batch))
+                for chunk, batch in self._stage1_batches(frames_dev)]
 
     @staticmethod
     def _cameras_fetch(pending, heights: Sequence[int]) -> List[dict]:
@@ -369,43 +414,10 @@ class SpecPredictor:
                     self._cameras_dispatch(frames_dev),
                     [f.shape[0] for f in frames_dev])
 
-        # Flatten (frame, person) work items.
-        work = []
-        for fi, bx in enumerate(boxes):
-            bx = np.asarray(bx, np.float32).reshape(-1, 4)
-            if len(bx) == 0:
-                continue
-            cam = cameras[fi]
-            h, w = frames_dev[fi].shape[:2]
-            rotmat = G.euler_to_rotmat(torch.tensor(
-                [[cam['pitch'], 0.0, cam['roll']]], dtype=torch.float32))[0]
-            K = G.build_cam_intrinsics(
-                torch.tensor([cam['f_pix']], dtype=torch.float32),
-                torch.tensor([float(w)]), torch.tensor([float(h)]))[0]
-            centers, scales = bbox_to_center_scale(bx)
-            corners = spin_crop_corners(centers, scales, res=self.img_res)
-            for pi in range(len(centers)):
-                work.append((fi, centers[pi], scales[pi], rotmat, K, w, h,
-                             corners[pi]))
-
         results: List[List[dict]] = [[] for _ in frames]
-        f32_frames: Dict[int, torch.Tensor] = {}
-        pending = []
-        for s0 in range(0, len(work), self.batch_size):
-            chunk = work[s0:s0 + self.batch_size]
-            n_valid = len(chunk)
-            bp = pad_pow2(n_valid, self.batch_size)
-            chunk = chunk + [chunk[-1]] * (bp - n_valid)
-            crops = self._crops(chunk, frames_dev, f32_frames)
-
-            def col(k):
-                return torch.from_numpy(np.stack(
-                    [np.asarray(c[k], np.float32) for c in chunk])).to(
-                        self.device)
-
-            out = self.spec(self.assets, crops, col(3), col(4), col(2),
-                            col(1), col(5), col(6))
-            pending.append((chunk, n_valid, out))
+        pending = [(chunk, n_valid, self._stage2(*inputs))
+                   for chunk, n_valid, inputs
+                   in self._stage2_batches(frames_dev, boxes, cameras)]
         for chunk, n_valid, out in pending:
             out_np = {k: v.cpu().numpy() for k, v in out.items()}
             for bi in range(n_valid):
@@ -419,21 +431,70 @@ class SpecPredictor:
             return results, list(cameras)
         return results
 
-    def _crops(self, chunk, frames_dev, f32_frames) -> torch.Tensor:
+    def _stage2_batches(self, frames_dev, boxes, cameras):
+        """Flatten (frame, person) work items and cut them into chunks of
+        ``batch_size``, each padded to a power of two: yields (work chunk,
+        valid rows, stage 2's inputs: crops cut on the device and the
+        camera and box columns uploaded)."""
+        boxes = [np.asarray(bx, np.float32).reshape(-1, 4) for bx in boxes]
+        fis = [fi for fi, bx in enumerate(boxes) if len(bx)]
+        if not fis:
+            return
+        # The cameras of every frame with persons, in one batch.
+        hw = [tuple(frames_dev[fi].shape[:2]) for fi in fis]
+        rotmats = G.euler_to_rotmat(torch.tensor(
+            [[cameras[fi]['pitch'], 0.0, cameras[fi]['roll']] for fi in fis],
+            dtype=torch.float32)).numpy()
+        Ks = G.build_cam_intrinsics(
+            torch.tensor([cameras[fi]['f_pix'] for fi in fis],
+                         dtype=torch.float32),
+            torch.tensor([float(w) for _, w in hw]),
+            torch.tensor([float(h) for h, _ in hw])).numpy()
+        work = []
+        for k, fi in enumerate(fis):
+            h, w = hw[k]
+            centers, scales = bbox_to_center_scale(boxes[fi])
+            corners = spin_crop_corners(centers, scales, res=self.img_res)
+            for pi in range(len(centers)):
+                work.append((fi, centers[pi], scales[pi], rotmats[k], Ks[k],
+                             w, h, corners[pi]))
+
+        for s0 in range(0, len(work), self.batch_size):
+            chunk = work[s0:s0 + self.batch_size]
+            n_valid = len(chunk)
+            bp = pad_pow2(n_valid, self.batch_size)
+            chunk = chunk + [chunk[-1]] * (bp - n_valid)
+            crops = self._crops(chunk, frames_dev)
+
+            def col(k):
+                return torch.from_numpy(np.stack(
+                    [np.asarray(c[k], np.float32) for c in chunk])).to(
+                        self.device)
+
+            yield chunk, n_valid, (crops, col(3), col(4), col(2), col(1),
+                                   col(5), col(6))
+
+    def _crops(self, chunk, frames_dev) -> torch.Tensor:
         """SPIN crops of one chunk, on the device, normalized (B, res,
-        res, 3)."""
-        by_frame: Dict[int, list] = defaultdict(list)
+        res, 3): one crop call per frame size in the chunk."""
+        by_size: Dict[tuple, list] = defaultdict(list)
         for ci, c in enumerate(chunk):
-            by_frame[c[0]].append(ci)
-        crops: list = [None] * len(chunk)
-        for fi, cis in by_frame.items():
-            if fi not in f32_frames:
-                f32_frames[fi] = frames_dev[fi].float()
-            frame = f32_frames[fi]
-            corners = torch.from_numpy(np.stack([chunk[ci][7] for ci in cis]))
-            v = crop_resize_normalize(
-                frame[None].expand(len(cis), *frame.shape), corners,
-                res=self.img_res)
-            for k, ci in enumerate(cis):
-                crops[ci] = v[k]
-        return torch.stack(crops)
+            by_size[tuple(frames_dev[c[0]].shape)].append(ci)
+        parts = []
+        for cis in by_size.values():
+            fis = sorted({chunk[ci][0] for ci in cis})
+            slot = {fi: k for k, fi in enumerate(fis)}
+            frames = torch.stack([frames_dev[fi] for fi in fis]).float()
+            # Corners and each box's frame slot, in one upload.
+            cf = torch.from_numpy(np.stack(
+                [np.append(chunk[ci][7], slot[chunk[ci][0]]) for ci in cis]
+            ).astype(np.int32)).to(self.device)
+            parts.append((cis, crop_resize_normalize(
+                frames, cf[:, :4], res=self.img_res, frame_index=cf[:, 4])))
+        if len(parts) == 1:
+            return parts[0][1]           # every row, in chunk order
+        crops = torch.empty((len(chunk), self.img_res, self.img_res, 3),
+                            device=self.device)
+        for cis, v in parts:
+            crops[cis] = v
+        return crops

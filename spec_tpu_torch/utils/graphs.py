@@ -1,0 +1,179 @@
+"""Stage graphs: the port's counterpart of the reference's per-stage
+``jax.jit``.
+
+The JAX package compiles each serving stage once per input shape
+(``spec_tpu/serving.py``: ``jax.jit(self._cam_forward)``,
+``jax.jit(self._spec_forward)``) and the bench's pipeline step as one
+program (``bench.py``), so a call costs one dispatch per stage. Eager
+PyTorch issues every operation from Python instead. :class:`StageGraph`
+captures a stage function once per input signature (the shape, dtype
+and device of each tensor argument, the key jit compiles on) as a
+``torch.cuda.CUDAGraph`` and replays it after that.
+
+* **CUDA only.** Arguments on a CUDA device always go through a graph;
+  on the CPU the function runs directly (the caller asked for the CPU).
+  A capture that fails raises, naming the stage and the signature:
+  nothing falls back to eager on the card. ``StageGraph.fn`` is the
+  eager body, for tests that hold replays against it.
+* **Capture.** The function runs once eagerly on a side stream first
+  (PyTorch's rule for graphs), so libraries load, the kernels' one-time
+  attribute calls happen and lazily built device constants
+  (:func:`device_constant`) exist before the capture; then it is
+  captured on the signature's static input buffers.
+* **Replay.** The arguments are copied into the static inputs, the graph
+  replays, and the outputs are cloned out: the next replay of the same
+  graph, or of another graph in the same memory pool, overwrites the
+  static outputs.
+* **Launch counters.** The kernel wrappers count launches in Python,
+  which a replay skips. The counts a capture made are taken back (the
+  capture ran nothing) and added again on every replay.
+* **Memory.** A graph pins its memory pool, so each stage keeps at most
+  ``MAX_GRAPHS`` signatures (least recently used evicted and freed).
+  The stages of one model share a pool (``pool``), which is safe here
+  because replays run in turn on one stream and each replay's outputs
+  are cloned before the next.
+
+A captured function must not read device values on the host
+(``.item()``, ``.cpu()``), build tensors from host data (``torch.tensor``
+of a list, indexing with a Python list) or take data-dependent shapes:
+each of these fails the capture.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Callable
+
+import numpy as np
+import torch
+
+MAX_GRAPHS = 8     # signatures kept per stage (jit's cache has no cap)
+_CONSTANTS: dict = {}
+
+
+def device_constant(values, device, dtype=torch.float32) -> torch.Tensor:
+    """``values`` (a list, tuple or numpy array) as a tensor on
+    ``device``, built once per (values, dtype, device) and shared: callers
+    must not write to it. Inside a captured stage the constant must
+    already exist, from the warm-up run before the capture; building one
+    during a capture raises."""
+    arr = np.asarray(values)
+    key = (arr.tobytes(), arr.shape, arr.dtype.str, dtype, str(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        dev = torch.device(device)
+        if dev.type == 'cuda' and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError('device_constant: a constant built during a '
+                               'CUDA graph capture (warm up first)')
+        t = _CONSTANTS[key] = torch.as_tensor(arr, dtype=dtype, device=dev)
+    return t
+
+
+def _launch_modules():
+    from spec_tpu_torch.ops import bottleneck, lbs, projection
+
+    return (bottleneck, lbs, projection)
+
+
+def _flatten(out):
+    """Outputs as a list of tensors and a function that rebuilds the
+    structure (a tensor, a tuple or list of tensors, or a dict)."""
+    if isinstance(out, torch.Tensor):
+        return [out], lambda ts: ts[0]
+    if isinstance(out, dict):
+        keys = list(out)
+        return [out[k] for k in keys], lambda ts: dict(zip(keys, ts))
+    if isinstance(out, (tuple, list)):
+        kind = type(out)
+        return list(out), lambda ts: kind(ts)
+    raise TypeError(f'a stage returns tensors, a tuple or a dict of them, '
+                    f'not {type(out).__name__}')
+
+
+class _Captured:
+    """One signature's graph, static buffers and launch counts."""
+
+    def __init__(self, graph, inputs, outputs, rebuild, launches):
+        self.graph = graph
+        self.inputs = inputs
+        self.outputs = outputs
+        self.rebuild = rebuild
+        self.launches = launches
+
+
+class StageGraph:
+    """A stage function replayed as a CUDA graph per input signature.
+
+    ``fn(*tensors)`` returns a tensor, a tuple or a dict of tensors.
+    ``pool``: a ``torch.cuda.graph_pool_handle()`` shared with other
+    stages, or None for a pool of this stage's own.
+    """
+
+    def __init__(self, name: str, fn: Callable, pool=None):
+        self.name = name
+        self.fn = fn
+        self.pool = pool
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
+
+    def signatures(self) -> list:
+        """The captured signatures, least recently used first."""
+        return list(self._graphs)
+
+    def __call__(self, *args):
+        if not all(isinstance(a, torch.Tensor) for a in args):
+            raise TypeError(f'stage {self.name!r} takes tensors only')
+        if not any(a.is_cuda for a in args):
+            return self.fn(*args)
+        key = tuple((tuple(a.shape), a.dtype, str(a.device)) for a in args)
+        with torch.inference_mode(), torch.cuda.device(args[0].device):
+            entry = self._graphs.get(key)
+            if entry is None:
+                entry = self._capture(key, args)
+                self._graphs[key] = entry
+                while len(self._graphs) > MAX_GRAPHS:
+                    _, old = self._graphs.popitem(last=False)
+                    old.graph.reset()
+            else:
+                self._graphs.move_to_end(key)
+                for static, a in zip(entry.inputs, args):
+                    static.copy_(a)
+            return self._replay(entry)
+
+    def _replay(self, entry: _Captured):
+        entry.graph.replay()
+        for mod, n in entry.launches:
+            mod.LAUNCHES += n
+        return entry.rebuild([t.clone() for t in entry.outputs])
+
+    def _capture(self, key, args) -> _Captured:
+        """Warm up on a side stream, capture on static copies of ``args``;
+        the static inputs hold ``args`` afterwards."""
+        device = args[0].device
+        inputs = [a.clone() for a in args]
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            self.fn(*inputs)
+        torch.cuda.current_stream(device).wait_stream(side)
+
+        mods = _launch_modules()
+        before = [m.LAUNCHES for m in mods]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                outputs, rebuild = _flatten(self.fn(*inputs))
+        except Exception as e:
+            raise RuntimeError(
+                f'CUDA graph capture of stage {self.name!r} failed for '
+                f'signature {_describe(key)}: {e}') from e
+        finally:
+            counted = [m.LAUNCHES - b for m, b in zip(mods, before)]
+            for m, b in zip(mods, before):
+                m.LAUNCHES = b
+        return _Captured(graph, inputs, outputs, rebuild,
+                         [(m, n) for m, n in zip(mods, counted) if n])
+
+
+def _describe(key) -> str:
+    return ', '.join(f'{tuple(s)} {str(dt).replace("torch.", "")} {d}'
+                     for s, dt, d in key)

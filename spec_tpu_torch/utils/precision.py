@@ -51,10 +51,16 @@ def fp32_matmuls(fn):
 
 def compute_dtype(dtype: torch.dtype, device_type: str):
     """Context for a backbone or head FC stack: bf16 autocast when
-    ``dtype`` is bfloat16, exact fp32 (TF32 off) when it is float32."""
+    ``dtype`` is bfloat16, exact fp32 (TF32 off) when it is float32.
+
+    The autocast keeps no cache of cast weights: a cast cached inside a
+    CUDA graph capture (``utils/graphs.py``) would live in the graph's
+    memory and be handed out after it. Each use of a weight casts it
+    again, which gives the same bits."""
     if dtype == torch.float32:
         return fp32_precision()
     if dtype == torch.bfloat16:
-        return torch.autocast(device_type=device_type, dtype=torch.bfloat16)
+        return torch.autocast(device_type=device_type, dtype=torch.bfloat16,
+                              cache_enabled=False)
     raise ValueError(f'unsupported compute dtype {dtype}; '
                      'use torch.float32 or torch.bfloat16')

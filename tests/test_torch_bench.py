@@ -1,0 +1,115 @@
+"""spec_tpu_torch.bench on the CPU: its arguments against bench.py's, a
+tiny run of each mode, and the refusal to run without a card unless the
+CPU is asked for.
+
+bench.py is read with ``ast``, not imported: importing it configures a
+JAX compile cache at a fixed path.
+"""
+
+import ast
+import json
+import math
+import pathlib
+
+import pytest
+import torch
+
+from spec_tpu_torch import bench as TB
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _reference_arguments():
+    """{name: (default, choices)} of bench.py's add_argument calls; a
+    store_true flag defaults to False."""
+    tree = ast.parse((REPO / 'bench.py').read_text())
+    out = {}
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Call)
+                and getattr(node.func, 'attr', '') == 'add_argument'):
+            continue
+        name = node.args[0].value.lstrip('-')
+        kw = {k.arg: k.value for k in node.keywords}
+        if 'action' in kw and ast.literal_eval(kw['action']) == 'store_true':
+            default = False
+        else:
+            default = ast.literal_eval(kw['default']) if 'default' in kw \
+                else None
+        choices = ast.literal_eval(kw['choices']) if 'choices' in kw else None
+        out[name] = (default, choices)
+    return out
+
+
+def test_arguments_and_defaults_follow_bench_py():
+    ref = _reference_arguments()
+    args = TB.parse_args([])
+    for name in ('iters', 'frames', 'persons', 'min_size', 'camcalib_every',
+                 'compute_only'):
+        assert getattr(args, name) == ref[name][0], name
+    # bench.py's pipeline bucket, and its batch (None -> 128 there).
+    assert (args.frame_h, args.frame_w) == (ref['frame_h'][0],
+                                            ref['frame_w'][0])
+    assert args.batch == 128 and ref['batch'][0] is None
+    assert args.mode == ref['mode'][0] == 'pipeline'
+    assert set(TB.FRAME_HW) <= set(ref['mode'][1])
+    # stage1: the JAX 'flax' trunk is the port's 'module'.
+    assert ref['stage1'] == ('flax', ['flax', 'fused'])
+    assert args.stage1 == 'module'
+    assert args.dtype == 'bf16' and args.device == 'cuda'
+    # Serving and latency frames are bench.py's 480x640.
+    serving = TB.parse_args(['--mode', 'serving'])
+    assert (serving.frame_h, serving.frame_w) == (480, 640)
+    assert 'rng.rand(480, 640, 3)' in (REPO / 'bench.py').read_text()
+
+
+@pytest.mark.parametrize('bad', [['--iters', '0'], ['--mode', 'train'],
+                                 ['--stage1', 'flax']])
+def test_bad_arguments_exit(bad):
+    with pytest.raises(SystemExit):
+        TB.parse_args(bad)
+
+
+TINY = {
+    'pipeline module': ['--batch', '2', '--frame_h', '64', '--frame_w',
+                        '96'],
+    'pipeline fused fp32': ['--batch', '2', '--frame_h', '64', '--frame_w',
+                            '96', '--stage1', 'fused', '--dtype', 'fp32'],
+    'serving': ['--mode', 'serving', '--frames', '2', '--persons', '2',
+                '--frame_h', '64', '--frame_w', '96', '--min_size', '64'],
+    'serving compute_only': ['--mode', 'serving', '--compute_only',
+                             '--frames', '2', '--persons', '2', '--frame_h',
+                             '64', '--frame_w', '96', '--min_size', '64',
+                             '--camcalib_every', '2'],
+    'latency': ['--mode', 'latency', '--frame_h', '64', '--frame_w', '96',
+                '--min_size', '64'],
+}
+
+
+@pytest.mark.parametrize('case', sorted(TINY))
+def test_tiny_cpu_run_prints_one_result_line(case, capsys):
+    assert TB.main(TINY[case] + ['--device', 'cpu', '--iters', '1']) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    result = json.loads(lines[-1])
+    for key in ('metric', 'value', 'unit', 'spread', 'device'):
+        assert key in result, key
+    assert result['device'] == 'cpu' and result['card'] is None
+    assert 'vs_baseline' not in result
+    spread = result['spread']
+    assert spread['windows'] >= 10 and spread['iters'] == 1
+    assert math.isfinite(result['value']) and result['value'] > 0
+    assert spread['min'] <= result['value'] <= spread['max']
+    unit = {'pipeline': 'img/s/gpu', 'serving': 'persons/s/gpu',
+            'latency': 'ms/frame e2e'}[case.split()[0]]
+    assert result['unit'] == unit
+    if case == 'latency':
+        assert result['compute_ms'] == pytest.approx(
+            result['stage1_ms'] + result['stage2_ms'])
+
+
+def test_without_a_card_it_exits_nonzero_and_names_the_card(monkeypatch,
+                                                            capsys):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    assert TB.main([]) != 0
+    out = capsys.readouterr()
+    assert out.out == ''
+    assert 'no CUDA card' in out.err and '--device cpu' in out.err

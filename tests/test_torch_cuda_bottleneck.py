@@ -8,7 +8,7 @@ where JAX is not installed, without the suite's conftest:
 
 Shapes: every ResNet-50 stage's identity block on 512x672 frames (the
 pipeline's stage-1 bucket), at batch 2, plus odd H and W; chains of 1-3
-blocks; float32 and bfloat16. The kernel runs on the tensor cores, bf16
+blocks; float32 and bfloat16; and layer1 at the bench's batch of 128. The kernel runs on the tensor cores, bf16
 in m16n8k16 tiles and fp32 as 3xTF32 in m16n8k8 tiles, so further cases
 put its edges to work in both types: pixel counts per tile that are not
 a multiple of 16, M = 16 (one k16 step), C = 16 and 48 (a bf16 K chunk
@@ -124,6 +124,21 @@ def test_repeat_launches_agree_bit_for_bit(cuda_device, shape, dtype):
     second = TB.fused_bottleneck_chain(x, ws)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_layer1_at_the_bench_batch_matches_plain(cuda_device, dtype):
+    """B = 128 frames of 512x672 at layer1: x holds 704,643,072 elements
+    (2.8 GB in fp32), past 2^31 bytes, as in the bench pipeline. x is
+    drawn on the card (a host draw of that size takes seconds)."""
+    H, W, C, M = STAGES[0]
+    _, ws = random_chain(1, 4, 4, C, M, 1, seed=9, dtype=dtype,
+                         device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    x = torch.relu(torch.randn(128, H, W, C, generator=g,
+                               device=cuda_device)).to(dtype)
+    _check(x, ws)
 
 
 def chain_float64(x, ws):

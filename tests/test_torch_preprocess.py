@@ -98,3 +98,28 @@ def test_resize_min_side_matches_pil(rng, hw, min_size):
     assert port.shape == ref.shape
     assert port.dtype == np.uint8
     assert np.abs(port.astype(int) - ref.astype(int)).max() <= 1
+
+
+def test_crop_with_frame_index_equals_one_frame_at_a_time(rng):
+    """One call over the boxes of several frames of one size crops as a
+    call per frame (an expanded view of that frame) does, bit for bit."""
+    H, W, res = 90, 120, 48
+    frames = torch.from_numpy((rng.rand(3, H, W, 3) * 255).astype(np.float32))
+    centers, scales = _boxes(rng, 6, H, W)
+    corners = torch.from_numpy(TP.spin_crop_corners(centers, scales, res=res))
+    index = torch.tensor([2, 0, 0, 1, 2, 2])
+    batched = TP.crop_resize_normalize(frames, corners, res=res,
+                                       frame_index=index)
+    for b, f in enumerate(index.tolist()):
+        alone = TP.crop_resize_normalize(frames[f][None], corners[b:b + 1],
+                                         res=res)
+        assert torch.equal(batched[b], alone[0])
+
+
+@pytest.mark.parametrize('hw,min_size', [((300, 400), 96), ((60, 80), 96),
+                                         ((96, 128), 96)])
+def test_batched_resize_equals_one_image_at_a_time(rng, hw, min_size):
+    imgs = torch.from_numpy((rng.rand(3, *hw, 3) * 255).astype(np.uint8))
+    batch = TP.resize_min_side(imgs, min_size)
+    for k in range(3):
+        assert torch.equal(batch[k], TP.resize_min_side(imgs[k], min_size))

@@ -192,17 +192,21 @@ def test_unported_options_raise(kwargs, err):
 
 
 def test_import_hygiene():
-    """The port's serving path, the e2e pipeline and every kernel wrapper
-    import no JAX, flax, PIL, cv2, PyYAML or triton (none of them exist
-    on the machine with the card) and nothing of the JAX package
-    spec_tpu, and importing them builds no kernel."""
+    """The port's serving path, the e2e pipeline, the bench, the stage
+    graphs and every kernel wrapper import no JAX, flax, PIL, cv2, PyYAML
+    or triton (none of them exist on the machine with the card) and
+    nothing of the JAX package spec_tpu, and importing them builds no
+    kernel, captures no graph and touches no CUDA device."""
     code = (
         'import sys\n'
+        'import torch\n'
         'import spec_tpu_torch.serving\n'
         'import spec_tpu_torch.pipeline\n'
+        'import spec_tpu_torch.bench\n'
         'import spec_tpu_torch.models.backbones.fused_resnet\n'
         'from spec_tpu_torch.ops import bottleneck, cuda_build, lbs, '
         'projection\n'
+        'from spec_tpu_torch.utils import graphs\n'
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'yaml', 'triton') "
         "or m == 'spec_tpu' or m.startswith('spec_tpu.')]\n"
@@ -211,7 +215,9 @@ def test_import_hygiene():
         'assert cuda_build.load_library.cache_info().currsize == 0\n'
         'for mod in (bottleneck, lbs, projection):\n'
         '    assert mod._kernel.cache_info().currsize == 0, mod\n'
-        '    assert mod.LAUNCHES == 0, mod\n')
+        '    assert mod.LAUNCHES == 0, mod\n'
+        'assert graphs._CONSTANTS == {}\n'
+        'assert not torch.cuda.is_initialized()\n')
     proc = subprocess.run([sys.executable, '-c', code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
