@@ -53,7 +53,28 @@ printing its own results; any failure raises and exits nonzero:
    launches; then ``python -m spec_tpu_torch.bench`` once per mode
    (pipeline at B = 128, serving with and without ``--compute_only``,
    latency) at a small ``--iters``, each printing its JSON line;
-10. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
+10. K1's gradient: autograd through ``fused_lbs_vertices`` (the kernel
+    forward plus the closed-form backward) against autograd through its
+    plain version at B = 1, 8 and 32, all four cotangents within 1e-4 of
+    each one's largest entry;
+11. the device functions of the folder CLIs at full ResNet-50 width,
+    card against CPU: ``camcalib_demo``'s stage 1 on a padded batch of
+    16 resized frames, ``spec_demo``'s stage 2 on crops cut on the device
+    from two 480x640 frames;
+12. serve: ``spec_tpu_torch.cli.serve``'s server in-process over the
+    predictor its default flags build, eight concurrent clients posting
+    480x640 frames: a warm-up under load (the first graph captures with
+    requests queued), one request of each padded batch size, two
+    requests coalesced behind a held call (each must match ``predict``
+    on its own frame and not on the other's), then a timed window of
+    320 requests with every graph captured (requests/s, latency p50/p90
+    and K1 launches per request from this window, which must capture
+    nothing), and a camcalib_every=3 client (two named streams and
+    header-less requests); /healthz, /stats counting every request,
+    frame and person, every response held to ``predict`` on the same
+    frames within same-card limits (SERVE_LIMITS). K1's ``launches`` in
+    the kernels line are the window's;
+13. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then, instead of
 the rest, profiles phase 4's predictor (wall medians per stage, device
@@ -107,6 +128,25 @@ ODD_SHAPE = (2, 13, 11, 256, 64, 3)       # B, H, W, C, M, chain length
 # h2 or y round the other way on one side).
 K3_BUDGET = {'fp32': 1e-4, 'bf16': 2.0 ** -6}
 K2_BUDGET = 1e-2           # px (TPU_CHECKS_r05.json)
+# K1's gradient against autograd of its plain version, relative to the
+# largest entry of each cotangent (TPU_CHECKS_r05.json's budget).
+LBS_GRAD_BUDGET = 1e-4
+# The serve phase: frames of SERVE_HW (a VGA camera's), eight concurrent
+# clients; SERVE_WARMUP requests at once (the first rounds capture graphs
+# under load), then a timed window of SERVE_WINDOW requests (cycling
+# SERVE_DISTINCT bodies) with every graph already captured.
+SERVE_HW, SERVE_CLIENTS = (480, 640), 8
+SERVE_WARMUP, SERVE_WINDOW, SERVE_DISTINCT = 24, 320, 80
+# A /predict response against ``predict`` on the same frames, on the same
+# card with the same weights: only the padded batch, and so cuDNN's choice
+# of algorithm, differs. About ten times the largest difference seen over
+# 24 served requests (NVIDIA H100 80GB HBM3, 700 W): pose, shape and
+# camera 2-4e-7, cam_t 8.6e-6 m, vertices 6.3e-7 m, joints2d 9.2e-5 px,
+# angles 1.1e-6 rad.
+SERVE_LIMITS = dict(pred_pose=1e-5, pred_pose_6d=1e-5, pred_shape=1e-5,
+                    pred_cam=1e-5, pred_cam_t=1e-4, smpl_vertices=1e-5,
+                    smpl_joints3d=1e-5, smpl_joints2d=1e-3)
+SERVE_ANGLE_LIMIT = 1e-5   # rad
 # One H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): the
 # rate for each kernel's arithmetic (K3 on the tensor cores, bf16 or
 # TF32, the fp32 variant as three TF32 products per fp32 one; K1 and K2
@@ -1199,6 +1239,524 @@ def phase_graphs():
         _release()
 
 
+def phase_lbs_backward():
+    """K1's gradient on the card: autograd through ``fused_lbs_vertices``
+    (the kernel forward plus the closed-form backward) against autograd
+    through ``fused_lbs_vertices_plain``, all four cotangents, at B = 1,
+    8 and 32, each within LBS_GRAD_BUDGET of its largest entry."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from spec_tpu_torch.core import smpl as S
+    from spec_tpu_torch.ops import lbs as L
+
+    assets = S.create_test_assets().to('cuda')
+    packed = L.pack_lbs_operands(assets).to('cuda')
+    names = ('dirs', 'weights_t', 'coeffs', 'rel_tf')
+
+    def grads(fn, coeffs, rel_tf, g):
+        leaves = [packed.dirs.clone().requires_grad_(True),
+                  packed.weights_t.clone().requires_grad_(True),
+                  coeffs.clone().requires_grad_(True),
+                  rel_tf.clone().requires_grad_(True)]
+        out = fn(dataclasses.replace(packed, dirs=leaves[0],
+                                     weights_t=leaves[1]),
+                 leaves[2], leaves[3])
+        return torch.autograd.grad(out, leaves, g)
+
+    worst = 0.0
+    for B in (1, 8, 32):
+        coeffs, rel_tf = _lbs_operands(packed, assets, B, seed=100 + B)
+        g = torch.from_numpy(np.random.RandomState(B).randn(
+            B, 6890, 3).astype('f4')).cuda()
+        got = grads(L.fused_lbs_vertices, coeffs, rel_tf, g)
+        want = grads(L.fused_lbs_vertices_plain, coeffs, rel_tf, g)
+        rel = [((a - b).abs().max() / b.abs().max()).item()
+               for a, b in zip(got, want)]
+        pad = max(got[0][..., 6890:].abs().max().item(),
+                  got[1][:, 6890:].abs().max().item())
+        ms = _wall_ms(lambda: grads(L.fused_lbs_vertices, coeffs, rel_tf, g),
+                      10)
+        plain_ms = _wall_ms(lambda: grads(L.fused_lbs_vertices_plain,
+                                          coeffs, rel_tf, g), 10)
+        worst = max(worst, *rel)
+        print(f'[lbs backward] B={B}: relative max error to autograd of the '
+              'plain version ' + ', '.join(
+                  f'{n} {r:.2e}' for n, r in zip(names, rel))
+              + f' (budget {LBS_GRAD_BUDGET:.0e}); padding {pad:g}; forward '
+              f'+ backward {ms:.3f} ms (kernel + closed form) vs '
+              f'{plain_ms:.3f} ms (plain autograd), host wall with a sync, '
+              'median of 10', flush=True)
+        if not (max(rel) <= LBS_GRAD_BUDGET and pad == 0.0):
+            raise RuntimeError(f'K1 gradient disagrees at B={B}: {rel}, '
+                               f'padding {pad}')
+    return worst
+
+
+def _synthetic_frames(n, hw, seed):
+    """``n`` uint8 RGB frames of ``hw``: smooth gradients plus noise."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    frames = []
+    for i in range(n):
+        base = 110 + 60 * np.sin(xx / (70 + 5 * i)) * np.cos(yy / (60 + i))
+        img = base[..., None] + rng.randint(-25, 26, (h, w, 3))
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+    return frames
+
+
+def phase_cli_devices():
+    """The device functions the folder CLIs call after decoding, at full
+    ResNet-50 width on the card and on the CPU (same seeds):
+    camcalib_demo's stage 1 on a padded batch of 16 resized frames
+    (480x640 -> 600x800), and spec_demo's stage 2 on crops cut on the
+    device from two 480x640 frames, a chunk padded to the demo's 32."""
+    import numpy as np
+    import torch
+
+    from spec_tpu_torch.cli import camcalib_demo, spec_demo
+    from spec_tpu_torch.data.detection import bbox_to_center_scale
+    from spec_tpu_torch.ops import lbs as L
+    from spec_tpu_torch.utils.cam_params import euler_pitch_roll_np
+
+    resized = _synthetic_frames(4, (600, 800), seed=3)
+    batch = torch.from_numpy(np.stack(resized + [resized[-1]] * 12))
+    angles = {}
+    for dev in ('cuda', 'cpu'):
+        _, stage = camcalib_demo._get_model('', 'resnet50', 'softargmax_l2',
+                                            dev)
+        with torch.inference_mode():
+            angles[dev] = stage(batch.to(dev))[-1].cpu().numpy()
+    err = float(np.abs(angles['cuda'] - angles['cpu']).max())
+    print(f'[cli camcalib_demo] stage 1, resnet50, 16 x 600x800: card vs '
+          f'CPU angles {err:.2e} rad (limit {ANGLE_LIMIT["fp32"]})',
+          flush=True)
+    if not err <= ANGLE_LIMIT['fp32']:
+        raise RuntimeError('camcalib_demo stage 1: card and CPU disagree')
+
+    frames = dict(zip('ab', _synthetic_frames(2, (480, 640), seed=4)))
+    boxes = {'a': [[200, 250, 150, 300], [420, 240, 120, 260],
+                   [600, 100, 120, 200]], 'b': [[320, 240, 500, 460]]}
+    chunk = []
+    for key, bx in boxes.items():
+        centers, scales = bbox_to_center_scale(np.asarray(bx, np.float32))
+        K = np.array([[600, 0, 320], [0, 600, 240], [0, 0, 1]], np.float32)
+        R = euler_pitch_roll_np(-0.12, 0.03)
+        chunk += [(key, centers[i], scales[i], R, K, 640, 480)
+                  for i in range(len(bx))]
+    n_valid = len(chunk)
+    chunk += [chunk[-1]] * (32 - n_valid)
+    outs = {}
+    for dev in ('cuda', 'cpu'):
+        _, _, stage = spec_demo._get_spec_model('', '', '', 224, dev)
+        frames_dev = {k: torch.from_numpy(v).to(dev)
+                      for k, v in frames.items()}
+        spec_demo.spec_on_crops(stage, frames_dev, chunk, 224)   # capture
+        L.LAUNCHES = 0
+        out = spec_demo.spec_on_crops(stage, frames_dev, chunk, 224)
+        launches = L.LAUNCHES
+        outs[dev] = {k: v[:n_valid].cpu().numpy() for k, v in out.items()}
+        if dev == 'cuda' and launches != 1:
+            raise RuntimeError(f'spec_demo stage 2 replay launched K1 '
+                               f'{launches} times')
+    limits = PREDICT_LIMITS['fp32']
+    errs = {k: float(np.abs(outs['cuda'][k] - outs['cpu'][k]).max())
+            for k in limits}
+    print(f'[cli spec_demo] stage 2 on device crops, resnet50, {n_valid} '
+          'persons in a chunk of 32: card vs CPU ' + ', '.join(
+              f'{k} {v:.2e} (limit {limits[k]})' for k, v in errs.items()),
+          flush=True)
+    bad = [k for k in limits if not errs[k] <= limits[k]]
+    if bad or not all(np.isfinite(v).all() for v in outs['cuda'].values()):
+        raise RuntimeError(f'spec_demo stage 2: card and CPU disagree in '
+                           f'{bad or "finiteness"}')
+    _release()
+
+
+def _npz_body(frames, boxes):
+    """A /predict body: frame_i and boxes_i arrays in one npz."""
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.savez(buf, **{f'{k}_{i}': v for i, (f, bx) in
+                     enumerate(zip(frames, boxes))
+                     for k, v in (('frame', f), ('boxes', bx))})
+    return buf.getvalue()
+
+
+def _serve_requests(n, seed, max_frames=2, max_boxes=4):
+    """``n`` requests of 1..max_frames SERVE_HW uint8 frames with
+    1..max_boxes person boxes each: (npz body, frames, boxes)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    pool = _synthetic_frames(8, SERVE_HW, seed)
+    h, w = SERVE_HW
+    out = []
+    for _ in range(n):
+        frames, boxes = [], []
+        for _ in range(rng.randint(1, max_frames + 1)):
+            frames.append(np.roll(pool[rng.randint(len(pool))],
+                                  rng.randint(0, w), axis=1))
+            k = rng.randint(1, max_boxes + 1)
+            bw = rng.uniform(80, 200, k)
+            boxes.append(np.stack([rng.uniform(100, w - 100, k),
+                                   rng.uniform(120, h - 120, k), bw,
+                                   bw * rng.uniform(1.2, 2.0, k)],
+                                  1).astype('f4'))
+        out.append((_npz_body(frames, boxes), frames, boxes))
+    return out
+
+
+def _response_errors(label, resp, want_res, want_cams):
+    """Max |difference| per output key and over the camera angles
+    between a /predict response and ``predict``'s results; the frame and
+    person counts must be equal."""
+    import numpy as np
+
+    errs = dict.fromkeys(SERVE_LIMITS, 0.0)
+    cam_err = 0.0
+    if int(resp['n_frames']) != len(want_res):
+        raise RuntimeError(f'{label}: {int(resp["n_frames"])} frames')
+    for fi, persons in enumerate(want_res):
+        if int(resp[f'f{fi}_n_persons']) != len(persons):
+            raise RuntimeError(f'{label}: frame {fi} persons')
+        got_cam = resp[f'f{fi}_camera']
+        cam_err = max(cam_err, *(abs(float(got_cam[i]) - want_cams[fi][k])
+                                 for i, k in enumerate(('vfov', 'pitch',
+                                                        'roll'))))
+        for pi, person in enumerate(persons):
+            for k in SERVE_LIMITS:
+                got = resp[f'f{fi}_p{pi}_{k}']
+                if not np.isfinite(got).all():
+                    raise RuntimeError(f'{label}: non-finite {k}')
+                errs[k] = max(errs[k], float(np.abs(got - person[k]).max()))
+    return errs, cam_err
+
+
+def _within_serve_limits(errs, cam_err):
+    return (all(errs[k] <= SERVE_LIMITS[k] for k in SERVE_LIMITS)
+            and cam_err <= SERVE_ANGLE_LIMIT)
+
+
+def _hold_response(label, resp, want_res, want_cams):
+    """A /predict response against ``predict``'s results on the same
+    frames, within the same-card limits SERVE_LIMITS."""
+    errs, cam_err = _response_errors(label, resp, want_res, want_cams)
+    if not _within_serve_limits(errs, cam_err):
+        raise RuntimeError(f'{label}: response and predict disagree: '
+                           f'{errs}, camera {cam_err}')
+    return errs, cam_err
+
+
+def _serve_worst(label, pairs):
+    """Holds every (response, (results, cameras)) pair and prints the
+    largest difference per key beside its limit."""
+    worst = dict.fromkeys(SERVE_LIMITS, 0.0)
+    cam_worst = 0.0
+    for resp, (res, cams) in pairs:
+        errs, cam = _hold_response(label, resp, res, cams)
+        worst = {k: max(worst[k], errs[k]) for k in worst}
+        cam_worst = max(cam_worst, cam)
+    print(f'[{label}] {len(pairs)} responses vs predict on their frames: '
+          f'camera angles {cam_worst:.2e} rad (limit {SERVE_ANGLE_LIMIT}), '
+          + ', '.join(f'{k} {v:.2e} (limit {SERVE_LIMITS[k]})'
+                      for k, v in worst.items()), flush=True)
+
+
+def phase_serve():
+    """``python -m spec_tpu_torch.cli.serve``'s server, in-process on a
+    free localhost port, over the full-width predictor that serve's
+    default flags build (ResNet-50 x2, fp32, min_size 600, batch 32):
+
+    (a) warm-up under load: SERVE_CLIENTS client threads POST
+        SERVE_WARMUP requests at once (the first rounds capture their
+        graphs with requests queued);
+    (b) one request each of 1, 2, 4, ..., 32 frames (one box a frame),
+        so every padded stage-1 and stage-2 batch a round can form has
+        its graph;
+    (c) coalescing: with the dispatcher held inside a call, two requests
+        with different frames and boxes queue, then run as one call;
+        each response must match ``predict`` on its own frames and not
+        on the other's;
+    (d) the timed window: the launch counts and captures set to 0, the
+        clients POST SERVE_WINDOW requests; requests/s, latency p50/p90
+        and K1 launches per request come from this window, which must
+        take no capture;
+    (e) a camcalib_every=3 client: named streams A and B and header-less
+        requests.
+
+    Checks /healthz and /stats (every request, frame and person counted;
+    a coalesced round) and holds every response to ``predict`` on the
+    same frames afterwards. Returns the K1 launches of the window."""
+    import io
+    import json
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from spec_tpu_torch.cli import serve
+    from spec_tpu_torch.ops import lbs as L
+
+    pred = serve.build_predictor(serve.parse_args([]), torch.device('cuda'))
+    captures = []
+    for stage in (pred._stage1, pred._stage2):
+        def counting(key, args, orig=stage._capture, name=stage.name):
+            captures.append(name)
+            return orig(key, args)
+        stage._capture = counting
+    server = serve.create_server(pred, host='127.0.0.1', port=0)
+    base = f'http://127.0.0.1:{server.server_address[1]}'
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def post(body, stream=None):
+        req = urllib.request.Request(base + '/predict', data=body)
+        if stream:
+            req.add_header('X-Spec-Stream', stream)
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            out = np.load(io.BytesIO(r.read()))
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=60) as r:
+            return r.read()
+
+    def stats():
+        return json.loads(get('/stats'))
+
+    def concurrently(bodies):
+        """SERVE_CLIENTS threads post ``bodies`` (client c takes every
+        SERVE_CLIENTS-th from c), all starting together: (responses,
+        latencies in ms, wall s)."""
+        responses, latency = [None] * len(bodies), [None] * len(bodies)
+        errors = []
+        start = threading.Barrier(SERVE_CLIENTS + 1)
+
+        def client(c):
+            start.wait()
+            for i in range(c, len(bodies), SERVE_CLIENTS):
+                try:
+                    responses[i], latency[i] = post(bodies[i])
+                except Exception as e:
+                    errors.append(e)
+
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        for t in clients:
+            t.start()
+        start.wait()
+        t0 = time.perf_counter()
+        for t in clients:
+            t.join()
+        wall = time.perf_counter() - t0
+        if errors:
+            raise RuntimeError(f'serve: {len(errors)} requests failed: '
+                               f'{errors[0]}')
+        return responses, latency, wall
+
+    def counted(before, after, reqs, label):
+        """/stats between two snapshots must count ``reqs`` exactly."""
+        d = {k: after[k] - before[k] for k in ('requests_total',
+                                               'frames_total',
+                                               'persons_total', 'rounds_total',
+                                               'calls_total',
+                                               'request_errors')}
+        want = (len(reqs), sum(len(r[1]) for r in reqs),
+                sum(len(b) for r in reqs for b in r[2]), 0)
+        if (d['requests_total'], d['frames_total'], d['persons_total'],
+                d['request_errors']) != want:
+            raise RuntimeError(f'{label}: /stats counted {d}, want '
+                               f'(requests, frames, persons, errors) {want}')
+        return d
+
+    try:
+        if get('/healthz') != b'ok':
+            raise RuntimeError('/healthz did not answer ok')
+
+        # (a) Warm-up under load.
+        warm = _serve_requests(SERVE_WARMUP, seed=5)
+        s0 = stats()
+        responses, latency, wall = concurrently([r[0] for r in warm])
+        s1 = stats()
+        d = counted(s0, s1, warm, 'serve warm-up')
+        if s1['max_round_frames'] < 2:
+            raise RuntimeError('no warm-up round coalesced two or more '
+                               'frames')
+        print(f'[serve warm-up] {len(warm)} requests from {SERVE_CLIENTS} '
+              f'concurrent clients in {wall:.3f} s with {len(captures)} '
+              f'graph captures (stage1 {captures.count("stage1")}, stage2 '
+              f'{captures.count("stage2")}); {d["rounds_total"]} rounds, '
+              f'max_round_frames {s1["max_round_frames"]} (not a '
+              'throughput figure: captures included)', flush=True)
+        _serve_worst('serve warm-up', [
+            (resp, pred.predict(r[1], r[2], return_cameras=True))
+            for r, resp in zip(warm, responses)])
+
+        # (b) Every padded batch size's graphs.
+        fill = _serve_requests(1, seed=8, max_frames=1, max_boxes=1)[0]
+        for n in (2 ** k for k in range(pred.batch_size.bit_length())):
+            frames, boxes = fill[1] * n, fill[2] * n
+            resp, _ = post(_npz_body(frames, boxes))
+            if [int(resp[f'f{i}_n_persons']) for i in range(n)] != [1] * n:
+                raise RuntimeError(f'serve: a {n}-frame request lost '
+                                   'persons')
+        print(f'[serve] graphs after the warm-up and one request each of '
+              f'1, 2, 4, ..., {pred.batch_size} frames: stage1 '
+              f'{len(pred._stage1.signatures())}, stage2 '
+              f'{len(pred._stage2.signatures())}', flush=True)
+
+        # (c) Two queued requests coalesce into one call, and each gets
+        # its own persons back.
+        pair = []
+        for frame, bx in zip(_synthetic_frames(2, SERVE_HW, seed=9), (
+                [[200, 240, 120, 220], [450, 260, 100, 200]],
+                [[300, 200, 150, 260], [520, 300, 90, 180]])):
+            boxes = [np.asarray(bx, np.float32)]
+            pair.append((_npz_body([frame], boxes), [frame], boxes))
+        entered, gate = threading.Event(), threading.Event()
+        inner = pred.predict
+
+        def held(*a, **kw):
+            if not gate.is_set():
+                entered.set()
+                gate.wait(timeout=120)
+            return inner(*a, **kw)
+
+        got = [None, None, None]
+
+        def send(i, body):
+            got[i] = post(body)[0]
+
+        s0 = stats()
+        pred.predict = held
+        try:
+            senders = [threading.Thread(target=send,
+                                        args=(0, pair[0][0]))]
+            senders[0].start()
+            if not entered.wait(timeout=120):
+                raise RuntimeError('serve: the first request never '
+                                   'reached predict')
+            senders += [threading.Thread(target=send, args=(i + 1, b))
+                        for i, (b, _, _) in enumerate(pair)]
+            for t in senders[1:]:
+                t.start()
+            t_end = time.time() + 120
+            while server.batcher.stats()['queue_depth'] < 2:
+                if time.time() > t_end:
+                    raise RuntimeError('serve: two requests never queued')
+                time.sleep(0.005)
+        finally:
+            gate.set()
+            for t in senders:
+                t.join()
+            del pred.predict
+        d = counted(s0, stats(), [pair[0], pair[0], pair[1]],
+                    'serve coalescing')
+        if (d['rounds_total'], d['calls_total']) != (2, 2):
+            raise RuntimeError(f'serve: two queued requests were not '
+                               f'served by one call: {d}')
+        direct = [pred.predict(f, bx, return_cameras=True)
+                  for _, f, bx in pair]
+        for i in (0, 1):
+            _hold_response(f'serve coalesced request {i}', got[i + 1],
+                           *direct[i])
+            other = _response_errors(f'serve coalesced request {i}',
+                                     got[i + 1], *direct[1 - i])
+            if _within_serve_limits(*other):
+                raise RuntimeError(f'serve: coalesced request {i} also '
+                                   'matches the other request\'s persons')
+        print('[serve coalescing] two requests (1 frame, 2 persons each) '
+              'queued behind a held call and served by one call: each '
+              'matches predict on its own frame within SERVE_LIMITS and '
+              'differs from the other\'s beyond them', flush=True)
+
+        # (d) The timed window, every graph captured.
+        distinct = _serve_requests(SERVE_DISTINCT, seed=7)
+        window = [distinct[i % SERVE_DISTINCT] for i in range(SERVE_WINDOW)]
+        n_graphs = len(captures)
+        s0 = stats()
+        L.LAUNCHES = 0
+        responses, latency, wall = concurrently([r[0] for r in window])
+        launches = L.LAUNCHES
+        s1 = stats()
+        new_captures = len(captures) - n_graphs
+        d = counted(s0, s1, window, 'serve window')
+        print(f'[serve] window: {len(window)} requests ({d["frames_total"]} '
+              f'frames {SERVE_HW[0]}x{SERVE_HW[1]}, {d["persons_total"]} '
+              f'persons) from {SERVE_CLIENTS} concurrent clients in '
+              f'{wall:.3f} s: {len(window) / wall:.2f} requests/s, '
+              f'{d["frames_total"] / wall:.1f} frames/s, '
+              f'{d["persons_total"] / wall:.1f} persons/s; latency p50 '
+              f'{np.percentile(latency, 50):.1f} ms, p90 '
+              f'{np.percentile(latency, 90):.1f} ms, mean '
+              f'{np.mean(latency):.1f} ms, max {np.max(latency):.1f} ms; '
+              f'{d["rounds_total"]} rounds, '
+              f'{d["frames_total"] / d["rounds_total"]:.2f} frames a '
+              f'round; K1 launches {launches} '
+              f'({launches / len(window):.3f} per request, one per stage-2 '
+              f'chunk replayed); graph captures in the window '
+              f'{new_captures}', flush=True)
+        if new_captures:
+            raise RuntimeError(f'serve: the timed window captured '
+                               f'{new_captures} graphs')
+        if launches < 1:
+            raise RuntimeError('serve never launched K1')
+        want = [pred.predict(r[1], r[2], return_cameras=True)
+                for r in distinct]
+        _serve_worst('serve window', [
+            (resp, want[i % SERVE_DISTINCT])
+            for i, resp in enumerate(responses)])
+
+        # (e) One client, camcalib_every=3: named streams A and B and
+        # header-less requests, one frame each, interleaved.
+        pred.camcalib_every, pred.cut_threshold = 3, 0.0
+        seq = [('A', 0), ('B', 1), (None, 2), ('A', 3), ('A', 4), ('B', 5),
+               (None, 6), ('A', 7)]
+        stream_reqs = _serve_requests(len(seq), seed=6, max_frames=1)
+        got = [post(stream_reqs[i][0], stream=s)[0] for s, i in seq]
+        direct = []
+        for s, i in seq:
+            _, frames, boxes = stream_reqs[i]
+            key = f'direct-{s}' if s else f'direct-once-{i}'
+            direct.append(pred.predict(frames, boxes, stream=key,
+                                       return_cameras=True))
+            if s is None:
+                pred.reset_camera_stream(key)
+        for (s, i), resp, want_i in zip(seq, got, direct):
+            _hold_response(f'serve stream {s}', resp, *want_i)
+        a = [r['f0_camera'] for (s, _), r in zip(seq, got) if s == 'A']
+        if not (np.array_equal(a[1], a[0]) and np.array_equal(a[2], a[0])
+                and not np.array_equal(a[3], a[0])):
+            raise RuntimeError('camcalib_every=3: stream A did not reuse '
+                               'its keyframe camera on its 2nd and 3rd '
+                               'frames')
+        named = sorted(k for k in pred._cam_streams if k in ('A', 'B'))
+        if named != ['A', 'B'] or any(k.startswith('\x00')
+                                      for k in pred._cam_streams):
+            raise RuntimeError(f'stream state {list(pred._cam_streams)}')
+        print(f'[serve camcalib_every=3] {len(seq)} requests on streams A, '
+              'B and header-less: responses match predict on the same '
+              'streams; A reuses its keyframe camera on frames 2-3; '
+              f'/stats {json.dumps(stats())}', flush=True)
+        return launches
+    finally:
+        server.shutdown()
+        thread.join(timeout=30)
+        del pred
+        _release()
+
+
 def main() -> int:
     import torch
 
@@ -1248,6 +1806,9 @@ def main() -> int:
     phase_card_vs_cpu()
     phase_pipeline_card_vs_cpu()
     phase_graphs()
+    phase_lbs_backward()
+    phase_cli_devices()
+    serve_launches = phase_serve()
 
     row = lbs_rows[main_batch]
 
@@ -1277,7 +1838,7 @@ def main() -> int:
         'route': 'cuda',
         'source': 'spec_tpu_torch/csrc/lbs.cu',
         'replaces': 'spec_tpu/ops/pallas/lbs.py:97',
-        'launches': pred['fp32']['launches'],
+        'launches': serve_launches,
         'max_abs_err': max(r['max_abs_err'] for r in lbs_rows.values()),
         'ms': row['ms'],
         'wrapper_ms': row['wrapper_ms'],

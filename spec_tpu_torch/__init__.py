@@ -13,11 +13,16 @@ with either the CamCalib module or the folded-BN
 :class:`~spec_tpu_torch.models.backbones.fused_resnet.FusedResNet` trunk
 (bottleneck-chain CUDA kernel) as stage 1. All three Pallas kernels of
 the JAX package have CUDA counterparts: ``ops/lbs.py``,
-``ops/bottleneck.py`` and ``ops/projection.py``.
+``ops/bottleneck.py`` and ``ops/projection.py``. The command-line entry
+points ``python -m spec_tpu_torch.cli.serve`` (the HTTP server),
+``camcalib_demo`` and ``spec_demo`` (folder, video and webcam) run on
+the card unless ``--device cpu`` is given.
 
-The package imports ``torch`` and ``numpy`` only (plus ``scipy`` when a
-chumpy SMPL pickle is read) and nothing of ``spec_tpu``: the joint and
-normalization tables it needs are its own copy in ``core/constants.py``.
+The package imports ``torch`` and ``numpy`` only and nothing of
+``spec_tpu``: the joint and normalization tables it needs are its own
+copy in ``core/constants.py``. scipy (a chumpy SMPL pickle, the SORT
+tracker), PIL, cv2, joblib, PyYAML and matplotlib are imported only
+inside the functions that read or write images, pickles and yamls.
 CUDA kernels under ``csrc/`` are built with ``nvcc`` on first use; the
 bottleneck kernel's bf16 variant runs its products on the tensor cores.
 """

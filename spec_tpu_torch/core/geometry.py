@@ -31,6 +31,11 @@ def rot6d_to_rotmat(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([b1, b2, b3], dim=-1)
 
 
+def rotmat_to_rot6d(R: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`rot6d_to_rotmat` (drops the third column)."""
+    return torch.cat([R[..., :, 0], R[..., :, 1]], dim=-1)
+
+
 @fp32_matmuls
 def rodrigues(aa: torch.Tensor) -> torch.Tensor:
     """Axis-angle (..., 3) -> rotation matrix (..., 3, 3). Below

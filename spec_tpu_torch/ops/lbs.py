@@ -17,7 +17,9 @@ t_{i1} py + t_{i2} pz + t_{i3}``, all in exact fp32.
 
 :func:`fused_lbs_vertices` launches the kernel for CUDA tensors and runs
 :func:`fused_lbs_vertices_plain` for CPU tensors; nothing falls back from
-one to the other. ``LAUNCHES`` counts kernel launches.
+one to the other. Both are differentiable: the kernel's backward is the
+reference's closed form (:func:`fused_lbs_backward`). ``LAUNCHES``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -200,20 +202,55 @@ def _launch(dirs: torch.Tensor, weights_t: torch.Tensor,
     return out
 
 
+def fused_lbs_backward(dirs: torch.Tensor, weights_t: torch.Tensor,
+                       coeffs: torch.Tensor, rel_tf: torch.Tensor,
+                       num_vertices: int, grad: torch.Tensor):
+    """Closed-form cotangents of the vertex pipeline (the port of
+    ``spec_tpu/ops/pallas/lbs.py:_fused_core_bwd``).
+
+    The output is bilinear in (coeffs, rel_tf) given (dirs, weights_t):
+    ``out_i = sum_k t_{ik} posed_k + t_{i3}`` with ``posed_c = coeffs @
+    dirs[c]`` and ``t = A @ weights_t``. ``posed`` and ``t`` are
+    recomputed here rather than saved by the forward. ``grad`` (B, V, 3)
+    is zero-padded to Vp, so the packed operands' cotangents are zero on
+    the padding. fp32 einsums with TF32 off. Returns (d dirs (3, C, Vp),
+    d weights_t (24, Vp), d coeffs (B, C), d rel_tf (B, 24, 3, 4)).
+    """
+    B = coeffs.shape[0]
+    Vp = dirs.shape[-1]
+    g = grad.new_zeros((3, B, Vp))
+    g[:, :, :num_vertices] = grad.float().permute(2, 0, 1)
+    a = rel_tf.reshape(B, NUM_JOINTS, 3, 4).permute(2, 3, 0, 1)  # (3,4,B,24)
+    with fp32_precision():
+        posed = torch.einsum('bm,cmv->cbv', coeffs, dirs)        # (3, B, Vp)
+        t4 = torch.einsum('ikbj,jv->ikbv', a, weights_t)         # (3,4,B,Vp)
+        # d posed_c = sum_i g_i t_{ic} (c < 3)
+        dposed = torch.einsum('ibv,icbv->cbv', g, t4[:, :3])
+        dcoeffs = torch.einsum('cbv,cmv->bm', dposed, dirs)
+        # d t_{ik} = g_i posed_k (k < 3); d t_{i3} = g_i
+        dt4 = torch.cat([torch.einsum('ibv,kbv->ikbv', g, posed),
+                         g[:, None]], dim=1)
+        da = torch.einsum('ikbv,jv->bjik', dt4, weights_t)      # (B,24,3,4)
+        ddirs = torch.einsum('bm,cbv->cmv', coeffs, dposed)
+        dwt = torch.einsum('ikbj,ikbv->jv', a, dt4)
+    return ddirs, dwt, dcoeffs, da
+
+
 class _FusedLBS(torch.autograd.Function):
-    """Forward = the CUDA kernel. The closed-form backward of
-    ``spec_tpu/ops/pallas/lbs.py:_fused_core_bwd`` comes with training."""
+    """Forward = the CUDA kernel; backward = :func:`fused_lbs_backward`,
+    which recomputes the intermediates from the saved operands."""
 
     @staticmethod
     def forward(ctx, dirs, weights_t, coeffs, rel_tf, num_vertices):
+        ctx.save_for_backward(dirs, weights_t, coeffs, rel_tf)
+        ctx.num_vertices = num_vertices
         return _launch(dirs, weights_t, coeffs, rel_tf, num_vertices)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            'the fused LBS kernel has no backward yet; it comes with the '
-            'training port (ROADMAP.md §1 item 9 and §2 K1). '
-            'Use smpl_forward(..., fused=False) to differentiate.')
+        dirs, weights_t, coeffs, rel_tf = ctx.saved_tensors
+        return (*fused_lbs_backward(dirs, weights_t, coeffs, rel_tf,
+                                    ctx.num_vertices, grad_out), None)
 
 
 def fused_lbs_vertices(packed: PackedLBSOperands, coeffs: torch.Tensor,

@@ -51,6 +51,11 @@ from spec_tpu_torch.utils.checkpoints import (
 )
 from spec_tpu_torch.utils.graphs import StageGraph
 
+# Stream names that start with this are one-shot streams (the HTTP
+# server's, for requests without X-Spec-Stream); '\x00' cannot occur in
+# an HTTP header value, so no client-chosen name starts with it.
+EPHEMERAL_PREFIX = '\x00'
+
 
 def frame_signature(frame: np.ndarray, bins: int = 32,
                     max_side: int = 64) -> np.ndarray:
@@ -98,14 +103,14 @@ class KeyframeSelector:
         return key
 
 
-def _cam_forward(camcalib, loss_type: str,
-                 batch_u8: torch.Tensor) -> torch.Tensor:
+def _cam_forward(camcalib, loss_type: str, batch_u8: torch.Tensor):
     """Stage 1 on one padded bucket of resized uint8 frames (B, H, W, 3):
-    normalize, CamCalib, bin decode -> angles (3, B) = (vfov, pitch,
-    roll)."""
+    normalize, CamCalib, bin decode -> (vfov, pitch, roll logits (B, 256)
+    each, angles (3, B) = (vfov, pitch, roll)). The predictor keeps the
+    angles; ``camcalib_demo`` also plots the logits."""
     logits = camcalib(normalize_u8(batch_u8))
-    return torch.stack(bins.convert_preds_to_angles(*logits,
-                                                    loss_type=loss_type))
+    return (*logits, torch.stack(bins.convert_preds_to_angles(
+        *logits, loss_type=loss_type)))
 
 
 def _spec_forward(spec, assets, crops, rotmat, K, bbox_scale, bbox_center,
@@ -114,6 +119,44 @@ def _spec_forward(spec, assets, crops, rotmat, K, bbox_scale, bbox_center,
     through K1 and the camera (``HMR.forward``'s outputs)."""
     return spec(assets, crops, rotmat, K, bbox_scale, bbox_center, img_w,
                 img_h)
+
+
+def build_camcalib(ckpt: str, backbone: str, device, dtype=None,
+                   seed: int = 0, tag: str = 'serving'):
+    """Stage 1's CameraRegressorNetwork (one FC layer) with ``ckpt``'s
+    weights, or, when the file is missing, a random init from ``seed``
+    with a warning; on ``device``, in eval mode."""
+    model = CameraRegressorNetwork(backbone=backbone, num_fc_layers=1,
+                                   dtype=dtype or torch.float32)
+    if os.path.exists(ckpt):
+        model.load_state_dict(select_state_dict(load_torch_state_dict(ckpt),
+                                                model))
+    else:
+        print(f'[{tag}] WARNING: camcalib ckpt {ckpt} missing; random init')
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model.to(device).eval()
+
+
+def build_hmr(ckpt: str, device, cfg_file: str = '',
+              backbone: str = 'resnet50', use_cam_feats: bool = False,
+              img_res: int = 224, dtype=None, seed: int = 1,
+              tag: str = 'serving'):
+    """Stage 2's HMR (camera-aware) with ``ckpt``'s weights, or, when the
+    file is missing, a random init from ``seed`` with a warning; on
+    ``device``, in eval mode. ``cfg_file`` (a SPEC config yaml) sets
+    ``backbone`` and ``use_cam_feats`` as in the reference."""
+    if cfg_file:
+        from spec_tpu_torch.utils.config import hmr_hparams_from_cfg
+        backbone, use_cam_feats = hmr_hparams_from_cfg(cfg_file)
+    model = HMR(backbone=backbone, use_cam=True, use_cam_feats=use_cam_feats,
+                img_res=img_res, dtype=dtype or torch.float32)
+    if os.path.exists(ckpt):
+        model.load_state_dict(hmr_state_dict(load_torch_state_dict(ckpt),
+                                             model))
+    else:
+        print(f'[{tag}] WARNING: spec ckpt {ckpt} missing; random init')
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model.to(device).eval()
 
 
 class SpecPredictor:
@@ -130,9 +173,18 @@ class SpecPredictor:
     too: it shrinks the reference's host-to-device crop upload, and here
     crops are cut on the device from the frame already uploaded. Missing
     checkpoints give a random init from fixed seeds, with a warning
-    (smoke tests only). ``cfg_file``, ``data_parallel``,
-    ``spatial_parallel`` and ``detector='yolo'`` are not ported yet and
-    raise.
+    (smoke tests only). ``cfg_file`` (a SPEC config yaml) sets
+    ``backbone`` and ``use_cam_feats`` as in the reference.
+    ``data_parallel``, ``spatial_parallel`` and ``detector='yolo'`` are
+    not ported yet and raise.
+
+    Streams: ``camcalib_every`` state is kept per stream name, at most
+    ``max_streams`` named streams, least recently used evicted. Unlike
+    the reference (``spec_tpu/serving.py:485-500``), ephemeral streams
+    (names that start with ``'\x00'``, the HTTP server's one-shot
+    streams for requests without a stream header, dropped after their
+    request) do not count towards ``max_streams`` and never evict a
+    named stream.
     """
 
     max_streams = 256  # LRU cap on retained named camcalib_every streams
@@ -168,10 +220,6 @@ class SpecPredictor:
         if detector == 'yolo':
             raise NotImplementedError(
                 "detector='yolo' is not ported yet (ROADMAP.md §1 item 10)")
-        if cfg_file:
-            raise NotImplementedError(
-                'cfg_file is not ported yet (YAML configs come with the '
-                'CLIs, ROADMAP.md §1 item 7); pass backbone/use_cam_feats')
         if data_parallel and spatial_parallel:
             raise ValueError(
                 'data_parallel and spatial_parallel are mutually '
@@ -199,38 +247,16 @@ class SpecPredictor:
         self.camcalib_every = max(1, int(camcalib_every))
         self.cut_threshold = float(cut_threshold)
         self._cam_streams: Optional[OrderedDict] = None
-        dtype = dtype or torch.float32
 
         self.assets = S.with_packed_lbs(
             S.load_assets_or_test(smpl_model_dir, tag='serving').to(
                 self.device))
-
-        # Stage 1.
-        self.camcalib = CameraRegressorNetwork(
-            backbone=camcalib_backbone, num_fc_layers=1, dtype=dtype)
-        camcalib_ckpt = camcalib_ckpt or paths.camcalib_checkpoint_path()
-        if os.path.exists(camcalib_ckpt):
-            self.camcalib.load_state_dict(select_state_dict(
-                load_torch_state_dict(camcalib_ckpt), self.camcalib))
-        else:
-            print(f'[serving] WARNING: camcalib ckpt {camcalib_ckpt} '
-                  'missing; random init')
-            self.camcalib.reset_parameters(torch.Generator().manual_seed(0))
-        self.camcalib.to(self.device).eval()
-
-        # Stage 2.
-        self.spec = HMR(backbone=backbone, use_cam=True,
-                        use_cam_feats=use_cam_feats, img_res=img_res,
-                        dtype=dtype)
-        spec_ckpt = spec_ckpt or paths.spec_checkpoint_path()
-        if os.path.exists(spec_ckpt):
-            self.spec.load_state_dict(hmr_state_dict(
-                load_torch_state_dict(spec_ckpt), self.spec))
-        else:
-            print(f'[serving] WARNING: spec ckpt {spec_ckpt} missing; '
-                  'random init')
-            self.spec.reset_parameters(torch.Generator().manual_seed(1))
-        self.spec.to(self.device).eval()
+        self.camcalib = build_camcalib(
+            camcalib_ckpt or paths.camcalib_checkpoint_path(),
+            camcalib_backbone, self.device, dtype, seed=0)
+        self.spec = build_hmr(
+            spec_ckpt or paths.spec_checkpoint_path(), self.device,
+            cfg_file, backbone, use_cam_feats, img_res, dtype, seed=1)
 
         # One graph memory pool for both stages (none on the CPU).
         pool = (torch.cuda.graph_pool_handle()
@@ -283,7 +309,7 @@ class SpecPredictor:
     def _cameras_dispatch(self, frames_dev: Sequence[torch.Tensor]):
         """Queue every stage-1 batch (no fetch). Returns the pending
         chunks for :meth:`_cameras_fetch`."""
-        return [(chunk, self._stage1(batch))
+        return [(chunk, self._stage1(batch)[-1])
                 for chunk, batch in self._stage1_batches(frames_dev)]
 
     @staticmethod
@@ -322,7 +348,8 @@ class SpecPredictor:
 
     def _stream_state(self, stream: Optional[str]) -> dict:
         """The camcalib_every state of ``stream`` (created empty if new),
-        LRU-evicting the stalest stream past ``max_streams``."""
+        LRU-evicting the stalest named stream past ``max_streams`` named
+        ones; ephemeral streams are neither counted nor evicted."""
         if self._cam_streams is None:
             self._cam_streams = OrderedDict()
         streams = self._cam_streams
@@ -330,8 +357,12 @@ class SpecPredictor:
         st = streams.get(key)
         if st is None:
             st = streams[key] = {'cam': None, 'h': 0, 'i': 0, 'sig': None}
-            while len(streams) > max(1, int(self.max_streams)):
-                streams.popitem(last=False)
+            if not key.startswith(EPHEMERAL_PREFIX):
+                named = [k for k in streams
+                         if not k.startswith(EPHEMERAL_PREFIX)]
+                excess = len(named) - max(1, int(self.max_streams))
+                for k in named[:max(0, excess)]:
+                    del streams[k]
         else:
             streams.move_to_end(key)
         return st
@@ -476,25 +507,35 @@ class SpecPredictor:
 
     def _crops(self, chunk, frames_dev) -> torch.Tensor:
         """SPIN crops of one chunk, on the device, normalized (B, res,
-        res, 3): one crop call per frame size in the chunk."""
-        by_size: Dict[tuple, list] = defaultdict(list)
-        for ci, c in enumerate(chunk):
-            by_size[tuple(frames_dev[c[0]].shape)].append(ci)
-        parts = []
-        for cis in by_size.values():
-            fis = sorted({chunk[ci][0] for ci in cis})
-            slot = {fi: k for k, fi in enumerate(fis)}
-            frames = torch.stack([frames_dev[fi] for fi in fis]).float()
-            # Corners and each box's frame slot, in one upload.
-            cf = torch.from_numpy(np.stack(
-                [np.append(chunk[ci][7], slot[chunk[ci][0]]) for ci in cis]
-            ).astype(np.int32)).to(self.device)
-            parts.append((cis, crop_resize_normalize(
-                frames, cf[:, :4], res=self.img_res, frame_index=cf[:, 4])))
-        if len(parts) == 1:
-            return parts[0][1]           # every row, in chunk order
-        crops = torch.empty((len(chunk), self.img_res, self.img_res, 3),
-                            device=self.device)
-        for cis, v in parts:
-            crops[cis] = v
-        return crops
+        res, 3)."""
+        return crop_boxes(frames_dev, [c[0] for c in chunk],
+                          [c[7] for c in chunk], self.img_res)
+
+
+def crop_boxes(frames_dev, frame_ids: Sequence, corners: Sequence,
+               res: int) -> torch.Tensor:
+    """SPIN crops on the device, normalized (B, res, res, 3): box b is
+    cut from ``frames_dev[frame_ids[b]]`` (HWC frames on one device, a
+    list or a dict) at the integer ``corners[b]`` (from
+    ``spin_crop_corners``), with one crop call per frame size."""
+    device = frames_dev[frame_ids[0]].device
+    by_size: Dict[tuple, list] = defaultdict(list)
+    for ci, fi in enumerate(frame_ids):
+        by_size[tuple(frames_dev[fi].shape)].append(ci)
+    parts = []
+    for cis in by_size.values():
+        fis = list(dict.fromkeys(frame_ids[ci] for ci in cis))
+        slot = {fi: k for k, fi in enumerate(fis)}
+        frames = torch.stack([frames_dev[fi] for fi in fis]).float()
+        # Corners and each box's frame slot, in one upload.
+        cf = torch.from_numpy(np.stack(
+            [np.append(corners[ci], slot[frame_ids[ci]]) for ci in cis]
+        ).astype(np.int32)).to(device)
+        parts.append((cis, crop_resize_normalize(
+            frames, cf[:, :4], res=res, frame_index=cf[:, 4])))
+    if len(parts) == 1:
+        return parts[0][1]               # every row, in order
+    crops = torch.empty((len(frame_ids), res, res, 3), device=device)
+    for cis, v in parts:
+        crops[cis] = v
+    return crops

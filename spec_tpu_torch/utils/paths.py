@@ -1,5 +1,5 @@
 """Asset path registry (the subset of ``spec_tpu/utils/paths.py`` that
-serving reads). Everything is rooted at ``SPEC_DATA_ROOT`` (default
+serving and the demos read). Everything is rooted at ``SPEC_DATA_ROOT`` (default
 ``./data``), so the reference's ``prepare_data.sh`` layout works as is."""
 
 from __future__ import annotations
@@ -31,3 +31,23 @@ def camcalib_checkpoint_path() -> str:
 
 def spec_checkpoint_path() -> str:
     return join(data_root(), 'spec', 'checkpoints', 'spec_checkpoint.ckpt')
+
+
+def dataset_folders() -> dict:
+    d = data_root()
+    return {
+        'spec-mtp': join(d, 'dataset_folders', 'spec-mtp'),
+        'spec-syn': join(d, 'dataset_folders', 'spec-syn'),
+        '3dpw-test-cam': join(d, 'dataset_folders', '3dpw'),
+        '3dpw': join(d, 'dataset_folders', '3dpw'),
+        'pano360': join(d, 'dataset_folders', 'pano360'),
+    }
+
+
+def dataset_files() -> dict:
+    d = join(data_root(), 'dataset_extras')
+    return {
+        'spec-mtp': join(d, 'spec-mtp_camcalib.npz'),
+        'spec-syn': join(d, 'spec-syn_camcalib.npz'),
+        '3dpw-test-cam': join(d, '3dpw_test_cam_camcalib.npz'),
+    }

@@ -128,3 +128,36 @@ def test_refused_launch_raises(cuda_device):
         L._launch(shifted, packed.weights_t, coeffs, rel_tf,
                   packed.num_vertices)
     assert L.LAUNCHES == before
+
+
+def _grads(packed, coeffs, rel_tf, grad, fn):
+    """Cotangents of dirs, weights_t, coeffs and rel_tf through ``fn``."""
+    leaves = [packed.dirs.clone().requires_grad_(True),
+              packed.weights_t.clone().requires_grad_(True),
+              coeffs.clone().requires_grad_(True),
+              rel_tf.clone().requires_grad_(True)]
+    out = fn(dataclasses.replace(packed, dirs=leaves[0], weights_t=leaves[1]),
+             leaves[2], leaves[3])
+    return torch.autograd.grad(out, leaves, grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B', [1, 8, 32])
+def test_kernel_gradient_matches_plain(cuda_device, B):
+    """Autograd through the kernel (its forward plus the closed-form
+    backward) against autograd through the plain version: all four
+    cotangents within 1e-4 of the largest entry (TPU_CHECKS_r05.json's
+    relative budget); one launch, none in the backward."""
+    packed, coeffs, rel_tf = _operands(6890, B, seed=B, device=cuda_device)
+    grad = torch.from_numpy(np.random.RandomState(B).randn(
+        B, 6890, 3).astype('f4')).to(cuda_device)
+    before = L.LAUNCHES
+    got = _grads(packed, coeffs, rel_tf, grad, L.fused_lbs_vertices)
+    assert L.LAUNCHES == before + 1
+    want = _grads(packed, coeffs, rel_tf, grad, L.fused_lbs_vertices_plain)
+    for name, g, w in zip(('dirs', 'weights_t', 'coeffs', 'rel_tf'), got,
+                          want):
+        assert g.shape == w.shape, name
+        err = (g - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item(), (name, err)
+    assert not got[0][..., 6890:].any() and not got[1][:, 6890:].any()

@@ -147,12 +147,86 @@ def test_wrong_shape_or_layout_raises(rng, bad):
     assert TL.LAUNCHES == before
 
 
+def _plain_grads(packed, coeffs, rel_tf, grad):
+    """Autograd of the plain version: cotangents of dirs, weights_t,
+    coeffs and rel_tf."""
+    leaves = [packed.dirs.clone().requires_grad_(True),
+              packed.weights_t.clone().requires_grad_(True),
+              coeffs.clone().requires_grad_(True),
+              rel_tf.clone().requires_grad_(True)]
+    out = TL.fused_lbs_vertices_plain(
+        dataclasses.replace(packed, dirs=leaves[0], weights_t=leaves[1]),
+        leaves[2], leaves[3])
+    return torch.autograd.grad(out, leaves, grad)
+
+
+def _assert_rel_close(got, want, rtol, name):
+    """max |got - want| <= rtol * max |want|."""
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    assert err <= rtol * scale, (name, err, scale)
+
+
+GRAD_NAMES = ('dirs', 'weights_t', 'coeffs', 'rel_tf')
+
+
 def test_plain_version_is_differentiable_kernel_backward_raises(rng):
-    """The plain (CPU) path keeps autograd; the kernel's autograd
-    Function refuses a backward until the training port adds one."""
+    """The plain (CPU) path keeps autograd, and the kernel's autograd
+    Function's backward is the closed form: called on the operands the
+    forward saves, it gives the plain version's four cotangents (1e-4
+    relative, the TPU_CHECKS_r05.json budget), zero on the Vp padding;
+    a cotangent of the wrong shape raises."""
+    import types
+
     packed, coeffs, rel_tf = _valid_operands(rng)
     coeffs.requires_grad_(True)
     TL.fused_lbs_vertices(packed, coeffs, rel_tf).sum().backward()
     assert coeffs.grad is not None and torch.isfinite(coeffs.grad).all()
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        TL._FusedLBS.backward(None, torch.zeros(1))
+
+    coeffs = coeffs.detach()
+    V = packed.num_vertices
+    grad = torch.from_numpy(rng.randn(2, V, 3).astype('f4'))
+    ctx = types.SimpleNamespace(
+        saved_tensors=(packed.dirs, packed.weights_t, coeffs, rel_tf),
+        num_vertices=V)
+    got = TL._FusedLBS.backward(ctx, grad)
+    assert len(got) == 5 and got[4] is None
+    for name, g, w in zip(GRAD_NAMES, got, _plain_grads(packed, coeffs,
+                                                         rel_tf, grad)):
+        assert g.shape == w.shape, name
+        _assert_rel_close(g, w, 1e-4, name)
+    assert not got[0][..., V:].any() and not got[1][:, V:].any()
+    with pytest.raises(RuntimeError):
+        TL._FusedLBS.backward(ctx, grad[:, :-1])
+
+
+@pytest.mark.parametrize('B,V', [(1, 333), (8, 640), (3, 6890)])
+def test_closed_form_backward_matches_jax_vjp(rng, B, V):
+    """fused_lbs_backward against jax.vjp of spec_tpu's
+    fused_lbs_vertices (the Pallas kernel in interpret mode, with its
+    custom VJP) and against autograd of the plain version: every
+    cotangent within 1e-4 relative of the largest entry."""
+    import jax
+
+    assets, betas, rotmats = _inputs(rng, B, V)
+    packed_j, coeffs, rel_tf = _kernel_operands(assets, betas, rotmats)
+    grad = rng.randn(B, V, 3).astype('f4')
+
+    def f(dirs, wt, c, r):
+        import dataclasses as dc
+        return JL.fused_lbs_vertices(
+            dc.replace(packed_j, dirs=dirs, weights_t=wt), c, r,
+            interpret=True)
+
+    _, vjp = jax.vjp(f, packed_j.dirs, packed_j.weights_t,
+                     jnp.asarray(coeffs), jnp.asarray(rel_tf))
+    ref = [torch.from_numpy(np.array(x)) for x in vjp(jnp.asarray(grad))]
+
+    packed = TL.pack_lbs_operands(TS.create_test_assets(num_vertices=V))
+    c, r, g = (torch.from_numpy(x) for x in (coeffs, rel_tf, grad))
+    got = TL.fused_lbs_backward(packed.dirs, packed.weights_t, c, r, V, g)
+    plain = _plain_grads(packed, c, r, g)
+    for name, x, want_j, want_p in zip(GRAD_NAMES, got, ref, plain):
+        assert x.shape == want_j.shape == want_p.shape, name
+        _assert_rel_close(x, want_j, 1e-4, f'{name} vs jax.vjp')
+        _assert_rel_close(x, want_p, 1e-4, f'{name} vs autograd')

@@ -179,7 +179,7 @@ def test_camcalib_every_stream_matches_jax(predictors):
     (dict(data_parallel=True), NotImplementedError),
     (dict(spatial_parallel=True), NotImplementedError),
     (dict(detector='yolo'), NotImplementedError),
-    (dict(cfg_file='spec.yaml'), NotImplementedError),
+    (dict(cfg_file='no_such_config.yaml'), FileNotFoundError),
     (dict(detector='ssd'), ValueError),
     (dict(use_fused_lbs=False), ValueError),
     (dict(uint8_crops=True), ValueError),
@@ -192,11 +192,12 @@ def test_unported_options_raise(kwargs, err):
 
 
 def test_import_hygiene():
-    """The port's serving path, the e2e pipeline, the bench, the stage
-    graphs and every kernel wrapper import no JAX, flax, PIL, cv2, PyYAML
-    or triton (none of them exist on the machine with the card) and
-    nothing of the JAX package spec_tpu, and importing them builds no
-    kernel, captures no graph and touches no CUDA device."""
+    """The port's serving path, the e2e pipeline, the bench, the CLIs and
+    their host helpers, the stage graphs and every kernel wrapper import
+    no JAX, flax, PIL, cv2, PyYAML, joblib, matplotlib or triton (none of
+    them exist on the machine with the card) and nothing of the JAX
+    package spec_tpu, and importing them builds no kernel, captures no
+    graph and touches no CUDA device."""
     code = (
         'import sys\n'
         'import torch\n'
@@ -204,11 +205,16 @@ def test_import_hygiene():
         'import spec_tpu_torch.pipeline\n'
         'import spec_tpu_torch.bench\n'
         'import spec_tpu_torch.models.backbones.fused_resnet\n'
+        'from spec_tpu_torch.cli import camcalib_demo, serve, spec_demo\n'
+        'from spec_tpu_torch.data import image_folder, tracking\n'
+        'from spec_tpu_torch.utils import cam_params, config, smoothing, '
+        'vis\n'
         'from spec_tpu_torch.ops import bottleneck, cuda_build, lbs, '
         'projection\n'
         'from spec_tpu_torch.utils import graphs\n'
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'yaml', 'triton') "
+        "('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'yaml', 'joblib', "
+        "'matplotlib', 'triton') "
         "or m == 'spec_tpu' or m.startswith('spec_tpu.')]\n"
         'assert not bad, bad\n'
         'assert cuda_build.build_library.cache_info().currsize == 0\n'
