@@ -29,7 +29,8 @@ printing its own results; any failure raises and exits nonzero:
    frames;
 6. K1 against its plain PyTorch version on the card (synthetic SMPL,
    V = 6890, 1e-5 m budget) at several batch sizes, among them the
-   batches phases 4 and 5 gave it;
+   batches phases 4 and 5 gave it, the eval step's 128 and
+   ``compute_error``'s chunk of 256;
 7. K2 projects the fp32 fused pipeline's meshes (16 x 6890 vertices) with
    its cameras, against its plain version and
    ``geometry.perspective_projection`` (0.01 px budget).
@@ -74,7 +75,21 @@ printing its own results; any failure raises and exits nonzero:
     frame and person, every response held to ``predict`` on the same
     frames within same-card limits (SERVE_LIMITS). K1's ``launches`` in
     the kernels line are the window's;
-13. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
+13. eval at full width (ResNet-50 HMR with camera features, three
+    synthetic V = 6890 asset sets for gendered GT, 224² crops): the eval
+    step at ``bench.py``'s eval inputs (B = 128, bf16) replayed against
+    its eager body bit for bit, with 4 K1 launches per replay (printed,
+    and the profiler's count), its wall ms and device ops per step, and
+    a line saying that Procrustes runs outside the graph; the step on
+    the card against the CPU in fp32 at B = 8 (vertices within 1e-5 m,
+    metrics within 0.05 mm); ``evaluate_dataset`` over 300 in-memory
+    samples in batches of 128 (the last padded, 44 valid) and
+    ``compute_error`` with the j14 and j24 protocols (two chunks of
+    256), card against CPU within 0.05 mm, with their K1 launches; the
+    ``--help`` of ``spec_eval``, ``compute_error`` and
+    ``annotate_camcalib`` (they import without cv2, PIL or PyYAML); and
+    ``python -m spec_tpu_torch.bench --mode eval`` once;
+14. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then, instead of
 the rest, profiles phase 4's predictor (wall medians per stage, device
@@ -107,7 +122,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-LBS_BATCHES = (1, 3, 8, 16, 32, 64, 128)
+LBS_BATCHES = (1, 3, 8, 16, 32, 64, 128, 256)   # 256: compute_error's chunk
 LBS_BUDGET = 1e-5          # m, the fused kernel's budget vs fp32
 FRAME_HW = (720, 1280)
 PERSONS_PER_FRAME = (1, 2, 3, 2)
@@ -147,6 +162,17 @@ SERVE_LIMITS = dict(pred_pose=1e-5, pred_pose_6d=1e-5, pred_shape=1e-5,
                     pred_cam=1e-5, pred_cam_t=1e-4, smpl_vertices=1e-5,
                     smpl_joints3d=1e-5, smpl_joints2d=1e-3)
 SERVE_ANGLE_LIMIT = 1e-5   # rad
+# The eval phase: the eval step at bench.py's eval_bench inputs (B = 128
+# crops of 224^2, ResNet-50, bf16, gendered GT over three synthetic asset
+# sets), card against CPU in fp32 at EVAL_CPU_BATCH, and evaluate_dataset
+# over EVAL_SAMPLES in-memory samples (three batches of 128, the last
+# padded) followed by compute_error (two chunks of 256). Card vs CPU:
+# metrics within 0.05 mm (TPU_CHECKS_r05.json's Procrustes budget),
+# vertices within LBS_BUDGET.
+EVAL_BATCH, EVAL_CPU_BATCH, EVAL_SAMPLES = 128, 8, 300
+EVAL_BACKBONE, EVAL_RES = 'resnet50', 224
+EVAL_MM = 0.05
+EVAL_K1_PER_STEP = 4       # the model's SMPL, GT male and female, pred J24
 # One H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): the
 # rate for each kernel's arithmetic (K3 on the tensor cores, bf16 or
 # TF32, the fp32 variant as three TF32 products per fp32 one; K1 and K2
@@ -1757,6 +1783,229 @@ def phase_serve():
         _release()
 
 
+class _EvalItems:
+    """In-memory eval samples in the layout CamDataset yields (the card
+    machine has no image codec): bench.py's eval inputs, with CamCalib's
+    camera as the predicted one."""
+
+    def __init__(self, n, seed):
+        import numpy as np
+
+        from spec_tpu_torch.bench import eval_inputs
+        from spec_tpu_torch.core.geometry import euler_pitch_roll_np
+
+        self.arrays = eval_inputs(n, EVAL_RES, seed=seed)
+        # crops in [0, 1], as CamDataset yields them
+        self.arrays['img'] = np.random.RandomState(seed).rand(
+            n, EVAL_RES, EVAL_RES, 3).astype('f4')
+        rng = np.random.RandomState(seed + 1)
+        self.arrays['cam_int'] = self.arrays.pop('cam_intrinsics')
+        self.arrays['pred_cam_rotmat'] = np.stack([
+            euler_pitch_roll_np(p, r)
+            for p, r in rng.randn(n, 2) * [0.2, 0.05]])
+        self.arrays['pred_cam_int'] = self.arrays['cam_int'] * np.array(
+            [1.1, 1.1, 1.0], 'f4')[:, None]
+        self.arrays['pose_cam'] = (rng.randn(n, 72) * 0.15).astype('f4')
+
+    def __len__(self):
+        return len(self.arrays['img'])
+
+    def __getitem__(self, i):
+        item = {k: v[i] for k, v in self.arrays.items()}
+        item['imgname'] = f'sample_{i:04d}.jpg'
+        item['dataset_name'] = '3dpw-test-cam'
+        return item
+
+
+def _eval_pass(model, items, assets, jreg, device):
+    """evaluate_dataset over ``items`` in batches of EVAL_BATCH, then
+    compute_error on its vertices with the j14 and the j24 protocol.
+    Returns (summary, headlines, K1 launches of each part, batches)."""
+    import numpy as np
+
+    from spec_tpu_torch.data.loader import DataLoader
+    from spec_tpu_torch.eval.eval_loop import evaluate_dataset
+    from spec_tpu_torch.eval.evaluator import compute_error
+    from spec_tpu_torch.ops import lbs as L
+
+    batches = []
+
+    class Counted(DataLoader):
+        def __iter__(self):
+            for b in super().__iter__():
+                batches.append(b['_valid_count'])
+                yield b
+
+    loader = Counted(items, batch_size=EVAL_BATCH, num_workers=4)
+    L.LAUNCHES = 0
+    summary, acc = evaluate_dataset(model, None, loader, assets, jreg,
+                                    use_gt_cam=False, use_gender=True,
+                                    dataset_name='3dpw-test-cam')
+    launches = {'evaluate_dataset': L.LAUNCHES}
+    res = acc.results_dict()
+    heads = {}
+    for ds in ('3dpw-test-cam', 'spec-mtp'):
+        L.LAUNCHES = 0
+        heads[ds] = compute_error(
+            ds, pred_vertices=np.asarray(res['vertices'], np.float32),
+            pred_cam_rotmat=items.arrays['pred_cam_rotmat'],
+            gt_pose=items.arrays['pose'], gt_betas=items.arrays['betas'],
+            assets=assets['neutral'], j_regressor_h36m=jreg,
+            gt_pose_cam=items.arrays['pose_cam'], device=device)
+        launches[f'compute_error {ds}'] = L.LAUNCHES
+    return summary, heads, launches, batches, len(res['vertices'])
+
+
+def phase_eval(device='cuda'):
+    """Phase 13 (see the module docstring): the eval path at full width.
+    Returns the eval step's K1 launches per replay. ``device='cpu'``
+    rehearses the phase's logic on a machine without a card (shrink the
+    EVAL_* sizes first): both sides of each comparison then run on the
+    CPU, the kernel counts are 0 and the profile and the bench are
+    skipped."""
+    import torch
+    from torch.utils._pytree import tree_leaves, tree_structure
+
+    from spec_tpu_torch import bench
+    from spec_tpu_torch.eval import eval_loop, evaluator
+    from spec_tpu_torch.eval.eval_loop import (
+        BATCH_KEYS,
+        _procrustes_tail,
+        make_eval_step,
+    )
+    from spec_tpu_torch.ops import lbs as L
+
+    card = device == 'cuda'
+    assets = bench.eval_assets()
+    jreg = assets['neutral'].j_regressor_h36m.numpy()
+
+    # 13.1 the step at the bench's inputs: replay vs eager, K1 per replay
+    model = bench.eval_model(EVAL_BACKBONE, torch.bfloat16, device,
+                             img_res=EVAL_RES)
+    step = make_eval_step(model, assets, jreg, use_gender=True)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in bench.eval_inputs(EVAL_BATCH, EVAL_RES).items()}
+    want = step.eager(batch)
+    eager = tree_leaves(want)
+    for call in ('capture', 'replay'):
+        got = step(batch)
+        same = (tree_structure(got) == tree_structure(want)
+                and all(torch.equal(g, e)
+                        for g, e in zip(tree_leaves(got), eager)))
+        print(f'[eval step bf16 B={EVAL_BATCH}] {call} vs eager: '
+              f'bit-identical {same} ({len(eager)} outputs)', flush=True)
+        if not same:
+            worst = max((g.float() - e.float()).abs().max().item()
+                        for g, e in zip(tree_leaves(got), eager))
+            raise RuntimeError(f'eval step replay differs from eager '
+                               f'(max abs diff {worst:.3e})')
+    L.LAUNCHES = 0
+    step(batch)
+    per_step = L.LAUNCHES
+    print(f'[eval step bf16 B={EVAL_BATCH}] K1 launches per replay '
+          f'{per_step} (expected {EVAL_K1_PER_STEP})')
+    if card and per_step != EVAL_K1_PER_STEP:
+        raise RuntimeError(f'the eval step launched K1 {per_step} times')
+    print('[eval step] Procrustes runs outside the graph: the graph ends '
+          'before it and the SVD alignments run eagerly after each replay '
+          '(torch.linalg.svd on CUDA copies to the host, which a capture '
+          'refuses)')
+    if card:
+        _graph_call(f'eval step bf16 B={EVAL_BATCH}', lambda: step(batch),
+                    lbs=EVAL_K1_PER_STEP, k3=0)
+        args = [batch[k] for k in BATCH_KEYS]
+        with torch.inference_mode():
+            head_ms = _wall_ms(lambda: step.head(*args), 5)
+            head = step.head(*args)
+            tail_ms = _wall_ms(lambda: _procrustes_tail(head), 5)
+        print(f'[eval step bf16 B={EVAL_BATCH}] split: the graph replay (up '
+              f'to Procrustes, outputs cloned) {head_ms:.3f} ms, the eager '
+              f'Procrustes tail {tail_ms:.3f} ms (host wall with syncs, '
+              'median of 5)', flush=True)
+    del model, step, batch, got, want, eager
+    if card:
+        _release()
+
+    # 13.2 card vs CPU, fp32, B = EVAL_CPU_BATCH
+    items = _EvalItems(EVAL_SAMPLES, seed=3)
+    small = {k: items.arrays[k][:EVAL_CPU_BATCH] for k in
+             ('img', 'pose', 'betas', 'gender', 'scale', 'center',
+              'orig_shape', 'cam_rotmat')}
+    small['cam_intrinsics'] = items.arrays['cam_int'][:EVAL_CPU_BATCH]
+    outs = {}
+    models = {}
+    for dev in (device, 'cpu'):
+        models[dev] = bench.eval_model(EVAL_BACKBONE, torch.float32, dev,
+                                       img_res=EVAL_RES)
+        step = make_eval_step(models[dev], assets, jreg, use_gender=True)
+        with torch.inference_mode():
+            out, j14, j24, v2v = step({k: torch.from_numpy(small[k]).to(dev)
+                                       for k in BATCH_KEYS})
+        outs[dev] = (out['smpl_vertices'].cpu(),
+                     {**{f'j14.{k}': v.cpu() for k, v in j14.items()},
+                      **{f'j24.{k}': v.cpu() for k, v in j24.items()},
+                      'v2v': v2v.cpu()})
+    verts = (outs[device][0] - outs['cpu'][0]).abs().max().item()
+    metrics = outs['cpu'][1]
+    mm = max((outs[device][1][k] - metrics[k]).abs().max().item() * 1e3
+             for k in metrics)
+    print(f'[eval card vs cpu fp32 B={EVAL_CPU_BATCH}] vertices '
+          f'{verts:.3e} m (limit {LBS_BUDGET:.0e}); metrics {mm:.3e} mm '
+          f'(limit {EVAL_MM}) over {", ".join(metrics)}', flush=True)
+    if not (verts <= LBS_BUDGET and mm <= EVAL_MM):
+        raise RuntimeError('the eval step on the card disagrees with the '
+                           'CPU')
+
+    # 13.3 evaluate_dataset + compute_error, card vs CPU
+    passes = {dev: _eval_pass(models[dev], items, assets, jreg, dev)
+              for dev in (device, 'cpu')}
+    summary, heads, launches, batches, n = passes[device]
+    print(f'[eval evaluate_dataset] {EVAL_SAMPLES} samples in batches of '
+          f'{EVAL_BATCH}: valid counts {batches}, {n} result rows; card '
+          f'summary {json.dumps(summary)}; K1 launches {launches}',
+          flush=True)
+    tail = EVAL_SAMPLES - (len(batches) - 1) * EVAL_BATCH
+    if batches != [EVAL_BATCH] * (len(batches) - 1) + [tail] \
+            or tail == EVAL_BATCH or n != EVAL_SAMPLES:
+        raise RuntimeError(f'evaluate_dataset batches {batches}, rows {n}')
+    worst = max(abs(summary[k] - passes['cpu'][0][k]) for k in summary)
+    for ds, head in heads.items():
+        cpu_head = passes['cpu'][1][ds]
+        worst = max(worst, *(abs(head[k] - cpu_head[k]) for k in head
+                             if k != 'protocol'))
+        print(f'[eval compute_error {ds}] card {json.dumps(head)}')
+    print(f'[eval card vs cpu] summaries and headlines: worst '
+          f'{worst:.3e} mm (limit {EVAL_MM})', flush=True)
+    if not worst <= EVAL_MM:
+        raise RuntimeError('evaluate_dataset / compute_error on the card '
+                           'disagree with the CPU')
+    # the memoized eval steps and chunk graphs hold both models, their
+    # device assets and their graphs
+    del models, passes
+    eval_loop._EVAL_STEP_CACHE.clear()
+    evaluator._CHUNK_CACHE.clear()
+    if card:
+        _release()
+
+    # 13.4 the eval CLIs import and parse on this machine
+    for cli in ('spec_eval', 'compute_error', 'annotate_camcalib'):
+        proc = subprocess.run(
+            [sys.executable, '-m', f'spec_tpu_torch.cli.{cli}', '--help'],
+            cwd=ROOT, capture_output=True, text=True, timeout=120)
+        if proc.returncode != 0 or 'usage' not in proc.stdout:
+            raise RuntimeError(f'{cli} --help failed: {proc.stderr[-2000:]}')
+        print(f'[eval cli] python -m spec_tpu_torch.cli.{cli} --help: ok')
+
+    # 13.5 the bench's eval mode, once
+    if card:
+        print('[eval bench] python -m spec_tpu_torch.bench --mode eval',
+              flush=True)
+        if bench.main(['--mode', 'eval']) != 0:
+            raise RuntimeError('the eval bench failed')
+        _release()
+    return per_step
+
+
 def main() -> int:
     import torch
 
@@ -1809,6 +2058,7 @@ def main() -> int:
     phase_lbs_backward()
     phase_cli_devices()
     serve_launches = phase_serve()
+    phase_eval()
 
     row = lbs_rows[main_batch]
 

@@ -16,6 +16,12 @@ flax`` is ``module`` here, and ``--dtype`` picks the compute dtype):
   events.
 * ``latency``: ``predict`` on one 480x640 frame with one box: e2e ms per
   call, and stage-1 and stage-2 ms from replays on staged inputs.
+* ``eval``: the eval step (``eval/eval_loop.make_eval_step``) at
+  ``bench.py``'s ``eval_bench`` inputs: B = 128 crops of 224², HMR with
+  ``--backbone`` (ResNet-50) and camera features, GT SMPL gendered over
+  three synthetic asset sets (V = 6890), J14 Procrustes, J24 and V2V:
+  img/s by the host clock (the step's Procrustes tail reads back on the
+  host).
 
 Every mode warms up first (the graph captures included) and times
 ``WINDOWS`` windows; the last line is one JSON object with ``metric``,
@@ -46,7 +52,7 @@ WINDOWS = 10
 # Frame sizes per mode when --frame_h/--frame_w are not given: the
 # pipeline's stage-1 bucket, and the serving and latency frames.
 FRAME_HW = {'pipeline': (512, 672), 'serving': (480, 640),
-            'latency': (480, 640)}
+            'latency': (480, 640), 'eval': (224, 224)}
 # CUDA runtime calls that put work on the device, as the profiler names
 # them: what the host issues per call.
 _LAUNCH_CALLS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
@@ -57,14 +63,16 @@ _LAUNCH_CALLS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         prog='python -m spec_tpu_torch.bench',
-        description='spec_tpu_torch e2e bench (pipeline, serving, latency)')
-    parser.add_argument('--mode', choices=['pipeline', 'serving', 'latency'],
+        description='spec_tpu_torch e2e bench (pipeline, serving, '
+                    'latency, eval)')
+    parser.add_argument('--mode',
+                        choices=['pipeline', 'serving', 'latency', 'eval'],
                         default='pipeline')
     parser.add_argument('--batch', type=int, default=128,
-                        help='[pipeline] frames per call')
+                        help='[pipeline, eval] frames or crops per call')
     parser.add_argument('--frame_h', type=int, default=None,
                         help='default: 512 (pipeline) / 480 (serving, '
-                             'latency)')
+                             'latency); eval: the crop side, 224')
     parser.add_argument('--frame_w', type=int, default=None,
                         help='default: 672 (pipeline) / 640 (serving, '
                              'latency)')
@@ -74,6 +82,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                              'or the folded-BN FusedResNet (kernel K3)')
     parser.add_argument('--dtype', choices=['bf16', 'fp32'], default='bf16',
                         help='compute dtype of the backbones and heads')
+    parser.add_argument('--backbone', type=str, default='resnet50',
+                        help='[eval] the HMR backbone')
     parser.add_argument('--iters', type=int, default=10,
                         help='calls per timed window')
     parser.add_argument('--frames', type=int, default=16,
@@ -382,6 +392,79 @@ def latency_bench(args, device) -> dict:
                  stage2_spread=[min(stage2), max(stage2)])
 
 
+def eval_inputs(B: int, res: int, seed: int = 0) -> dict:
+    """``bench.py``'s ``eval_bench`` batch as numpy arrays in the eval
+    step's layout (``eval_loop.BATCH_KEYS``): B crops of res² (its
+    values are already normalized there; here they go through the
+    step's normalization, an affine map of the same cost), GT pose and
+    shape, a random gender per sample, boxes in a 1920x1080 frame and
+    its camera."""
+    rng = np.random.RandomState(seed)
+    K = np.tile(np.array([[1000., 0., 960.], [0., 1000., 540.],
+                          [0., 0., 1.]], 'f4'), (B, 1, 1))
+    return {
+        'img': rng.randn(B, res, res, 3).astype('f4'),
+        'pose': (rng.randn(B, 72) * 0.15).astype('f4'),
+        'betas': (rng.randn(B, 10) * 0.3).astype('f4'),
+        'gender': (rng.rand(B) > 0.5).astype(np.int32),
+        'scale': (rng.rand(B) * 0.8 + 0.8).astype('f4'),
+        'center': (rng.rand(B, 2) * 300
+                   + np.array([600, 300])).astype('f4'),
+        'orig_shape': np.tile(np.array([[1080., 1920.]], 'f4'), (B, 1)),
+        'cam_rotmat': np.tile(np.eye(3, dtype='f4'), (B, 1, 1)),
+        'cam_intrinsics': K,
+    }
+
+
+def eval_model(backbone: str, dtype: torch.dtype, device, img_res=224):
+    """The eval bench's HMR: camera-aware with camera features, random
+    weights from seed 0, on ``device`` in eval mode."""
+    from spec_tpu_torch.models.hmr import HMR
+
+    model = HMR(backbone=backbone, use_cam=True, use_cam_feats=True,
+                img_res=img_res, dtype=dtype)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model.to(device).eval()
+
+
+def eval_assets() -> dict:
+    """Three synthetic asset sets (V = 6890), as ``bench.py`` makes
+    them: neutral, male and female from seeds 0, 1 and 2."""
+    from spec_tpu_torch.core import smpl as S
+
+    return {g: S.create_test_assets(seed=i)
+            for i, g in enumerate(('neutral', 'male', 'female'))}
+
+
+def eval_bench(args, device) -> dict:
+    """The eval step, gendered, on one batch of ``eval_inputs``."""
+    from spec_tpu_torch.eval.eval_loop import make_eval_step
+
+    B, res = args.batch, args.frame_h
+    assets = eval_assets()
+    model = eval_model(args.backbone, _dtype(args), device, img_res=res)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in eval_inputs(B, res).items()}
+    step = make_eval_step(model, assets,
+                          assets['neutral'].j_regressor_h36m.numpy(),
+                          use_gender=True)
+    for _ in range(2):          # capture, then one replay
+        out, j14, j24, v2v = step(batch)
+    _sync(device)
+    if not all(bool(torch.isfinite(t).all()) for t in
+               (v2v, out['smpl_vertices'], *j14.values(), *j24.values())):
+        raise RuntimeError('non-finite eval step output')
+    ms = _windows(_host_ms, lambda: step(batch), args.iters, device)
+    if args.profile and device.type == 'cuda':
+        _print_profile(f'eval step {args.backbone} {args.dtype} B={B}',
+                       lambda: step(batch), statistics.median(ms))
+    return _emit(args, device,
+                 f'SPEC eval step (fwd + gendered GT SMPL through K1 + J14 '
+                 f'Procrustes/J24/V2V, {args.backbone}, {args.dtype}), '
+                 f'B={B} {res}^2', ms, lambda m: B / m * 1e3, 'img/s/gpu',
+                 ms_per_step=statistics.median(ms))
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     device = torch.device(args.device)
@@ -396,7 +479,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     bench = {'pipeline': pipeline_bench, 'serving': serving_bench,
-             'latency': latency_bench}[args.mode]
+             'latency': latency_bench, 'eval': eval_bench}[args.mode]
     with torch.inference_mode():
         bench(args, device)
     return 0

@@ -38,3 +38,8 @@ EXTRA_VERTEX_JOINT_IDS = np.array([
 NUM_SMPL_JOINTS = 24
 NUM_SMPL_VERTICES = 6890
 NUM_BETAS = 10
+
+# H36M 17-joint regressor rows -> the eval protocols' joint selections:
+# 17 joints (mpi-inf-3dhp), and their first 14 (LSP order, 3DPW).
+H36M_TO_J17 = [6, 5, 4, 1, 2, 3, 16, 15, 14, 11, 12, 13, 8, 10, 0, 7, 9]
+H36M_TO_J14 = H36M_TO_J17[:14]

@@ -9,9 +9,10 @@ with TF32 off (:func:`fp32_matmuls`), whatever the caller's dtype.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from spec_tpu_torch.utils.precision import fp32_matmuls
+from spec_tpu_torch.utils.precision import exact_fp32_fn, fp32_matmuls
 
 _EPS = 1e-8
 
@@ -169,3 +170,112 @@ def build_cam_intrinsics(focal_length: torch.Tensor, img_w: torch.Tensor,
     K[:, 1, 2] = torch.as_tensor(img_h, dtype=torch.float32,
                                  device=f.device) / 2.0
     return K
+
+
+# ---------------------------------------------------------------------------
+# The evaluation path's additions: Procrustes, the rotation log map and
+# the camera helpers of the eval data and offline metrics.
+# ---------------------------------------------------------------------------
+
+
+@exact_fp32_fn
+def procrustes_align(S1: torch.Tensor, S2: torch.Tensor) -> torch.Tensor:
+    """Batched similarity (Procrustes) alignment of S1 onto S2: returns
+    ``s R S1 + t`` minimizing the Frobenius distance to S2, the
+    alignment of PA-MPJPE. S1, S2 (B, N, 3) -> (B, N, 3), fp32.
+
+    A 3x3 SVD per sample (``torch.linalg.svd``) with the reflection
+    guard ``diag(1, 1, sign det(V U^T))``."""
+    X1 = S1.float().transpose(-1, -2)
+    X2 = S2.float().transpose(-1, -2)
+    mu1 = X1.mean(dim=-1, keepdim=True)
+    mu2 = X2.mean(dim=-1, keepdim=True)
+    X1c = X1 - mu1
+    X2c = X2 - mu2
+    var1 = (X1c ** 2).sum(dim=(-2, -1))
+    K = X1c @ X2c.transpose(-1, -2)              # (B, 3, 3) covariance
+    U, s, Vh = torch.linalg.svd(K)
+    V = Vh.transpose(-1, -2)
+    sign = torch.sign(torch.linalg.det(V @ U.transpose(-1, -2)))
+    z = torch.stack([torch.ones_like(sign), torch.ones_like(sign), sign],
+                    dim=-1)
+    R = (V * z[..., None, :]) @ U.transpose(-1, -2)
+    scale = (s * z).sum(dim=-1) / var1.clamp_min(_EPS)
+    t = mu2 - scale[..., None, None] * (R @ mu1)
+    X1_hat = (scale[..., None, None] * (R @ X1c)
+              + scale[..., None, None] * (R @ mu1) + t)
+    return X1_hat.transpose(-1, -2)
+
+
+@fp32_matmuls
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion (w, x, y, z) with
+    w >= 0: Shepperd's method without branches (all four candidate
+    constructions, the best-conditioned one picked per matrix)."""
+    R = R.float()
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(v):
+        return torch.sqrt(v.clamp_min(_EPS))
+
+    qw0 = safe_sqrt(1.0 + tr) / 2.0
+    q0 = torch.stack([qw0, (m21 - m12) / (4 * qw0), (m02 - m20) / (4 * qw0),
+                      (m10 - m01) / (4 * qw0)], dim=-1)
+    qx1 = safe_sqrt(1.0 + m00 - m11 - m22) / 2.0
+    q1 = torch.stack([(m21 - m12) / (4 * qx1), qx1, (m01 + m10) / (4 * qx1),
+                      (m02 + m20) / (4 * qx1)], dim=-1)
+    qy2 = safe_sqrt(1.0 - m00 + m11 - m22) / 2.0
+    q2 = torch.stack([(m02 - m20) / (4 * qy2), (m01 + m10) / (4 * qy2), qy2,
+                      (m12 + m21) / (4 * qy2)], dim=-1)
+    qz3 = safe_sqrt(1.0 - m00 - m11 + m22) / 2.0
+    q3 = torch.stack([(m10 - m01) / (4 * qz3), (m02 + m20) / (4 * qz3),
+                      (m12 + m21) / (4 * qz3), qz3], dim=-1)
+
+    scores = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22,
+                          m22 - m00 - m11], dim=-1)
+    best = scores.argmax(dim=-1)
+    cands = torch.stack([q0, q1, q2, q3], dim=-2)          # (..., 4, 4)
+    q = torch.gather(cands, -2,
+                     best[..., None, None].expand(*best.shape, 1, 4))[..., 0,
+                                                                      :]
+    q = q * torch.where(q[..., 0:1] < 0, -1.0, 1.0)
+    return q / torch.linalg.vector_norm(q, dim=-1,
+                                        keepdim=True).clamp_min(_EPS)
+
+
+def quat_to_aa(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w, x, y, z) -> axis-angle (..., 3); below a
+    half-angle sine of 1e-6, ``aa = 2 xyz``."""
+    w = q[..., 0].clamp(-1.0, 1.0)
+    xyz = q[..., 1:]
+    sin_half = torch.linalg.vector_norm(xyz, dim=-1, keepdim=True)
+    theta = 2.0 * torch.atan2(sin_half[..., 0], w)[..., None]
+    small = sin_half < 1e-6
+    axis = xyz / torch.where(small, torch.ones_like(sin_half), sin_half)
+    return torch.where(small, 2.0 * xyz, axis * theta)
+
+
+def rotmat_to_aa(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> axis-angle (..., 3), through the
+    quaternion (robust near 0 and pi)."""
+    return quat_to_aa(rotmat_to_quat(R))
+
+
+def vfov_from_focal_length(f_pix: torch.Tensor,
+                           img_h: torch.Tensor) -> torch.Tensor:
+    """vfov = 2 atan(H / (2 f))."""
+    return 2.0 * torch.atan(img_h / (2.0 * f_pix))
+
+
+def euler_pitch_roll_np(pitch: float, roll: float) -> np.ndarray:
+    """Host (numpy) ``euler_to_rotmat([pitch, 0, roll])``: ``Rx(pitch) @
+    Rz(roll)`` in float32, the camera rotation built from CamCalib's
+    pitch and roll."""
+    cp, sp = np.cos(pitch), np.sin(pitch)
+    cr, sr = np.cos(roll), np.sin(roll)
+    Rx = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]], np.float32)
+    Rz = np.array([[cr, -sr, 0], [sr, cr, 0], [0, 0, 1]], np.float32)
+    return (Rx @ Rz).astype(np.float32)

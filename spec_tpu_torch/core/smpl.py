@@ -411,3 +411,18 @@ def smpl_forward(
 
     return SMPLOutput(vertices=verts, joints=joints, joints_native=joints24,
                       global_transforms=world_tf)
+
+
+def regress_h36m_joints(assets: SMPLAssets, vertices: torch.Tensor,
+                        subset: str = 'j14') -> torch.Tensor:
+    """H36M 17-joint regression from the mesh, then the eval protocol's
+    selection: (B, V, 3) -> (B, 14, 3) ('j14') or (B, 17, 3) ('j17'),
+    in exact fp32."""
+    from spec_tpu_torch.eval.metrics import regress_h36m
+
+    if assets.j_regressor_h36m is None:
+        raise ValueError('regress_h36m_joints needs assets.j_regressor_h36m '
+                         '(load the assets with j_regressor_h36m_path)')
+    j17 = regress_h36m(vertices, assets.j_regressor_h36m)
+    sel = C.H36M_TO_J17 if subset == 'j17' else C.H36M_TO_J14
+    return j17[:, device_constant(sel, j17.device, torch.long)]

@@ -12,14 +12,7 @@ import os
 
 import numpy as np
 
-
-def euler_pitch_roll_np(pitch: float, roll: float) -> np.ndarray:
-    """Host (numpy) ``euler_to_rotmat([pitch, 0, roll])``: Rx @ Rz."""
-    cp, sp = np.cos(pitch), np.sin(pitch)
-    cr, sr = np.cos(roll), np.sin(roll)
-    Rx = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]], np.float32)
-    Rz = np.array([[cr, -sr, 0], [sr, cr, 0], [0, 0, 1]], np.float32)
-    return (Rx @ Rz).astype(np.float32)
+from spec_tpu_torch.core.geometry import euler_pitch_roll_np
 
 
 def read_cam_params(pkl_path: str, img_w: float, img_h: float):

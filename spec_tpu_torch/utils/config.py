@@ -1,16 +1,26 @@
 """SPEC config yamls: the subset of ``spec_tpu/utils/config.py`` that
-inference reads.
+inference and evaluation read.
 
-:class:`CfgNode` is a copy of the reference's attribute-tree dict. Of
-the defaults, only the keys :func:`hmr_hparams_from_cfg` reads are kept:
-a yaml merges over them permissively, as in the reference, so the
-training keys it carries are kept but unused. PyYAML is imported where a
-file is read (the machine with the card has none).
+:class:`CfgNode` is a copy of the reference's attribute-tree dict. The
+defaults keep the reference's DATASET and TESTING trees whole (so every
+``--opts`` key of an eval command line exists), the HMR keys the model
+is built from, and the run's name and log directory; the training keys
+a yaml carries merge in permissively, as in the reference, and are
+unused. :func:`run_grid_search_experiments` is the reference's grid
+search: list-valued yaml leaves expand into the cartesian product of
+configs, ``cfg_id`` picks one and its hyperparameters name the log
+directory. PyYAML is imported where a file is read or written (the
+machine with the card has none).
 """
 
 from __future__ import annotations
 
-from typing import List
+import itertools
+import operator
+import os
+import time
+from functools import reduce
+from typing import List, Optional, Union
 
 
 class CfgNode(dict):
@@ -94,10 +104,187 @@ def _coerce(val: str, old):
 
 
 def spec_default_config() -> CfgNode:
-    """The reference's SPEC defaults, reduced to what inference reads."""
+    """The reference's SPEC defaults that inference and evaluation read:
+    the DATASET and TESTING trees whole, HMR's model keys, EXP_NAME,
+    LOGDIR and RUN_TEST."""
     return CfgNode.from_dict({
-        'HMR': {'BACKBONE': 'resnet50', 'USE_CAM_FEATS': False},
+        'EXP_NAME': 'spec',
+        'LOGDIR': '',
+        'DATASET': {
+            'LOAD_TYPE': 'Base',
+            'NOISE_FACTOR': 0.4,
+            'ROT_FACTOR': 0.0,
+            'SCALE_FACTOR': 0.25,
+            'FLIP_PROB': 0.0,
+            'CROP_PROB': 0.0,
+            'CROP_FACTOR': 0.0,
+            'BATCH_SIZE': 64,
+            'NUM_WORKERS': 8,
+            'FAST_DECODE': False,
+            'DECODE_CACHE': 0,
+            'GROUP_BY_FRAME': False,
+            'NATIVE_DECODE': True,
+            'REGION_CACHE_DIR': '',
+            'REGION_CACHE_FORMAT': 'jpeg',
+            'PIN_MEMORY': True,
+            'SHUFFLE_TRAIN': True,
+            'TRAIN_DS': 'all',
+            'VAL_DS': 'spec-syn_spec-mtp_3dpw-test-cam',
+            'NUM_IMAGES': -1,
+            'TRAIN_NUM_IMAGES': -1,
+            'TEST_NUM_IMAGES': -1,
+            'IGNORE_3D': False,
+            'IMG_RES': 224,
+            'RENDER_RES': 480,
+            'FOCAL_LENGTH': 5000.0,
+            'MESH_COLOR': 'pinkish',
+            'DATASETS_AND_RATIOS': 'spec-syn_1.0',
+            'USE_SYNTHETIC_OCCLUSION': False,
+            'OCC_AUG_DATASET': 'pascal',
+            'USE_3D_CONF': False,
+            'USE_GENDER': False,
+            'BASELINE_CAM_ROT': False,
+            'BASELINE_CAM_F': False,
+            'BASELINE_CAM_C': False,
+            'TEACHER_FORCE': 0.0,
+            'TEACHER_FORCE_SCHEDULE': '',
+            'STAGE_DATASETS': '',
+            'NONPARAMETRIC': False,
+        },
+        'TESTING': {
+            'SAVE_IMAGES': False,
+            'SAVE_FREQ': 1,
+            'SAVE_RESULTS': True,
+            'SAVE_MESHES': False,
+            'SIDEVIEW': True,
+            'TEST_ON_TRAIN_END': True,
+            'MULTI_SIDEVIEW': False,
+            'USE_GT_CAM': False,
+        },
+        'HMR': {'BACKBONE': 'resnet50', 'DTYPE': 'float32',
+                'USE_CAM_FEATS': False},
+        'RUN_TEST': False,
     })
+
+
+def update_hparams(cfg_file: Optional[str] = None) -> CfgNode:
+    """The defaults merged with a yaml (the reference's config entry
+    point, SPEC dialect)."""
+    cfg = spec_default_config()
+    if cfg_file:
+        cfg.merge_from_file(cfg_file)
+    return cfg
+
+
+def split_ds_names(value: Union[str, list]) -> List[str]:
+    """``'a_b'`` or ``['a_b', 'c']`` -> ``['a', 'b', 'c']`` (dataset
+    names never hold '_', the reference's separator)."""
+    items = value if isinstance(value, list) else [value]
+    return [n for it in items for n in str(it).split('_') if n]
+
+
+def _flatten(d: dict, prefix: str = '') -> dict:
+    out = {}
+    for k, v in d.items():
+        key = f'{prefix}/{k}' if prefix else k
+        if isinstance(v, dict):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def _unflatten(d: dict) -> dict:
+    out: dict = {}
+    for k, v in d.items():
+        node = out
+        parts = k.split('/')
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return out
+
+
+def get_grid_search_configs(config: dict, excluded_keys: List[str] = ()):
+    """List-valued leaves -> the cartesian product of configs, as
+    (experiments, hyperparameter keys). An excluded list-valued leaf
+    stays one value (joined with '+' and split back); booleans pass
+    through strings, as in the reference."""
+    flat = _flatten(config)
+    hyper_params = []
+    joined_excluded = set()
+    for k, v in flat.items():
+        if isinstance(v, list):
+            if k in excluded_keys:
+                flat[k] = ['+'.join(str(x) for x in v)]
+                joined_excluded.add(k)
+            elif len(v) > 1:
+                hyper_params.append(k)
+            if v and isinstance(v[0], bool):
+                flat[k] = [str(x) for x in v]
+        elif isinstance(v, bool):
+            flat[k] = [str(v)]
+        else:
+            flat[k] = [v]
+
+    keys, values = zip(*flat.items()) if flat else ((), ())
+    experiments = [dict(zip(keys, combo))
+                   for combo in itertools.product(*values)]
+    for exp in experiments:
+        for param in joined_excluded:
+            if param in exp:
+                exp[param] = str(exp[param]).strip().split('+')
+        for k, v in exp.items():
+            if v == 'True':
+                exp[k] = True
+            elif v == 'False':
+                exp[k] = False
+    return [_unflatten(e) for e in experiments], hyper_params
+
+
+def run_grid_search_experiments(
+    cfg_file: Optional[str],
+    default_config: CfgNode,
+    script: str = 'train.py',
+    cfg_id: int = 0,
+    opts: Optional[List[str]] = None,
+    log_root: str = 'logs',
+) -> CfgNode:
+    """Pick experiment ``cfg_id`` of the grid, make its log directory
+    ``{log_root}/{script}/{EXP_NAME}/{timestamp}_{hyperparameters}`` and
+    write the resolved config there as ``config_to_run.yaml``."""
+    cfg = default_config.clone()
+    if cfg_file:
+        cfg.merge_from_file(cfg_file)
+    if opts:
+        cfg.merge_from_list(list(opts))
+
+    experiments, hyper_params = get_grid_search_configs(
+        cfg.to_dict(),
+        excluded_keys=['DATASET/DATASETS_AND_RATIOS', 'DATASET/VAL_DS'])
+    if not 0 <= cfg_id < len(experiments):
+        raise ValueError(f'cfg_id {cfg_id} out of range '
+                         f'({len(experiments)} experiments)')
+    exp = experiments[cfg_id]
+    resolved = default_config.clone()
+    resolved.merge_from_dict(exp)
+
+    def get_from(d, key):
+        return reduce(operator.getitem, key.split('/'), d)
+
+    suffix = '_'.join(
+        f"{k.split('/')[-1]}-{get_from(exp, k)}" for k in hyper_params)
+    exp_name = getattr(resolved, 'EXP_NAME', 'spec')
+    timestamp = time.strftime('%d-%m-%Y_%H-%M-%S')
+    logdir = os.path.join(
+        log_root, script.replace('.py', ''), exp_name,
+        f'{timestamp}_{suffix}' if suffix else timestamp)
+    os.makedirs(logdir, exist_ok=True)
+    resolved['LOGDIR'] = logdir
+    resolved['CFG_ID'] = cfg_id
+    resolved['NUM_EXPERIMENTS'] = len(experiments)
+    resolved.dump(os.path.join(logdir, 'config_to_run.yaml'))
+    return resolved
 
 
 def hmr_hparams_from_cfg(cfg_file: str) -> tuple:

@@ -46,6 +46,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 MAX_GRAPHS = 8     # signatures kept per stage (jit's cache has no cap)
 _CONSTANTS: dict = {}
@@ -77,17 +78,13 @@ def _launch_modules():
 
 def _flatten(out):
     """Outputs as a list of tensors and a function that rebuilds the
-    structure (a tensor, a tuple or list of tensors, or a dict)."""
-    if isinstance(out, torch.Tensor):
-        return [out], lambda ts: ts[0]
-    if isinstance(out, dict):
-        keys = list(out)
-        return [out[k] for k in keys], lambda ts: dict(zip(keys, ts))
-    if isinstance(out, (tuple, list)):
-        kind = type(out)
-        return list(out), lambda ts: kind(ts)
-    raise TypeError(f'a stage returns tensors, a tuple or a dict of them, '
-                    f'not {type(out).__name__}')
+    structure (tensors in any nesting of tuples, lists and dicts)."""
+    leaves, spec = pytree.tree_flatten(out)
+    other = [x for x in leaves if not isinstance(x, torch.Tensor)]
+    if other:
+        raise TypeError(f'a stage returns tensors in tuples, lists or '
+                        f'dicts, not {type(other[0]).__name__}')
+    return leaves, lambda ts: pytree.tree_unflatten(list(ts), spec)
 
 
 class _Captured:
@@ -104,7 +101,8 @@ class _Captured:
 class StageGraph:
     """A stage function replayed as a CUDA graph per input signature.
 
-    ``fn(*tensors)`` returns a tensor, a tuple or a dict of tensors.
+    ``fn(*tensors)`` returns tensors in any nesting of tuples, lists and
+    dicts.
     ``pool``: a ``torch.cuda.graph_pool_handle()`` shared with other
     stages, or None for a pool of this stage's own.
     """

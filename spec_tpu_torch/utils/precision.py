@@ -49,6 +49,27 @@ def fp32_matmuls(fn):
     return wrapped
 
 
+@contextlib.contextmanager
+def exact_fp32():
+    """:func:`fp32_precision` with autocast off as well: metric math that
+    may be called inside a bf16 autocast region (an eval step whose model
+    runs in bf16) still runs every matmul and einsum in exact fp32."""
+    with fp32_precision(), torch.autocast('cuda', enabled=False), \
+            torch.autocast('cpu', enabled=False):
+        yield
+
+
+def exact_fp32_fn(fn):
+    """Decorator form of :func:`exact_fp32`."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with exact_fp32():
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
 def compute_dtype(dtype: torch.dtype, device_type: str):
     """Context for a backbone or head FC stack: bf16 autocast when
     ``dtype`` is bfloat16, exact fp32 (TF32 off) when it is float32.

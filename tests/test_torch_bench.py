@@ -82,6 +82,10 @@ TINY = {
                              '--camcalib_every', '2'],
     'latency': ['--mode', 'latency', '--frame_h', '64', '--frame_w', '96',
                 '--min_size', '64'],
+    'eval': ['--mode', 'eval', '--batch', '2', '--frame_h', '64',
+             '--backbone', 'resnet18'],
+    'eval fp32': ['--mode', 'eval', '--batch', '2', '--frame_h', '64',
+                  '--backbone', 'resnet18', '--dtype', 'fp32'],
 }
 
 
@@ -99,11 +103,31 @@ def test_tiny_cpu_run_prints_one_result_line(case, capsys):
     assert math.isfinite(result['value']) and result['value'] > 0
     assert spread['min'] <= result['value'] <= spread['max']
     unit = {'pipeline': 'img/s/gpu', 'serving': 'persons/s/gpu',
-            'latency': 'ms/frame e2e'}[case.split()[0]]
+            'latency': 'ms/frame e2e', 'eval': 'img/s/gpu'}[case.split()[0]]
     assert result['unit'] == unit
     if case == 'latency':
         assert result['compute_ms'] == pytest.approx(
             result['stage1_ms'] + result['stage2_ms'])
+
+
+def test_eval_mode_takes_bench_py_eval_inputs():
+    """--mode eval: bench.py's eval_bench batch (None -> 128 there), its
+    --backbone default, 224^2 crops, bf16 unless --dtype fp32."""
+    ref = _reference_arguments()
+    args = TB.parse_args(['--mode', 'eval'])
+    assert 'eval' in ref['mode'][1]
+    assert args.batch == 128 and ref['batch'][0] is None
+    assert "{'train': 64, 'detect': 32}.get(args.mode, 128)" in (
+        REPO / 'bench.py').read_text()
+    assert args.backbone == ref['backbone'][0] == 'resnet50'
+    assert (args.frame_h, args.frame_w) == (224, 224)
+    assert args.dtype == 'bf16'
+    text = (REPO / 'bench.py').read_text()
+    body = text[text.index('def eval_bench'):text.index('def latency_bench')]
+    for phrase in ('B, res = args.batch, 224', 'use_cam_feats=True',
+                   'S.create_test_assets(seed=i)',
+                   "('neutral', 'male', 'female')", 'use_gender=True'):
+        assert phrase in body, phrase
 
 
 def test_without_a_card_it_exits_nonzero_and_names_the_card(monkeypatch,

@@ -25,6 +25,7 @@ import weakref
 import numpy as np
 import pytest
 import torch
+import torch.utils._pytree as pytree
 
 from spec_tpu_torch.ops import bottleneck as TB
 from spec_tpu_torch.ops import lbs as L
@@ -303,3 +304,102 @@ def test_failed_capture_raises_and_falls_back_to_nothing(cuda_device):
     proc = _run(FAILING_CAPTURE)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert 'raised after 2 runs' in proc.stdout
+
+
+def _eval_inputs(B, res, seed=21):
+    rng = np.random.RandomState(seed)
+    K = np.tile(np.array([[300., 0., 80.], [0., 300., 60.], [0., 0., 1.]],
+                         'f4'), (B, 1, 1))
+    batch = {
+        'img': rng.rand(B, res, res, 3).astype('f4'),
+        'pose': (rng.randn(B, 72) * 0.2).astype('f4'),
+        'betas': (rng.randn(B, 10) * 0.5).astype('f4'),
+        'gender': (np.arange(B) % 2).astype(np.int32),
+        'scale': (rng.rand(B) * 0.3 + 0.5).astype('f4'),
+        'center': (rng.rand(B, 2) * 40 + 60).astype('f4'),
+        'orig_shape': np.tile(np.array([[120., 160.]], 'f4'), (B, 1)),
+        'cam_rotmat': np.tile(np.eye(3, dtype='f4'), (B, 1, 1)),
+        'cam_intrinsics': K,
+    }
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['fp32', 'bf16'])
+def test_eval_step_replays_match_eager_bit_for_bit(cuda_device, dtype):
+    """The eval step (ResNet-18, gendered GT, B = 8, 64^2 crops): its
+    graph replays give the eager step's bits, and each replay launches K1
+    four times (the model's SMPL, GT male and female, the predicted
+    native joints)."""
+    from spec_tpu_torch.core import smpl as S
+    from spec_tpu_torch.eval.eval_loop import make_eval_step
+    from spec_tpu_torch.models.hmr import HMR
+
+    assets = {g: S.create_test_assets(seed=i)
+              for i, g in enumerate(('neutral', 'male', 'female'))}
+    model = HMR(backbone='resnet18', use_cam_feats=True, img_res=64,
+                dtype=DTYPES[dtype])
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    step = make_eval_step(model.cuda(), assets,
+                          assets['neutral'].j_regressor_h36m.numpy(),
+                          use_gender=True)
+    batch = _eval_inputs(8, 64)
+    eager = step.eager(batch)
+    step(batch)                                     # capture
+    L.LAUNCHES = 0
+    got = step(batch)                               # one replay
+    torch.cuda.synchronize()
+    assert L.LAUNCHES == 4
+    assert len(step.head.signatures()) == 1
+    assert pytree.tree_structure(got) == pytree.tree_structure(eager)
+    for i, (g, e) in enumerate(zip(pytree.tree_leaves(got),
+                                   pytree.tree_leaves(eager))):
+        assert bool(torch.isfinite(g).all()), i
+        assert torch.equal(g, e), i
+
+
+@pytest.mark.cuda
+def test_compute_error_on_card_matches_cpu(cuda_device):
+    """compute_error's chunk graphs (K1 twice a chunk) against the same
+    call on the CPU, j14 and j24, 300 samples: within 0.05 mm."""
+    from spec_tpu_torch.core import smpl as S
+    from spec_tpu_torch.eval.evaluator import compute_error
+
+    rng = np.random.RandomState(4)
+    N, V = 300, 6890
+    assets = S.create_test_assets()
+    jreg = assets.j_regressor_h36m.numpy()
+    kw = dict(pred_vertices=(rng.randn(N, V, 3) * 0.3).astype('f4'),
+              pred_cam_rotmat=np.tile(np.eye(3, dtype='f4'), (N, 1, 1)),
+              gt_pose=(rng.randn(N, 72) * 0.2).astype('f4'),
+              gt_betas=(rng.randn(N, 10) * 0.5).astype('f4'),
+              gt_pose_cam=(rng.randn(N, 72) * 0.2).astype('f4'),
+              assets=assets, j_regressor_h36m=jreg)
+    for ds in ('3dpw-test-cam', 'spec-mtp'):
+        L.LAUNCHES = 0
+        card = compute_error(ds, device='cuda', **kw)
+        assert L.LAUNCHES == 2 * 2 + 2      # the warm-up's, two replays
+        cpu = compute_error(ds, device='cpu', **kw)
+        for k in cpu:
+            if k != 'protocol':
+                assert abs(card[k] - cpu[k]) <= 0.05, (ds, k)
+
+
+@pytest.mark.cuda
+def test_device_prefetch_copies_on_a_side_stream(cuda_device):
+    """device_prefetch on the card: every batch arrives whole on the
+    current stream, though its copy was queued on a side stream while
+    the batch before it was in use."""
+    from spec_tpu_torch.data.loader import device_prefetch
+
+    rng = np.random.RandomState(5)
+    batches = [{'x': rng.rand(64, 224, 224, 3).astype('f4'), 'n': i}
+               for i in range(4)]
+    seen = []
+    for b in device_prefetch(iter(batches), 'cuda', tensor_keys=('x',)):
+        assert b['x'].is_cuda
+        seen.append((b['n'], (b['x'] * 2).sum().item()))
+    assert [n for n, _ in seen] == [0, 1, 2, 3]
+    for n, total in seen:
+        want = float((batches[n]['x'].astype('f8') * 2).sum())
+        assert abs(total - want) <= 1e-4 * abs(want)

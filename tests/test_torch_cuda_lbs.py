@@ -42,13 +42,14 @@ def _operands(V, B, seed, device):
 
 # Batches on both sides of every pass width (the kernel walks the batch
 # in passes of up to 16 rows over one staged vertex tile), up to the
-# bench pipeline's B = 128; V = 20 is under the 32-vertex tile, 333 and
-# 1000 end in a partial tile.
+# bench pipeline's and the eval step's B = 128 and compute_error's chunk
+# of B = 256; V = 20 is under the 32-vertex tile, 333 and 1000 end in a
+# partial tile.
 @pytest.mark.cuda
 @pytest.mark.parametrize('B,V', [
     (1, 6890), (2, 6890), (3, 6890), (8, 6890), (16, 6890), (31, 6890),
-    (32, 6890), (33, 6890), (40, 6890), (64, 6890), (128, 6890), (5, 333),
-    (1, 20), (17, 20), (6, 1000)])
+    (32, 6890), (33, 6890), (40, 6890), (64, 6890), (128, 6890),
+    (256, 6890), (5, 333), (1, 20), (17, 20), (6, 1000)])
 def test_kernel_matches_plain(cuda_device, B, V):
     packed, coeffs, rel_tf = _operands(V, B, seed=B, device=cuda_device)
     before = L.LAUNCHES

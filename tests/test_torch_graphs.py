@@ -11,6 +11,7 @@ are held to the eager stages on the card (tests/test_torch_cuda_graphs.py).
 import numpy as np
 import pytest
 import torch
+import torch.utils._pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from spec_tpu_torch.utils import graphs
@@ -161,6 +162,8 @@ def test_stage_graph_refuses_arguments_other_than_tensors():
     (torch.ones(2), torch.zeros(3)),
     [torch.ones(2)],
     {'a': torch.ones(2), 'b': torch.zeros(1)},
+    ({'a': torch.ones(2)}, {'b': torch.zeros(1), 'c': torch.ones(3)},
+     torch.zeros(2)),
 ])
 def test_flatten_rebuilds_the_structure(out):
     flat, rebuild = graphs._flatten(out)
@@ -172,7 +175,9 @@ def test_flatten_rebuilds_the_structure(out):
     elif isinstance(out, torch.Tensor):
         assert torch.equal(back, out)
     else:
-        assert all(torch.equal(x, y) for x, y in zip(back, out))
+        assert all(torch.equal(x, y) for x, y in zip(
+            pytree.tree_leaves(back), pytree.tree_leaves(out)))
+        assert pytree.tree_structure(back) == pytree.tree_structure(out)
 
 
 def test_flatten_refuses_other_outputs():

@@ -193,9 +193,10 @@ def test_unported_options_raise(kwargs, err):
 
 def test_import_hygiene():
     """The port's serving path, the e2e pipeline, the bench, the CLIs and
-    their host helpers, the stage graphs and every kernel wrapper import
-    no JAX, flax, PIL, cv2, PyYAML, joblib, matplotlib or triton (none of
-    them exist on the machine with the card) and nothing of the JAX
+    their host helpers, the eval path (metrics, eval loop, evaluator, the
+    eval dataset and loader), the stage graphs and every kernel wrapper
+    import no JAX, flax, PIL, cv2, PyYAML, joblib, matplotlib or triton
+    (none of them exist on the machine with the card) and nothing of the JAX
     package spec_tpu, and importing them builds no kernel, captures no
     graph and touches no CUDA device."""
     code = (
@@ -206,7 +207,12 @@ def test_import_hygiene():
         'import spec_tpu_torch.bench\n'
         'import spec_tpu_torch.models.backbones.fused_resnet\n'
         'from spec_tpu_torch.cli import camcalib_demo, serve, spec_demo\n'
-        'from spec_tpu_torch.data import image_folder, tracking\n'
+        'from spec_tpu_torch.cli import annotate_camcalib, compute_error, '
+        'spec_eval\n'
+        'from spec_tpu_torch.data import cache, cam_dataset, image_folder, '
+        'loader, tracking, transforms\n'
+        'from spec_tpu_torch.eval import eval_loop, evaluator, metrics\n'
+        'from spec_tpu_torch.core import kp_utils\n'
         'from spec_tpu_torch.utils import cam_params, config, smoothing, '
         'vis\n'
         'from spec_tpu_torch.ops import bottleneck, cuda_build, lbs, '
