@@ -73,8 +73,8 @@ printing its own results; any failure raises and exits nonzero:
     nothing), and a camcalib_every=3 client (two named streams and
     header-less requests); /healthz, /stats counting every request,
     frame and person, every response held to ``predict`` on the same
-    frames within same-card limits (SERVE_LIMITS). K1's ``launches`` in
-    the kernels line are the window's;
+    frames within same-card limits (SERVE_LIMITS). The window's K1
+    launches are in the kernels line's ``launches_by_path``;
 13. eval at full width (ResNet-50 HMR with camera features, three
     synthetic V = 6890 asset sets for gendered GT, 224² crops): the eval
     step at ``bench.py``'s eval inputs (B = 128, bf16) replayed against
@@ -89,7 +89,24 @@ printing its own results; any failure raises and exits nonzero:
     ``--help`` of ``spec_eval``, ``compute_error`` and
     ``annotate_camcalib`` (they import without cv2, PIL or PyYAML); and
     ``python -m spec_tpu_torch.bench --mode eval`` once;
-14. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
+14. train at full width (this slice's path): the SPEC train step
+    (``train/steps.make_spec_train_step``) at ``bench.py``'s train setup
+    (B = 64 crops of 224², ResNet-50 HMR with camera features, bf16,
+    V = 6890, Adam 1e-4, zeroed decoders): a replay held to the eager
+    body from one state (cuDNN deterministic, dropout off), then
+    TRAIN_STEPS steps with dropout from a generator registered with the
+    graph: a finite, falling loss and 2 K1 launches per replay (the
+    kernels line's ``launches``, beside K1's phase-6 times at the same
+    B = 64), graph and eager ms per step and the
+    replay's device profile; card against CPU over five fp32 steps at
+    the ``train_steps`` golden's size; K1's gradient inside the step
+    against autograd through its plain version; K1's own work per step
+    at B = 64 (two forwards, the closed-form backward); ``SpecTrainer``
+    over in-memory samples (fit, checkpoint, resume in a sibling run,
+    ``spec_eval``'s loader reading the checkpoint back); ``spec_train
+    --help``; ``python -m spec_tpu_torch.bench --mode train --profile``,
+    with and without ``--eager``;
+15. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then, instead of
 the rest, profiles phase 4's predictor (wall medians per stage, device
@@ -173,6 +190,29 @@ EVAL_BATCH, EVAL_CPU_BATCH, EVAL_SAMPLES = 128, 8, 300
 EVAL_BACKBONE, EVAL_RES = 'resnet50', 224
 EVAL_MM = 0.05
 EVAL_K1_PER_STEP = 4       # the model's SMPL, GT male and female, pred J24
+# The train phase: the SPEC train step at bench.py's train_bench setup
+# (B = 64 crops of 224^2, ResNet-50 HMR with camera features, bf16,
+# V = 6890, Adam 1e-4, zeroed decoders) for TRAIN_STEPS graph replays;
+# card against CPU over TRAIN_CPU_STEPS fp32 steps at the train_steps
+# golden's size (ResNet-18, B = 4, 64^2, V = 128, Adam 1e-5, dropout
+# off; the CPU parity test's limits: every loss term within 1e-4
+# relative, the whole model within 1e-4 relative); K1's gradient inside
+# the step at TRAIN_GRAD_BATCH (fp32, V = 6890) against autograd of its
+# plain version, each parameter's gradient within LBS_GRAD_BUDGET of its
+# largest entry; and SpecTrainer over TRAINER_SAMPLES in-memory samples
+# in batches of TRAINER_BATCH. Replay against eager from one state, with
+# cuDNN deterministic and dropout off: the losses within 1e-6 relative
+# and the whole model within 1e-4 relative after the step (Adam moves an
+# entry by about lr whatever its gradient's size, so bf16 gradients
+# that differ in their last bits can flip a few entries).
+TRAIN_BATCH, TRAIN_BACKBONE, TRAIN_RES, TRAIN_STEPS = 64, 'resnet50', 224, 10
+TRAIN_K1_PER_STEP = 2      # GT mesh (no grad), predicted mesh (with grad)
+TRAIN_CPU = dict(batch=4, res=64, vertices=128, backbone='resnet18',
+                 steps=5, lr=1e-5)
+TRAIN_LOSS_RTOL, TRAIN_MODEL_RTOL = 1e-4, 1e-4
+TRAIN_REPLAY_LOSS_RTOL, TRAIN_REPLAY_MODEL_RTOL = 1e-6, 1e-4
+TRAIN_GRAD_BATCH = 8
+TRAINER_BACKBONE, TRAINER_BATCH, TRAINER_SAMPLES = 'resnet50', 8, 24
 # One H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): the
 # rate for each kernel's arithmetic (K3 on the tensor cores, bf16 or
 # TF32, the fp32 variant as three TF32 products per fp32 one; K1 and K2
@@ -1200,6 +1240,7 @@ def phase_graphs():
     frames, boxes = _frames_and_boxes(4, PERSONS_PER_FRAME, seed=0)
     for tag, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
         pred = _full_width_predictor(dtype)
+        pred.predict(frames, boxes)                     # capture
         got = pred.predict(frames, boxes, return_cameras=True)
         with _eager(pred):
             want = pred.predict(frames, boxes, return_cameras=True)
@@ -1209,6 +1250,7 @@ def phase_graphs():
         if tag == 'fp32':
             sf, sb = _frames_and_boxes(6, (1,), seed=1)
             pred.camcalib_every, pred.cut_threshold = 3, 0.0
+            pred.predict(sf, sb, stream='capture')
             got = pred.predict(sf, sb, stream='graphs', return_cameras=True)
             with _eager(pred):
                 want = pred.predict(sf, sb, stream='eager',
@@ -1217,6 +1259,7 @@ def phase_graphs():
             pred.camcalib_every = 1
             for n_frames in (10, 16):
                 cf, cb = _frames_and_boxes(n_frames, (4,), seed=2)
+                pred.predict(cf, cb)
                 got = pred.predict(cf, cb, return_cameras=True)
                 with _eager(pred):
                     want = pred.predict(cf, cb, return_cameras=True)
@@ -1240,6 +1283,7 @@ def phase_graphs():
             TB.LAUNCHES = 0
             want = pipeline.fn(*args)
             k3 = TB.LAUNCHES
+            pipeline(*args)                                  # capture
             got = pipeline(*args)
             errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
             same = all(torch.equal(g, w) for g, w in zip(got, want))
@@ -1536,9 +1580,10 @@ def phase_serve():
     pred = serve.build_predictor(serve.parse_args([]), torch.device('cuda'))
     captures = []
     for stage in (pred._stage1, pred._stage2):
-        def counting(key, args, orig=stage._capture, name=stage.name):
+        def counting(key, args, fixed, orig=stage._capture,
+                     name=stage.name):
             captures.append(name)
-            return orig(key, args)
+            return orig(key, args, fixed)
         stage._capture = counting
     server = serve.create_server(pred, host='127.0.0.1', port=0)
     base = f'http://127.0.0.1:{server.server_address[1]}'
@@ -2006,6 +2051,350 @@ def phase_eval(device='cuda'):
     return per_step
 
 
+def _model_rel(a: dict, b: dict) -> float:
+    """L2 distance of two state_dicts over the L2 norm of ``b``."""
+    num = den = 0.0
+    for k, w in b.items():
+        if k.endswith('num_batches_tracked'):
+            continue
+        d = a[k].detach().double().cpu() - w.detach().double().cpu()
+        num += float((d * d).sum())
+        den += float((w.detach().double() ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def _snapshot(state):
+    return ({k: v.detach().clone() for k, v in
+             state.model.state_dict().items()},
+            state.optimizer.state_dict(), state.step)
+
+
+def _restore(state, snap):
+    sd, opt, step = snap
+    state.model.load_state_dict(sd)
+    state.optimizer.load_state_dict(opt)
+    state.step = step
+
+
+def _hold_losses(label, got, want, rtol):
+    """Every loss term within ``rtol`` relative; a term under 1e-2 (the
+    camera regularizer, ~1e-8) within ``rtol * 1e-2`` absolute."""
+    worst = max(abs(float(got[k]) - float(want[k]))
+                / max(abs(float(want[k])), 1e-2) for k in want)
+    if set(got) != set(want) or not worst <= rtol:
+        raise RuntimeError(f'{label}: losses differ by {worst:.3e} '
+                           f'relative (limit {rtol:.0e})')
+    return worst
+
+
+class _TrainItems:
+    """In-memory training samples in the layout CamDataset yields with
+    ``is_train`` (the card machine has no image codec): bench.py's train
+    inputs, crops in [0, 1]."""
+
+    def __init__(self, n, res, seed):
+        import numpy as np
+
+        from spec_tpu_torch.bench import train_inputs
+
+        self.arrays = train_inputs(n, res, seed=seed)
+        self.arrays['img'] = np.random.RandomState(seed).rand(
+            n, res, res, 3).astype('f4')
+        self.arrays['cam_int'] = self.arrays.pop('cam_intrinsics')
+
+    def __len__(self):
+        return len(self.arrays['img'])
+
+    def __getitem__(self, i):
+        return {k: v[i] for k, v in self.arrays.items()}
+
+
+def _train_cfg(logdir, backbone, batch, res):
+    """The trainer's config without YAML (the card machine has none)."""
+    from spec_tpu_torch.utils.config import spec_default_config
+
+    cfg = spec_default_config()
+    cfg.LOGDIR = str(logdir)
+    cfg.LOG_FREQ_TB_IMAGES = 0
+    cfg.SEED_VALUE = 0
+    cfg.HMR.BACKBONE = backbone
+    cfg.HMR.DTYPE = 'bfloat16'
+    cfg.HMR.USE_CAM_FEATS = True
+    cfg.DATASET.BATCH_SIZE = batch
+    cfg.DATASET.NUM_WORKERS = 2
+    cfg.DATASET.IMG_RES = res
+    cfg.DATASET.VAL_DS = '3dpw-test-cam'
+    cfg.TRAINING.LOG_SAVE_INTERVAL = 1
+    cfg.TRAINING.MAX_EPOCHS = 2
+    return cfg
+
+
+def phase_train(device='cuda'):
+    """The train phase (see the module docstring). Returns K1's launches
+    over the TRAIN_STEPS graph replays. ``device='cpu'`` rehearses the
+    phase's logic on a machine without a card (shrink the TRAIN_* sizes
+    first): the "card" side then runs on the CPU too, the kernel counts
+    are 0 and the profiles and the bench are skipped."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from spec_tpu_torch import bench
+    from spec_tpu_torch.cli import spec_eval
+    from spec_tpu_torch.core import smpl as S
+    from spec_tpu_torch.data.loader import DataLoader
+    from spec_tpu_torch.eval import eval_loop, evaluator
+    from spec_tpu_torch.models.hmr import HMR
+    from spec_tpu_torch.ops import lbs as L
+    from spec_tpu_torch.train import (
+        adam,
+        create_train_state,
+        make_spec_train_step,
+    )
+    from spec_tpu_torch.train.trainer import SpecTrainer
+    from spec_tpu_torch.utils.precision import fp32_precision
+
+    card = device == 'cuda'
+    dev = torch.device(device)
+
+    # 14.1 the full-width step: replay against eager from one state
+    # (dropout off, cuDNN deterministic), then TRAIN_STEPS replays with
+    # dropout from a generator registered with the graph
+    state, step, batch = bench.train_setup(
+        TRAIN_BATCH, TRAIN_BACKBONE, torch.bfloat16, dev, TRAIN_RES)
+    head = state.model.head
+    head.dropout_rate = 0.0
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        step(state, batch)                       # eager first step, capture
+        snap = _snapshot(state)
+        _, eager = step.eager(state, batch)
+        eager_sd = {k: v.detach().clone()
+                    for k, v in state.model.state_dict().items()}
+        _restore(state, snap)
+        _, replay = step(state, batch)
+        rel = _model_rel(state.model.state_dict(), eager_sd)
+        same = all(torch.equal(replay[k], eager[k]) for k in eager) and \
+            rel == 0.0
+        loss_rel = _hold_losses('train step replay vs eager', replay, eager,
+                                TRAIN_REPLAY_LOSS_RTOL)
+        print(f'[train step bf16 B={TRAIN_BATCH}] replay vs eager from one '
+              f'state (cuDNN deterministic, dropout off): bit-identical '
+              f'{same}; losses {loss_rel:.3e} relative (limit '
+              f'{TRAIN_REPLAY_LOSS_RTOL:.0e}); the model after the step '
+              f'{rel:.3e} relative (limit {TRAIN_REPLAY_MODEL_RTOL:.0e})',
+              flush=True)
+        if not rel <= TRAIN_REPLAY_MODEL_RTOL:
+            raise RuntimeError('the train step replay differs from eager')
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    head.dropout_rate = 0.5
+    gen = torch.Generator(device=dev).manual_seed(1)
+    losses = [float(step(state, batch, gen)[1]['loss/total_loss'])]
+    L.LAUNCHES = 0
+    for _ in range(TRAIN_STEPS - 1):
+        losses.append(float(step(state, batch, gen)[1]['loss/total_loss']))
+    launches = L.LAUNCHES
+    per_step = launches / (TRAIN_STEPS - 1)
+    print(f'[train step bf16 B={TRAIN_BATCH}] {TRAIN_STEPS} steps with '
+          f'dropout 0.5 from a generator: total loss '
+          + ' '.join(f'{v:.3f}' for v in losses)
+          + f'; K1 launches {launches} over {TRAIN_STEPS - 1} replays, '
+          f'{per_step:g} per step (expected {TRAIN_K1_PER_STEP}); graphs '
+          f'{len(step.graphs.signatures())}', flush=True)
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise RuntimeError(f'train loss not finite and falling: {losses}')
+    if card and per_step != TRAIN_K1_PER_STEP:
+        raise RuntimeError(f'the train step launched K1 {per_step} times')
+    if card:
+        wall = _wall_ms(lambda: step(state, batch, gen), 5)
+        eager_wall = _wall_ms(lambda: step.eager(state, batch, gen), 5)
+        print(f'[train step bf16 B={TRAIN_BATCH}] graph {wall:.3f} ms, '
+              f'eager {eager_wall:.3f} ms per step (host wall with syncs, '
+              f'median of 5); {TRAIN_BATCH / wall * 1e3:.1f} img/s',
+              flush=True)
+        _device_profile(f'train step bf16 B={TRAIN_BATCH}',
+                        lambda: step(state, batch, gen), wall, 3, top=8)
+    del state, step, batch
+    if card:
+        _release()
+
+    # 14.2 card against CPU: TRAIN_CPU['steps'] fp32 steps at the golden's
+    # size, dropout off, the same starting weights
+    c = TRAIN_CPU
+    assets = S.create_test_assets(num_vertices=c['vertices'])
+    base = HMR(backbone=c['backbone'], use_cam_feats=True)
+    base.reset_parameters(torch.Generator().manual_seed(0))
+    runs = {}
+    for where in (device, 'cpu'):
+        model = HMR(backbone=c['backbone'], use_cam_feats=True)
+        model.load_state_dict(base.state_dict())
+        model.head.dropout_rate = 0.0
+        model = model.to(where).train()
+        st = create_train_state(model, adam(c['lr']))
+        stp = make_spec_train_step(model, assets)
+        b = {k: torch.from_numpy(v).to(where) for k, v in
+             bench.train_inputs(c['batch'], c['res'], seed=2).items()}
+        runs[where] = [(stp(st, b)[1], {k: v.detach().cpu().clone() for k, v
+                                        in model.state_dict().items()})
+                       for _ in range(c['steps'])]
+    worst_loss = worst_model = 0.0
+    for (gl, gsd), (wl, wsd) in zip(runs[device], runs['cpu']):
+        worst_loss = max(worst_loss, _hold_losses(
+            'train card vs cpu', gl, wl, TRAIN_LOSS_RTOL))
+        worst_model = max(worst_model, _model_rel(gsd, wsd))
+    print(f'[train card vs cpu fp32] {c["steps"]} steps at B={c["batch"]} '
+          f'{c["res"]}^2 V={c["vertices"]} {c["backbone"]}: losses '
+          f'{worst_loss:.3e} relative (limit {TRAIN_LOSS_RTOL:.0e}), the '
+          f'model {worst_model:.3e} relative (limit '
+          f'{TRAIN_MODEL_RTOL:.0e}); total loss card '
+          + ' '.join(f'{float(l["loss/total_loss"]):.4f}'
+                     for l, _ in runs[device]), flush=True)
+    if not worst_model <= TRAIN_MODEL_RTOL:
+        raise RuntimeError('the train steps on the card disagree with the '
+                           'CPU')
+    del runs
+
+    # 14.3 K1's gradient inside the step: every parameter's gradient with
+    # the kernel (and its closed-form backward) against autograd through
+    # the plain version, fp32, V = 6890
+    full = S.create_test_assets()
+    model = HMR(backbone=c['backbone'], use_cam_feats=True)
+    model.reset_parameters(torch.Generator().manual_seed(1))
+    model = model.to(dev).train()
+    st = create_train_state(model, adam(1e-4))
+    stp = make_spec_train_step(model, full)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in
+         bench.train_inputs(TRAIN_GRAD_BATCH, 224, seed=4).items()}
+    grads = {}
+    kernel = L.fused_lbs_vertices
+    for label in ('kernel', 'plain'):
+        if label == 'plain':
+            L.fused_lbs_vertices = L.fused_lbs_vertices_plain
+        before = L.LAUNCHES
+        try:
+            g = torch.Generator(device=dev).manual_seed(5)
+            with fp32_precision():
+                total, _ = stp.loss_fn(model, g, b)
+                grads[label] = torch.autograd.grad(total,
+                                                   st.optimizer.params)
+        finally:
+            L.fused_lbs_vertices = kernel
+        print(f'[train K1 gradient] {label}: K1 launches '
+              f'{L.LAUNCHES - before}')
+    worst = max(((a - p).abs().max() / p.abs().max().clamp_min(1e-30))
+                .item() for a, p in zip(grads['kernel'], grads['plain']))
+    print(f'[train K1 gradient] fp32 B={TRAIN_GRAD_BATCH} V=6890: every '
+          f'parameter gradient through the kernel within {worst:.3e} of its '
+          f'largest entry of autograd through the plain version (budget '
+          f'{LBS_GRAD_BUDGET:.0e}), {len(grads["plain"])} tensors',
+          flush=True)
+    if not worst <= LBS_GRAD_BUDGET:
+        raise RuntimeError('K1 gradient inside the train step disagrees')
+    del model, st, stp, grads
+
+    # K1's own work per train step at TRAIN_BATCH: two forwards, one
+    # closed-form backward
+    if card:
+        packed = L.pack_lbs_operands(full.to(dev)).to(dev)
+        coeffs, rel_tf = _lbs_operands(packed, full.to(dev), TRAIN_BATCH,
+                                       seed=7)
+        gout = torch.randn(TRAIN_BATCH, 6890, 3, device=dev)
+        from spec_tpu_torch.bench import device_profile
+        with torch.no_grad():
+            fwd = device_profile(lambda: L.fused_lbs_vertices(
+                packed, coeffs, rel_tf), 20)
+            # the step differentiates coeffs and rel_tf only
+            bwd = device_profile(lambda: L.fused_lbs_backward(
+                packed.dirs, packed.weights_t, coeffs, rel_tf, 6890, gout,
+                needs=(False, False, True, True)), 20)
+        fwd_ms = sum(v for n, v in fwd['by_name'].items()
+                     if 'lbs_kernel' in n)
+        print(f'[train K1 B={TRAIN_BATCH}] forward kernel {fwd_ms:.4f} ms '
+              f'(profiler, mean of 20); closed-form backward '
+              f'{bwd["busy_ms"]:.4f} ms device busy in '
+              f'{bwd["device_ops"]:.0f} device ops (mean of 20); per train '
+              f'step (2 forwards + 1 backward) '
+              f'{2 * fwd_ms + bwd["busy_ms"]:.4f} ms', flush=True)
+        del packed, coeffs, rel_tf, gout
+        _release()
+
+    # 14.4 SpecTrainer: fit, checkpoint, resume, spec_eval's loader
+    work = ROOT / 'build' / 'spec_tpu_torch' / 'train_smoke'
+    shutil.rmtree(work, ignore_errors=True)
+    items = _TrainItems(TRAINER_SAMPLES, TRAIN_RES, seed=8)
+    val_items = _EvalItems(TRAINER_BATCH * 2, seed=9)
+    jreg = full.j_regressor_h36m.numpy()
+
+    def trainer(run):
+        cfg = _train_cfg(work / run, TRAINER_BACKBONE, TRAINER_BATCH,
+                         TRAIN_RES)
+        model = HMR(backbone=TRAINER_BACKBONE, use_cam_feats=True,
+                    dtype=torch.bfloat16)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        return SpecTrainer(
+            cfg, model.to(dev).train(), {'neutral': full}, jreg,
+            lambda epoch: items,
+            lambda: {'3dpw-test-cam': DataLoader(
+                val_items, batch_size=TRAINER_BATCH, num_workers=2)})
+
+    first = trainer('run0')
+    L.LAUNCHES = 0
+    first.fit(max_epochs=1)
+    per_epoch = TRAINER_SAMPLES // TRAINER_BATCH
+    steps = sorted(os.listdir(first.ckpt_dir))
+    print(f'[trainer] fit 1 epoch: step {first.state.step}, K1 launches '
+          f'{L.LAUNCHES} (training and validation), checkpoints {steps}',
+          flush=True)
+    if first.state.step != per_epoch or f'step_{per_epoch:08d}' not in steps:
+        raise RuntimeError(f'trainer: step {first.state.step}, {steps}')
+    second = trainer('run1')
+    second.resume()
+    if (second.state.step, second._resume_epoch) != (per_epoch, 1):
+        raise RuntimeError('trainer resume: step '
+                           f'{second.state.step}, epoch '
+                           f'{second._resume_epoch}')
+    second.fit(max_epochs=2)
+    with open(os.path.join(second.ckpt_dir, 'meta.json')) as f:
+        meta = json.load(f)
+    print(f'[trainer] resumed from step {per_epoch} in a sibling run, fit '
+          f'to step {second.state.step}; meta {json.dumps(meta)}',
+          flush=True)
+    if second.state.step != 2 * per_epoch:
+        raise RuntimeError(f'trainer after resume: step {second.state.step}')
+    model = spec_eval.build_model(second.cfg, second.ckpt_dir, dev)
+    same = all(torch.equal(v, second.model.state_dict()[k].to(v.device))
+               for k, v in model.state_dict().items())
+    print(f"[trainer] spec_eval's loader read {second.ckpt_dir}: weights "
+          f'equal to the trainer\'s {same}', flush=True)
+    if not same:
+        raise RuntimeError('spec_eval loaded other weights than trained')
+    del first, second, model
+    eval_loop._EVAL_STEP_CACHE.clear()
+    evaluator._CHUNK_CACHE.clear()
+    shutil.rmtree(work, ignore_errors=True)
+
+    # 14.5 the CLI imports and parses here; the bench's train mode,
+    # graph and eager
+    proc = subprocess.run(
+        [sys.executable, '-m', 'spec_tpu_torch.cli.spec_train', '--help'],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0 or 'usage' not in proc.stdout:
+        raise RuntimeError(f'spec_train --help failed: {proc.stderr[-2000:]}')
+    print('[train cli] python -m spec_tpu_torch.cli.spec_train --help: ok')
+    if card:
+        _release()
+        for extra in ([], ['--eager']):
+            print('[train bench] python -m spec_tpu_torch.bench --mode '
+                  'train --profile ' + ' '.join(extra), flush=True)
+            if bench.main(['--mode', 'train', '--profile'] + extra) != 0:
+                raise RuntimeError('the train bench failed')
+            _release()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2041,14 +2430,14 @@ def main() -> int:
     k3_rows = phase_bottleneck()
     pred = phase_predictor()
     pipe = phase_pipeline()
-    # K1 at the batches the two paths gave it: the predictor's one padded
-    # stage-2 chunk, and the pipeline's rows of SMPL (K1 wrote its
-    # vertices).
+    # K1 at the batches the paths gave it: the predictor's one padded
+    # stage-2 chunk, the pipeline's rows of SMPL (K1 wrote its vertices)
+    # and the train step's batch.
     main_batch = pad_pow2(min(sum(PERSONS_PER_FRAME), BATCH_SIZE),
                           BATCH_SIZE)
     pipe_batch = pipe['bf16']['fused']['outs'][0].shape[0]
     lbs_rows = phase_lbs(sorted(set(LBS_BATCHES)
-                                | {main_batch, pipe_batch}))
+                                | {main_batch, pipe_batch, TRAIN_BATCH}))
     verts, _, cam_t, vfov, pitch, roll = pipe['fp32']['fused']['outs']
     k2 = phase_projection(_projection_operands(verts, cam_t, vfov, pitch,
                                                roll))
@@ -2058,9 +2447,10 @@ def main() -> int:
     phase_lbs_backward()
     phase_cli_devices()
     serve_launches = phase_serve()
-    phase_eval()
+    eval_launches = phase_eval()
+    train_launches = phase_train()
 
-    row = lbs_rows[main_batch]
+    row = lbs_rows[TRAIN_BATCH]        # K1's batch on this slice's path
 
     def k3_entry(tag):
         """K3 in ``tag`` (bf16, or fp32 as 3xTF32): layer1's block at
@@ -2088,7 +2478,13 @@ def main() -> int:
         'route': 'cuda',
         'source': 'spec_tpu_torch/csrc/lbs.cu',
         'replaces': 'spec_tpu/ops/pallas/lbs.py:97',
-        'launches': serve_launches,
+        # this slice's path: the train phase's TRAIN_STEPS - 1 replays;
+        # the times below are phase 6's at the train step's batch
+        'launches': train_launches,
+        'batch': TRAIN_BATCH,
+        'launches_by_path': {'train': train_launches,
+                             'serve window': serve_launches,
+                             'eval step replay': eval_launches},
         'max_abs_err': max(r['max_abs_err'] for r in lbs_rows.values()),
         'ms': row['ms'],
         'wrapper_ms': row['wrapper_ms'],

@@ -22,6 +22,15 @@ flax`` is ``module`` here, and ``--dtype`` picks the compute dtype):
   three synthetic asset sets (V = 6890), J14 Procrustes, J24 and V2V:
   img/s by the host clock (the step's Procrustes tail reads back on the
   host).
+* ``train``: the SPEC train step (``train/steps.make_spec_train_step``:
+  forward, GT and predicted SMPL through K1, ``hmr_cam_loss``, backward
+  with K1's closed-form VJP, Adam 1e-4 in place) at ``bench.py``'s
+  ``train_bench`` setup: B = 64 crops of 224² (``--batch``), ResNet-50
+  HMR with camera features, bf16, synthetic SMPL (V = 6890), zeroed head
+  decoders, its batch drawn in its order. One CUDA graph replay per
+  step; ``--eager`` runs the step's eager body instead. img/s and ms
+  per step by the host clock (each window ends with a sync); ``--profile``
+  adds K1's own device time per step.
 
 Every mode warms up first (the graph captures included) and times
 ``WINDOWS`` windows; the last line is one JSON object with ``metric``,
@@ -39,7 +48,9 @@ runs it on the CPU (tests, at tiny sizes), where times are host times.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -52,7 +63,9 @@ WINDOWS = 10
 # Frame sizes per mode when --frame_h/--frame_w are not given: the
 # pipeline's stage-1 bucket, and the serving and latency frames.
 FRAME_HW = {'pipeline': (512, 672), 'serving': (480, 640),
-            'latency': (480, 640), 'eval': (224, 224)}
+            'latency': (480, 640), 'eval': (224, 224), 'train': (224, 224)}
+# bench.py's batch per mode (128 unless named).
+BATCH = {'train': 64}
 # CUDA runtime calls that put work on the device, as the profiler names
 # them: what the host issues per call.
 _LAUNCH_CALLS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
@@ -64,12 +77,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         prog='python -m spec_tpu_torch.bench',
         description='spec_tpu_torch e2e bench (pipeline, serving, '
-                    'latency, eval)')
+                    'latency, eval, train)')
     parser.add_argument('--mode',
-                        choices=['pipeline', 'serving', 'latency', 'eval'],
+                        choices=['pipeline', 'serving', 'latency', 'eval',
+                                 'train'],
                         default='pipeline')
-    parser.add_argument('--batch', type=int, default=128,
-                        help='[pipeline, eval] frames or crops per call')
+    parser.add_argument('--batch', type=int, default=None,
+                        help='[pipeline, eval, train] frames or crops per '
+                             'call (default: 64 for train, else 128)')
     parser.add_argument('--frame_h', type=int, default=None,
                         help='default: 512 (pipeline) / 480 (serving, '
                              'latency); eval: the crop side, 224')
@@ -83,7 +98,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument('--dtype', choices=['bf16', 'fp32'], default='bf16',
                         help='compute dtype of the backbones and heads')
     parser.add_argument('--backbone', type=str, default='resnet50',
-                        help='[eval] the HMR backbone')
+                        help='[eval, train] the HMR backbone')
+    parser.add_argument('--eager', action='store_true',
+                        help="[train] run the step's eager body, not its "
+                             'CUDA graph')
     parser.add_argument('--iters', type=int, default=10,
                         help='calls per timed window')
     parser.add_argument('--frames', type=int, default=16,
@@ -106,6 +124,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     default_hw = FRAME_HW[args.mode]
     args.frame_h = args.frame_h or default_hw[0]
     args.frame_w = args.frame_w or default_hw[1]
+    if args.batch is None:
+        args.batch = BATCH.get(args.mode, 128)
     if args.iters < 1:
         parser.error('--iters must be >= 1')
     return args
@@ -201,13 +221,14 @@ def device_profile(fn, n_calls: int = 3) -> dict:
             'host_by_name': host_by_name}
 
 
-def _print_profile(label, fn, call_ms) -> None:
+def _print_profile(label, fn, call_ms) -> dict:
     p = device_profile(fn)
     print(f'[profile] {label}: device busy {p["busy_ms"]:.3f} ms per call, '
           f'idle share {1.0 - p["busy_ms"] / call_ms:.3f} (of '
           f'{call_ms:.3f} ms per call), {p["device_ops"]:.0f} device ops '
           f'and {p["host_launches"]:.0f} host launch calls per call',
           flush=True)
+    return p
 
 
 def _card() -> str | None:
@@ -465,6 +486,107 @@ def eval_bench(args, device) -> dict:
                  ms_per_step=statistics.median(ms))
 
 
+def train_inputs(B: int, res: int, seed: int = 0) -> dict:
+    """``bench.py``'s train batch (``__graft_entry__._example_inputs``
+    and ``_example_batch``, drawn in their order) as numpy arrays in the
+    train step's layout (``train/steps.SPEC_BATCH_KEYS``)."""
+    from spec_tpu_torch.core import geometry as G
+
+    rng = np.random.RandomState(seed)
+    img = rng.randn(B, res, res, 3).astype('f4')
+    rotmat = G.euler_to_rotmat(torch.from_numpy(
+        rng.randn(B, 3).astype('f4') * 0.1)).numpy()
+    K = G.build_cam_intrinsics(torch.full((B,), 1500.0),
+                               torch.full((B,), 1920.0),
+                               torch.full((B,), 1080.0)).numpy()
+    center = rng.rand(B, 2).astype('f4') * 800 + 300
+    scale = rng.rand(B).astype('f4') + 1.0
+    return {
+        'img': img,
+        'pose': rng.randn(B, 72).astype('f4') * 0.2,
+        'betas': rng.randn(B, 10).astype('f4') * 0.3,
+        'pose_conf': np.ones((B, 24), 'f4'),
+        'pose_3d': rng.randn(B, 24, 4).astype('f4'),
+        'keypoints_orig': np.concatenate(
+            [rng.rand(B, 49, 2) * 1000, np.ones((B, 49, 1))],
+            -1).astype('f4'),
+        'has_smpl': np.ones((B,), 'f4'),
+        'has_pose_3d': np.ones((B,), 'f4'),
+        'orig_shape': np.tile(np.array([[1080.0, 1920.0]], 'f4'), (B, 1)),
+        'scale': scale,
+        'center': center,
+        'cam_rotmat': rotmat,
+        'cam_intrinsics': K,
+    }
+
+
+def train_setup(B: int, backbone: str, dtype: torch.dtype, device,
+                res: int = 224):
+    """``bench.py``'s ``_train_setup``: synthetic SMPL (V = 6890; K1's
+    packed operands on a card), the HMR with camera features, random
+    weights from seed 0 with zeroed head decoders, Adam 1e-4 (the init
+    buffers trained, as ``adam`` does there), the step and its batch on
+    ``device``. Returns (state, step, batch)."""
+    from spec_tpu_torch.core import smpl as S
+    from spec_tpu_torch.models.hmr import HMR
+    from spec_tpu_torch.train import (
+        adam,
+        create_train_state,
+        make_spec_train_step,
+    )
+
+    assets = S.create_test_assets()
+    model = HMR(backbone=backbone, use_cam=True, use_cam_feats=True,
+                dtype=dtype)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for dec in (model.head.decpose, model.head.decshape,
+                    model.head.deccam):
+            dec.weight.zero_()
+            dec.bias.zero_()
+    model = model.to(device).train()
+    state = create_train_state(model, adam(1e-4))
+    step = make_spec_train_step(model, assets)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in train_inputs(B, res).items()}
+    return state, step, batch
+
+
+def train_bench(args, device) -> dict:
+    """The SPEC train step on one fixed batch, in place on one state."""
+    B, res = args.batch, args.frame_h
+    state, step, batch = train_setup(B, args.backbone, _dtype(args), device,
+                                     res)
+    gen = torch.Generator(device=device).manual_seed(1)
+    run = step.eager if args.eager else step
+
+    def call():
+        return run(state, batch, gen)[1]['loss/total_loss']
+
+    for _ in range(2):          # the eager first step and capture, a replay
+        total = call()
+    _sync(device)
+    if not math.isfinite(float(total)):
+        raise RuntimeError('non-finite train loss')
+    ms = _windows(_host_ms, call, args.iters, device)
+    mode = 'graph' if device.type == 'cuda' and not args.eager else 'eager'
+    if args.profile and device.type == 'cuda':
+        p = _print_profile(f'train step {args.backbone} {args.dtype} B={B} '
+                           f'({mode})', call, statistics.median(ms))
+        k1 = {n: v for n, v in p['by_name'].items() if 'lbs_kernel' in n}
+        k1_count = sum(c for n, c in p['count_by_name'].items()
+                       if 'lbs_kernel' in n)
+        print(f'[profile] train step K1: {k1_count:.0f} launches per step, '
+              f'{sum(k1.values()):.4f} ms of device time per step',
+              flush=True)
+    return _emit(args, device,
+                 f'SPEC train step (fwd + GT/pred SMPL through K1 + loss + '
+                 f'bwd + Adam in place, {mode}, {args.backbone}, '
+                 f'{args.dtype}), B={B} {res}^2', ms,
+                 lambda m: B / m * 1e3, 'img/s/gpu',
+                 ms_per_step=statistics.median(ms))
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     device = torch.device(args.device)
@@ -479,8 +601,11 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     bench = {'pipeline': pipeline_bench, 'serving': serving_bench,
-             'latency': latency_bench, 'eval': eval_bench}[args.mode]
-    with torch.inference_mode():
+             'latency': latency_bench, 'eval': eval_bench,
+             'train': train_bench}[args.mode]
+    # Training needs autograd; every other mode runs in inference mode.
+    with (contextlib.nullcontext() if args.mode == 'train'
+          else torch.inference_mode()):
         bench(args, device)
     return 0
 

@@ -14,10 +14,12 @@ Usage:
 
 Runs on the card (``--device cuda``, the default) and exits non-zero
 without one unless ``--device cpu`` is given. Checkpoints are the
-reference's torch files; a missing one gives a seeded random init with a
-warning. Not ported yet: orbax checkpoint directories (ROADMAP.md §1
-item 9), ``--data_parallel`` and multi-host ``--coordinator_address``
-(item 12), ``TESTING.SAVE_IMAGES`` (the renderer, item 10).
+reference's torch files or the port trainer's checkpoint directories
+(``spec_train``'s ``<logdir>/checkpoints``); a missing one gives a
+seeded random init with a warning, and a JAX package (orbax) checkpoint
+directory raises. Not ported yet: ``--data_parallel`` and multi-host
+``--coordinator_address`` (ROADMAP.md §1 item 12),
+``TESTING.SAVE_IMAGES`` (the renderer, item 10).
 """
 
 from __future__ import annotations
@@ -101,18 +103,14 @@ def h36m_regressor(assets) -> np.ndarray:
 
 def build_model(cfg, ckpt: str, device):
     """The camera-aware HMR of the config on ``device``, in eval mode:
-    ``ckpt``'s weights (the reference's torch dialects) or, when the
-    file is missing, a random init from seed 0 with a warning."""
+    ``ckpt``'s weights (a file in the reference's torch dialects, or the
+    port trainer's checkpoint directory, ``<logdir>/checkpoints``, whose
+    latest step loads) or, when it is missing, a random init from seed 0
+    with a warning. A JAX package (orbax) checkpoint directory raises."""
     import torch
 
     from spec_tpu_torch.serving import build_hmr
 
-    if os.path.isdir(ckpt):
-        raise NotImplementedError(
-            f'{ckpt} is a checkpoint directory (a spec_train orbax '
-            'checkpoint): the port loads the reference\'s torch checkpoint '
-            'files; its trainer will define its own checkpoints '
-            '(ROADMAP.md §1 item 9)')
     dtype = {'float32': torch.float32, 'bfloat16': torch.bfloat16}[
         cfg.HMR.get('DTYPE', 'float32')]
     return build_hmr(ckpt, device, backbone=cfg.HMR.BACKBONE,

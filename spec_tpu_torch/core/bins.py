@@ -116,3 +116,28 @@ def convert_preds_to_angles(
             roll = soft_idx_to_angle(softargmax1d(roll_logits), *ROLL_RANGE)
         return vfov, pitch, roll
     raise ValueError(f'unknown loss_type: {loss_type}')
+
+
+# -- encoders (targets for CamCalib training) ---------------------------
+
+def angle_to_soft_idx(angle, lo: float, hi: float):
+    """Angle -> soft index in [-1, 1]."""
+    return 2.0 * ((angle - lo) / (hi - lo)) - 1.0
+
+
+def angle_to_bin_index(angle: np.ndarray, edges: np.ndarray) -> np.ndarray:
+    """Hard bin targets for ce/kl training, numpy ``digitize``
+    semantics: bin 0 lies below the first edge."""
+    return np.digitize(np.asarray(angle), np.asarray(edges))
+
+
+def vfov2soft_idx(angle):
+    return angle_to_soft_idx(angle, *VFOV_RANGE)
+
+
+def pitch2soft_idx(angle):
+    return angle_to_soft_idx(angle, *PITCH_RANGE)
+
+
+def roll2soft_idx(angle):
+    return angle_to_soft_idx(angle, *ROLL_RANGE)

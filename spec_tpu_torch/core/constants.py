@@ -43,3 +43,20 @@ NUM_BETAS = 10
 # 17 joints (mpi-inf-3dhp), and their first 14 (LSP order, 3DPW).
 H36M_TO_J17 = [6, 5, 4, 1, 2, 3, 16, 15, 14, 11, 12, 13, 8, 10, 0, 7, 9]
 H36M_TO_J14 = H36M_TO_J17[:14]
+
+# Left/right flips (the training augmentation): the SMPL joints, their
+# axis-angle pose entries, the 24 dataset joints and the 49-joint set.
+SMPL_JOINTS_FLIP_PERM = [
+    0, 2, 1, 3, 5, 4, 6, 8, 7, 9, 11, 10, 12, 14, 13, 15, 17, 16, 19, 18,
+    21, 20, 23, 22,
+]
+SMPL_POSE_FLIP_PERM = [3 * i + k for i in SMPL_JOINTS_FLIP_PERM
+                       for k in range(3)]
+J24_FLIP_PERM = [
+    5, 4, 3, 2, 1, 0, 11, 10, 9, 8, 7, 6, 12, 13, 14, 15, 16, 17, 18, 19,
+    21, 20, 23, 22,
+]
+J49_FLIP_PERM = [
+    0, 1, 5, 6, 7, 2, 3, 4, 8, 12, 13, 14, 9, 10, 11, 16, 15, 18, 17, 22,
+    23, 24, 19, 20, 21,
+] + [25 + i for i in J24_FLIP_PERM]

@@ -235,6 +235,15 @@ def with_packed_lbs(assets: SMPLAssets) -> SMPLAssets:
         assets, packed_lbs=pack_lbs_operands(assets).to(assets.device))
 
 
+def fused_on(assets: SMPLAssets, device) -> SMPLAssets:
+    """The assets on ``device`` with the fused-kernel operands attached
+    (packed once): every SMPL forward of a step over them runs the fused
+    LBS kernel on a card and its plain version on the CPU."""
+    assets = assets.to(device)
+    return assets if assets.packed_lbs is not None \
+        else with_packed_lbs(assets)
+
+
 # ---------------------------------------------------------------------------
 # Forward (LBS)
 # ---------------------------------------------------------------------------

@@ -1,10 +1,14 @@
-"""Camera-annotated person-crop dataset, eval mode (port of
+"""Camera-annotated person-crop dataset (port of
 ``spec_tpu/data/cam_dataset.py``).
 
 A struct-of-arrays annotation store over one npz and a host
 ``__getitem__`` that decodes and crops; the GT SMPL forwards, the
-ImageNet normalization and the metrics run in the batched eval step on
-the device (``eval/eval_loop.py``).
+ImageNet normalization and the metrics or losses run in the batched eval
+and train steps on the device (``eval/eval_loop.py``,
+``train/steps.py``). With ``is_train`` the item is augmented as the
+reference's: scale jitter, optional rotation and flip, random sub-crops,
+synthetic occluders, motion blur and per-channel pixel noise, drawn from
+the dataset's ``RandomState(seed)`` in the reference's order.
 
 npz contract: imgname, scale, center; pose or pose_0yaw_inverseyz (the
 yaw-normalized world pose, preferred), shape, has_smpl; S (24 x 4 3D
@@ -16,10 +20,10 @@ predictions); pose_cam (camera-frame GT pose, for the offline metrics).
 Decoding is cv2's: the reference's ``native_decode=False`` path, which is
 its parity oracle. Its native JPEG region-of-interest engine
 (``spec_tpu/native``) has no counterpart in the port, so
-``native_decode`` selects this one path whatever its value. Training
-mode (``is_train=True``), ``occluders``, ``fast_decode`` and
-``region_cache_dir`` are not ported yet (ROADMAP.md §1 item 9) and
-raise.
+``native_decode`` selects this one path whatever its value.
+``fast_decode`` (the reduced-scale decode) and ``region_cache_dir`` (the
+per-sample region cache) are not ported yet (ROADMAP.md §1 item 9, with
+``data/region_cache.py``) and raise.
 """
 
 from __future__ import annotations
@@ -34,15 +38,18 @@ import numpy as np
 from spec_tpu_torch.core.geometry import euler_pitch_roll_np
 from spec_tpu_torch.data import transforms as T
 from spec_tpu_torch.data.cache import FrameCache
+from spec_tpu_torch.data.occlusion import occlude_with_objects
 
-_ITEM9 = 'is not ported yet (ROADMAP.md §1 item 9, training)'
+_ITEM9 = ('is not ported yet (ROADMAP.md §1 item 9: data/region_cache.py '
+          'and fast_decode)')
 
 
 @dataclasses.dataclass
 class AugmentationConfig:
-    """The reference's augmentation settings. Eval mode applies none of
-    them; ``use_3d_conf`` copies 2D keypoint confidences onto the pose
-    and 3D joints of in-the-wild datasets in either mode."""
+    """The reference's augmentation settings (its training defaults).
+    Eval mode applies none of them; ``use_3d_conf`` copies 2D keypoint
+    confidences onto the pose and 3D joints of in-the-wild datasets in
+    either mode, and occluders, when given, are pasted in either."""
 
     flip_prob: float = 0.0
     noise_factor: float = 0.4
@@ -65,7 +72,7 @@ class _NpzView(dict):
 
 
 class CamDataset:
-    """Map-style eval dataset over one annotation npz.
+    """Map-style dataset over one annotation npz.
 
     Args: those of ``spec_tpu.data.CamDataset``. ``annot_file`` (npz),
     ``img_dir`` (the root of its imgnames), ``dataset`` (the name tag:
@@ -75,7 +82,9 @@ class CamDataset:
     DATASET.BASELINE_CAM_* ablations), ``render_res`` and
     ``emit_disp_img`` (a second, render_res crop per item),
     ``num_images`` (a seeded subsample without replacement),
-    ``decode_cache`` (a decoded-frame LRU of that many frames).
+    ``decode_cache`` (a decoded-frame LRU of that many frames),
+    ``is_train`` (augment: ``aug``, ``occluders`` a list of RGBA
+    cutouts, ``seed`` the augmentation stream's).
     """
 
     def __init__(
@@ -103,17 +112,16 @@ class CamDataset:
         region_cache_dir: str = '',
         region_cache_format: str = 'jpeg',
     ):
-        for name, value in (('is_train=True', is_train),
-                            ('occluders', occluders is not None),
-                            ('fast_decode', fast_decode),
+        for name, value in (('fast_decode', fast_decode),
                             ('region_cache_dir', region_cache_dir)):
             if value:
                 raise NotImplementedError(f'CamDataset {name} {_ITEM9}')
         self.dataset = dataset
         self.img_dir = img_dir
-        self.is_train = False
+        self.is_train = is_train
         self.img_res = img_res
         self.aug = aug or AugmentationConfig()
+        self.occluders = occluders
         self.use_gt_cam = use_gt_cam
         self.baseline_cam_rot = baseline_cam_rot
         self.baseline_cam_f = baseline_cam_f
@@ -124,6 +132,7 @@ class CamDataset:
         self.native_decode = native_decode
         self._frame_cache = FrameCache(decode_cache) if decode_cache \
             else None
+        self.rng = np.random.RandomState(seed)
 
         data = np.load(annot_file, allow_pickle=True)
         self.files = set(data.files)
@@ -246,29 +255,35 @@ class CamDataset:
         center = self.center[index].copy()
         keypoints_orig = self.keypoints[index].copy()
 
+        flip, pn, rot, sc = self._augm_params()
+        if self.is_train and self.aug.crop_factor > 0 \
+                and self.rng.rand() < self.aug.crop_prob:
+            center, scale = T.random_crop(
+                center, scale, 1 - self.aug.crop_factor, axis='y',
+                rng=self.rng)
+
         t0 = time.perf_counter()
         imgname = join(self.img_dir, str(self.imgname[index]))
-        raw_crop, disp, orig_shape = self._crops(imgname, center, scale)
+        want_disp = not self.is_train and self.emit_disp_img
+        raw_crop, disp, orig_shape = self._crops(
+            imgname, center, sc * scale, rot, want_disp)
         load_time = time.perf_counter() - t0
 
         pose = (self.pose[index].copy() if self.has_smpl[index]
                 else np.zeros(72, np.float32))
         betas = (self.betas[index].copy() if self.has_smpl[index]
                  else np.zeros(10, np.float32))
-        keypoints = self._j2d(self.keypoints[index].copy(), center, scale)
+        keypoints = self._j2d(self.keypoints[index].copy(), center,
+                              sc * scale, rot, flip)
 
         t1 = time.perf_counter()
-        img = np.clip(raw_crop, 0, 255).astype(np.float32) / 255.0
-        if self.normalize:
-            from spec_tpu_torch.core import constants as C
-            img = ((img - C.IMG_NORM_MEAN) / C.IMG_NORM_STD).astype(
-                np.float32)
+        img = self._rgb(raw_crop, flip, pn, keypoints)
         proc_time = time.perf_counter() - t1
 
         item['img'] = img                    # HWC
-        if self.emit_disp_img:
+        if want_disp:
             item['disp_img'] = (disp / 255.0).astype(np.float32)
-        item['pose'] = pose.astype(np.float32)
+        item['pose'] = self._pose(pose, rot, flip)
         item['betas'] = betas
         item['imgname'] = imgname
         item['pose_conf'] = np.ones(24, np.float32)
@@ -280,7 +295,11 @@ class CamDataset:
                     keypoints[25 + s_, 2] for s_ in srcs)
 
         if self.has_pose_3d:
-            item['pose_3d'] = self.pose_3d[index].copy().astype(np.float32)
+            S = self.pose_3d[index].copy()
+            if (self.cam_rotmat is not None and self.baseline_cam_rot
+                    and self.is_train):
+                S[:, :3] = (self.cam_rotmat[index] @ S[:, :3].T).T
+            item['pose_3d'] = self._j3d(S, rot, flip)
             if self.aug.use_3d_conf and in_the_wild:
                 from spec_tpu_torch.core.kp_utils import (
                     relation_among_spin_joints,
@@ -296,21 +315,26 @@ class CamDataset:
         item['keypoints'] = keypoints
         item['has_smpl'] = np.float32(self.has_smpl[index])
         item['has_pose_3d'] = np.float32(self.has_pose_3d)
-        item['scale'] = np.float32(scale)
+        item['scale'] = np.float32(sc * scale)
         item['center'] = center.astype(np.float32)
         item['orig_shape'] = orig_shape
-        item['is_flipped'] = np.float32(0)
-        item['rot_angle'] = np.float32(0.0)
+        item['is_flipped'] = np.float32(flip)
+        item['rot_angle'] = np.float32(rot)
         item['gender'] = self.gender[index]
         item['sample_index'] = index
         item['dataset_name'] = self.dataset
 
+        # The GT camera: the teacher in training, eval with USE_GT_CAM.
         fx, fy = self._gt_focal(index)
         item['focal_length'] = np.array([fx, fy], np.float32)
         if self.cam_rotmat is not None and not self.baseline_cam_rot:
             item['cam_rotmat'] = self.cam_rotmat[index].astype(np.float32)
         else:
             item['cam_rotmat'] = np.eye(3, dtype=np.float32)
+            if (self.cam_rotmat is not None and self.baseline_cam_rot
+                    and self.is_train):
+                item['pose'][:3] = _rotate_global_aa(
+                    self.cam_rotmat[index], item['pose'][:3])
         item['cam_pitch'] = np.float32(
             self.cam_pitch[index] if self.cam_pitch is not None
             and not self.baseline_cam_rot else 0.0)
@@ -324,15 +348,35 @@ class CamDataset:
         else:
             item['cam_int'] = self._build_K(fx, fy, center, orig_shape)
 
-        (item['pred_cam_pitch'], item['pred_cam_roll'],
-         item['pred_cam_vfov'], item['pred_cam_focal_length'],
-         item['pred_cam_rotmat'], item['pred_cam_int']) = \
-            [np.float32(v) if np.isscalar(v) else v.astype(np.float32)
-             for v in self._pred_cam(index, center, orig_shape)]
+        if not self.is_train:
+            (item['pred_cam_pitch'], item['pred_cam_roll'],
+             item['pred_cam_vfov'], item['pred_cam_focal_length'],
+             item['pred_cam_rotmat'], item['pred_cam_int']) = \
+                [np.float32(v) if np.isscalar(v) else v.astype(np.float32)
+                 for v in self._pred_cam(index, center, orig_shape)]
 
         item['load_time'] = np.float32(load_time)
         item['proc_time'] = np.float32(proc_time)
         return item
+
+    # -- augmentation ---------------------------------------------------
+
+    def _augm_params(self):
+        """(flip, per-channel pixel noise, rotation in degrees, scale
+        factor): the reference's ``augm_params``, identity in eval."""
+        flip, pn, rot, sc = 0, np.ones(3), 0.0, 1.0
+        if self.is_train:
+            a = self.aug
+            if self.rng.uniform() <= a.flip_prob:
+                flip = 1
+            pn = self.rng.uniform(1 - a.noise_factor, 1 + a.noise_factor, 3)
+            rot = float(np.clip(self.rng.randn() * a.rot_factor,
+                                -2 * a.rot_factor, 2 * a.rot_factor))
+            sc = float(np.clip(self.rng.randn() * a.scale_factor + 1,
+                               1 - a.scale_factor, 1 + a.scale_factor))
+            if self.rng.uniform() <= 0.6:
+                rot = 0.0
+        return flip, pn, rot, sc
 
     # -- decode and crop ------------------------------------------------
 
@@ -340,7 +384,7 @@ class CamDataset:
         img = T.read_img(imgname)
         return img, np.array(img.shape[:2], np.float32)
 
-    def _crops(self, imgname, center, scale):
+    def _crops(self, imgname, center, scale, rot, want_disp):
         """-> (model crop float32 [0, 255] HWC, render_res crop or None,
         orig_shape (H, W) float32)."""
         if self._frame_cache is not None:
@@ -348,18 +392,72 @@ class CamDataset:
                 (imgname, 1), lambda: self._decode(imgname))
         else:
             img, orig_shape = self._decode(imgname)
-        crop = T.crop(img, center, scale, [self.img_res, self.img_res])
+        crop = T.crop(img, center, scale, [self.img_res, self.img_res],
+                      rot=rot)
         disp = (T.crop(img, center, scale,
-                       [self.render_res, self.render_res])
-                if self.emit_disp_img else None)
+                       [self.render_res, self.render_res], rot=rot)
+                if want_disp else None)
         return crop, disp, orig_shape
 
-    def _j2d(self, kp, center, scale):
+    def _rgb(self, out, flip, pn, kp2d):
+        """Flip, occluders, motion blur (training), pixel noise, then
+        [0, 1] float32 (ImageNet-normalized with ``normalize``)."""
+        if flip:
+            out = T.flip_img(out)
+        if self.occluders is not None and self.aug.use_occlusion:
+            out = occlude_with_objects(out, self.occluders, rng=self.rng,
+                                       kp2d=kp2d, img_size=self.img_res)
+        if self.is_train and self.aug.use_motion_blur:
+            out = T.motion_blur(out, self.rng)
+        out = np.clip(out * pn[None, None, :], 0, 255)
+        out = out.astype(np.float32) / 255.0
+        if self.normalize:
+            from spec_tpu_torch.core import constants as C
+            out = ((out - C.IMG_NORM_MEAN) / C.IMG_NORM_STD).astype(
+                np.float32)
+        return out
+
+    def _j2d(self, kp, center, scale, rot=0.0, flip=0):
         """2D keypoints into the crop, SPIN's way (1-based, truncated to
-        int), then normalized to [-1, 1]."""
-        t = T.get_transform(center, scale, [self.img_res, self.img_res])
+        int), normalized to [-1, 1], flipped with the image."""
+        t = T.get_transform(center, scale, [self.img_res, self.img_res],
+                            rot=rot)
         pts = np.concatenate([kp[:, :2], np.ones((kp.shape[0], 1))], axis=1)
         kp = kp.copy()
         kp[:, :2] = (t @ pts.T).T[:, :2].astype(int) + 1
         kp[:, :-1] = 2.0 * kp[:, :-1] / self.img_res - 1.0
+        if flip:
+            kp = T.flip_kp(kp)
         return kp.astype(np.float32)
+
+    def _j3d(self, S, rot, flip):
+        """3D joints rotated in-plane with the crop and flipped."""
+        if rot != 0:
+            rot_rad = -rot * np.pi / 180
+            sn, cs = np.sin(rot_rad), np.cos(rot_rad)
+            R = np.eye(3)
+            R[0, :2] = [cs, -sn]
+            R[1, :2] = [sn, cs]
+            S[:, :3] = np.einsum('ij,kj->ki', R, S[:, :3])
+        if flip:
+            S = T.flip_kp(S)
+        return S.astype(np.float32)
+
+    def _pose(self, pose, rot, flip):
+        """The global orientation rotated with the crop; the pose
+        flipped with the image."""
+        pose = pose.copy()
+        pose[:3] = T.rot_aa(pose[:3], rot)
+        if flip:
+            pose = T.flip_pose(pose)
+        return pose.astype(np.float32)
+
+
+def _rotate_global_aa(rotmat, aa):
+    """The global orientation ``aa`` rotated by ``rotmat`` (the
+    BASELINE_CAM_ROT ablation's training pose)."""
+    import cv2
+
+    R0, _ = cv2.Rodrigues(aa.astype(np.float64))
+    out, _ = cv2.Rodrigues(rotmat.astype(np.float64) @ R0)
+    return out.reshape(3).astype(np.float32)

@@ -1,27 +1,32 @@
-"""Host-side SPIN crop geometry and the eval loader's image transforms
-(the rot = 0 subset of ``spec_tpu/data/transforms.py``).
+"""Host-side SPIN crop geometry and the data loaders' image transforms
+(port of ``spec_tpu/data/transforms.py``).
 
 A bbox is (center, scale) with side = scale * 200 px; the crop maps that
-box to a res x res image. The corner arithmetic stays in float64 exactly
-as in the reference: the integer truncation of the crop corners sits on
-knife edges that float32 intermediates move.
+box (optionally rotated about its center) to a res x res image. The
+corner arithmetic stays in float64 exactly as in the reference: the
+integer truncation of the crop corners sits on knife edges that float32
+intermediates move. The training augmentations are the reference's:
+rotation, flips of images, keypoints and poses, random sub-crops and
+motion blur.
 
 cv2 and PIL are imported inside the functions that decode or resample
-(the machine with the card has neither). The training augmentations
-(rotation, flips, random crops, motion blur) and the reduced-scale
-decode are not ported yet (ROADMAP.md §1 item 9).
+(the machine with the card has neither). The reduced-scale decode
+(``fast_decode``) is not ported yet (ROADMAP.md §1 item 9).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from spec_tpu_torch.core import constants as C
+
 BBOX_SIDE = 200.0  # SPIN convention: bbox pixel side = scale * 200
 
 
-def get_transform(center, scale, res):
+def get_transform(center, scale, res, rot=0):
     """3x3 float64 matrix mapping original-image points into the
-    res x res crop (SPIN ``get_transform`` without rotation)."""
+    res x res crop (SPIN ``get_transform``): the scale * 200 box to res,
+    then a rotation by ``rot`` degrees about the crop center."""
     h = BBOX_SIDE * scale
     t = np.zeros((3, 3), dtype=np.float64)
     t[0, 0] = res[1] / h
@@ -29,26 +34,47 @@ def get_transform(center, scale, res):
     t[0, 2] = res[1] * (-center[0] / h + 0.5)
     t[1, 2] = res[0] * (-center[1] / h + 0.5)
     t[2, 2] = 1.0
+    if rot != 0:
+        rot_rad = -rot * np.pi / 180.0  # counter-clockwise in image coords
+        sn, cs = np.sin(rot_rad), np.cos(rot_rad)
+        rot_mat = np.eye(3)
+        rot_mat[0, :2] = [cs, -sn]
+        rot_mat[1, :2] = [sn, cs]
+        t_mat = np.eye(3)
+        t_mat[0, 2] = -res[1] / 2
+        t_mat[1, 2] = -res[0] / 2
+        t_inv = t_mat.copy()
+        t_inv[:2, 2] *= -1
+        t = t_inv @ rot_mat @ t_mat @ t
     return t
 
 
-def transform_point(pt, center, scale, res, invert=0):
+def transform_point(pt, center, scale, res, invert=0, rot=0):
     """Map a (2,) point image <-> crop (SPIN ``transform``), 1-based:
     callers pass pt + 1 and get a 1-based integer result."""
-    t = get_transform(center, scale, res)
+    t = get_transform(center, scale, res, rot=rot)
     if invert:
         t = np.linalg.inv(t)
     new_pt = t @ np.array([pt[0] - 1, pt[1] - 1, 1.0])
     return new_pt[:2].astype(int) + 1
 
 
-def crop(img, center, scale, res):
-    """SPIN crop of ``img`` around (center, scale) to ``res`` (rows, cols):
-    integer ul/br corners from the inverse point transform, a zero-padded
-    slice, one bilinear resize. Bit for bit the reference's rot = 0 path,
-    whose preprocessing the metric budget relies on."""
+def crop(img, center, scale, res, rot=0):
+    """SPIN crop of ``img`` around (center, scale) to ``res`` (rows, cols).
+
+    rot == 0: integer ul/br corners from the inverse point transform, a
+    zero-padded slice, one bilinear resize; bit for bit the reference's
+    path, whose preprocessing the metric budget relies on. rot != 0 (a
+    training augmentation): one warpAffine with the composite map and
+    zero borders, as the reference's."""
     import cv2
 
+    if rot != 0:
+        t = get_transform(center, scale, res, rot=rot)
+        return cv2.warpAffine(
+            img.astype(np.float32), t[:2, :].astype(np.float32),
+            (int(res[1]), int(res[0])), flags=cv2.INTER_LINEAR,
+            borderMode=cv2.BORDER_CONSTANT, borderValue=0)
     ul = transform_point([1, 1], center, scale, res, invert=1) - 1
     br = transform_point([res[0] + 1, res[1] + 1], center, scale, res,
                          invert=1) - 1
@@ -67,13 +93,17 @@ def crop(img, center, scale, res):
                       interpolation=cv2.INTER_LINEAR)
 
 
-def crop_affine(center, scale, res):
+def crop_affine(center, scale, res, rot=0):
     """The SPIN crop as a destination -> full-resolution-source affine:
-    ``(aff (2, 3) float32, box (4,) float32)``. Destination (x, y)
-    samples source ``((x + .5) * bw / res_w - .5 + ulx, ...)`` with the
-    coordinates clamped to the integer SPIN box ``[x0, y0, x1, y1]``
-    (inclusive; the corners of :func:`crop`), the map of :func:`crop`'s
-    slice and resize."""
+    ``(aff (2, 3) float32, box (4,) float32 or None)``. rot == 0:
+    destination (x, y) samples source ``((x + .5) * bw / res_w - .5 +
+    ulx, ...)`` with the coordinates clamped to the integer SPIN box
+    ``[x0, y0, x1, y1]`` (inclusive; the corners of :func:`crop`), the
+    map of :func:`crop`'s slice and resize. rot != 0: the inverse of
+    :func:`get_transform` and no box (zero borders)."""
+    if rot != 0:
+        t = get_transform(center, scale, res, rot=rot)
+        return np.linalg.inv(t)[:2].astype(np.float32), None
     ul = transform_point([1, 1], center, scale, res, invert=1) - 1
     br = transform_point([res[0] + 1, res[1] + 1], center, scale, res,
                          invert=1) - 1
@@ -113,3 +143,74 @@ def image_dims(path):
     if orientation in (5, 6, 7, 8):
         w, h = h, w
     return np.array([h, w], np.float32)
+
+
+def flip_img(img):
+    """Horizontal flip."""
+    return np.ascontiguousarray(img[:, ::-1])
+
+
+def flip_kp(kp):
+    """Flip 2D/3D keypoints of the 49-joint (or 24-joint) layout: swap
+    left and right and negate x."""
+    kp = kp[C.J49_FLIP_PERM] if kp.shape[0] == 49 else kp[C.J24_FLIP_PERM]
+    kp[:, 0] = -kp[:, 0]
+    return kp
+
+
+def flip_pose(pose):
+    """Flip an SMPL axis-angle pose (72,): swap left and right joints
+    and negate the y and z rotation components."""
+    pose = pose[C.SMPL_POSE_FLIP_PERM]
+    pose[1::3] = -pose[1::3]
+    pose[2::3] = -pose[2::3]
+    return pose
+
+
+def rot_aa(aa, rot):
+    """Rotate the global orientation (axis-angle) by an in-plane
+    rotation of ``rot`` degrees."""
+    if rot == 0:
+        return aa
+    import cv2
+
+    rot_rad = -rot * np.pi / 180.0
+    sn, cs = np.sin(rot_rad), np.cos(rot_rad)
+    R = np.array([[cs, -sn, 0], [sn, cs, 0], [0, 0, 1]], dtype=np.float64)
+    per_rdg, _ = cv2.Rodrigues(aa.astype(np.float64))
+    res_rot, _ = cv2.Rodrigues(R @ per_rdg)
+    return res_rot.reshape(3).astype(aa.dtype)
+
+
+def random_crop(center, scale, crop_scale_factor, axis='all', rng=None):
+    """Shrink the bbox to a random sub-crop: side * crop_scale_factor,
+    the center jittered so the sub-box stays inside the box; ``axis``
+    ('all', 'x' or 'y') limits the jitter."""
+    rng = rng or np.random
+    h = BBOX_SIDE * scale
+    new_h = h * crop_scale_factor
+    space = (h - new_h) / 2.0
+    new_center = np.asarray(center, np.float64).copy()
+    if axis in ('all', 'x'):
+        new_center[0] += rng.uniform(-space, space)
+    if axis in ('all', 'y'):
+        new_center[1] += rng.uniform(-space, space)
+    return new_center, new_h / BBOX_SIDE
+
+
+def motion_blur(img, rng, p=0.5, kernel_range=(3, 7)):
+    """Albumentations' MotionBlur (the reference's): with probability
+    ``p`` a line kernel of odd size in ``kernel_range``, random ends."""
+    import cv2
+
+    if rng.rand() >= p:
+        return img
+    k = int(rng.randint(kernel_range[0], kernel_range[1] + 1)) | 1
+    kernel = np.zeros((k, k), np.float32)
+    x1, y1 = rng.randint(0, k), rng.randint(0, k)
+    x2, y2 = rng.randint(0, k), rng.randint(0, k)
+    cv2.line(kernel, (x1, y1), (x2, y2), 1.0, thickness=1)
+    s = kernel.sum()
+    if s == 0:
+        return img
+    return cv2.filter2D(img, -1, kernel / s)

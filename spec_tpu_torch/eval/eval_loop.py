@@ -117,13 +117,6 @@ class EvalStep:
                 self.head.fn(*[batch[k] for k in BATCH_KEYS]))
 
 
-def _device_assets(assets, device):
-    """Assets on ``device`` with the fused kernel's operands attached."""
-    assets = assets.to(device)
-    return assets if assets.packed_lbs is not None \
-        else S.with_packed_lbs(assets)
-
-
 def make_eval_step(model, assets_by_gender: dict, j_regressor_h36m,
                    use_gender: bool = False, protocol: str = 'j14',
                    mesh=None) -> EvalStep:
@@ -140,7 +133,7 @@ def make_eval_step(model, assets_by_gender: dict, j_regressor_h36m,
     device = next(model.parameters()).device
     model.eval()
     genders = ('neutral', 'male', 'female') if use_gender else ('neutral',)
-    dev_assets = {g: _device_assets(assets_by_gender[g], device)
+    dev_assets = {g: S.fused_on(assets_by_gender[g], device)
                   for g in genders if g in assets_by_gender}
     jreg = torch.as_tensor(np.asarray(j_regressor_h36m), dtype=torch.float32,
                            device=device)

@@ -6,7 +6,8 @@ basic or bottleneck blocks, stride on the 3x3 conv of each bottleneck)
 with torchvision's parameter names, so released checkpoints load with
 ``load_state_dict``. NCHW inside; returns the pre-avgpool feature map
 (B, C_out, H/32, W/32). The JAX package's TPU-only space-to-depth stem
-is not carried over.
+is not carried over. BatchNorm in train mode updates its running
+statistics as flax's does (:class:`BatchNorm2d`).
 """
 
 from __future__ import annotations
@@ -15,6 +16,35 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode update of the running variance
+    uses the biased batch variance, as flax's ``BatchNorm`` (momentum 0.9
+    there, 0.1 here) does; torch's own uses the unbiased one, n / (n - 1)
+    larger. The batch statistics that normalize are the same in both.
+
+    torch computes ``rv' = (1 - m) rv + m var_u`` with ``var_u = var_b n
+    / (n - 1)``. Handing the fused batch-norm call a copy of the buffer
+    scaled by n / (n - 1), and writing that copy back scaled by
+    (n - 1) / n, gives ``(1 - m) rv + m var_b``. (The buffer itself may
+    not be rescaled in place: autograd saves the tensor the call was
+    given.)"""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        if n < 2 or self.momentum is None:
+            return super().forward(x)    # torch raises for one value
+        self.num_batches_tracked.add_(1)
+        var = self.running_var * (n / (n - 1))
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                         True, self.momentum, self.eps)
+        with torch.no_grad():
+            self.running_var.copy_(var * ((n - 1) / n))
+        return y
 
 
 def conv3x3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
@@ -34,10 +64,10 @@ class BasicBlock(nn.Module):
                  downsample: Optional[nn.Module] = None):
         super().__init__()
         self.conv1 = conv3x3(cin, planes, stride)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.relu = nn.ReLU(inplace=True)
         self.conv2 = conv3x3(planes, planes)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.downsample = downsample
 
     def forward(self, x):
@@ -56,11 +86,11 @@ class Bottleneck(nn.Module):
                  downsample: Optional[nn.Module] = None):
         super().__init__()
         self.conv1 = conv1x1(cin, planes)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = conv3x3(planes, planes, stride)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = conv1x1(planes, planes * 4)
-        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.bn3 = BatchNorm2d(planes * 4)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
@@ -78,7 +108,7 @@ class ResNet(nn.Module):
     def __init__(self, block, stage_sizes: Sequence[int]):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         cin = 64
@@ -92,7 +122,7 @@ class ResNet(nn.Module):
                 if blk == 0 and (s != 1 or cin != planes * block.expansion):
                     ds = nn.Sequential(
                         conv1x1(cin, planes * block.expansion, s),
-                        nn.BatchNorm2d(planes * block.expansion))
+                        BatchNorm2d(planes * block.expansion))
                 blocks.append(block(cin, planes, s, ds))
                 cin = planes * block.expansion
             self.add_module(f'layer{stage + 1}', nn.Sequential(*blocks))

@@ -1,6 +1,6 @@
 """HMR/SPIN iterative SMPL-parameter regressor head (torch twin of
-``spec_tpu/models/heads/hmr_head.py``; inference only, so the
-``estimate_var`` training branch is not carried over).
+``spec_tpu/models/heads/hmr_head.py``; its ``estimate_var`` branch is not
+carried over yet, ROADMAP.md §1 item 9).
 
 Input: the backbone feature map, global-avgpooled to (B, C). Learned
 initial estimates ``init_pose`` (1, 144 = 24 x 6D), ``init_shape``
@@ -9,6 +9,12 @@ checkpoints. ``n_iter`` refinement steps: concat [features, pose, shape,
 cam (+ flattened camera rotmat and vfov with ``use_cam_feats``)] -> fc1
 -> dropout -> fc2 -> dropout -> three linear decoders adding deltas.
 Output ``pred_pose`` is (B, 24, 3, 3) via 6D -> rotmat.
+
+In train mode dropout draws its masks from the ``generator`` the caller
+passes (the counterpart of the JAX head's ``rngs={'dropout': key}``), or
+from torch's default one. The init buffers train only when the trainer
+makes them trainable (``train/state.create_train_state`` with
+``freeze_buffers=False``, the JAX head's params).
 """
 
 from __future__ import annotations
@@ -64,19 +70,20 @@ class HMRHead(nn.Module):
             self.register_buffer(name, torch.from_numpy(
                 np.asarray(mean[name], np.float32).copy()))
         n_in = num_features + NPOSE + 10 + 3 + (10 if use_cam_feats else 0)
+        self.dropout_rate = dropout_rate    # after fc1 and after fc2
         self.fc1 = nn.Linear(n_in, hidden_dim)
-        self.drop1 = nn.Dropout(dropout_rate)
         self.fc2 = nn.Linear(hidden_dim, hidden_dim)
-        self.drop2 = nn.Dropout(dropout_rate)
         self.decpose = nn.Linear(hidden_dim, NPOSE)
         self.decshape = nn.Linear(hidden_dim, 10)
         self.deccam = nn.Linear(hidden_dim, 3)
 
     def forward(self, features: torch.Tensor,
                 cam_rotmat: Optional[torch.Tensor] = None,
-                cam_vfov: Optional[torch.Tensor] = None) -> dict:
+                cam_vfov: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> dict:
         """features: (B, C, H, W) backbone map or pre-pooled (B, C);
-        cam_rotmat (B, 3, 3) and cam_vfov (B,) with ``use_cam_feats``."""
+        cam_rotmat (B, 3, 3) and cam_vfov (B,) with ``use_cam_feats``;
+        ``generator``: the train-mode dropout masks' source."""
         xf = features.mean(dim=(2, 3)) if features.ndim == 4 else features
         B = xf.shape[0]
         pred_pose = self.init_pose.expand(B, NPOSE)
@@ -96,7 +103,8 @@ class HMRHead(nn.Module):
                 if cam_feats is not None:
                     parts.append(cam_feats)
                 xc = torch.cat([p.to(xf.dtype) for p in parts], dim=-1)
-                xc = self.drop2(self.fc2(self.drop1(self.fc1(xc))))
+                xc = self._drop(self.fc1(xc), generator)
+                xc = self._drop(self.fc2(xc), generator)
                 pred_pose = self.decpose(xc) + pred_pose
                 pred_shape = self.decshape(xc) + pred_shape
                 pred_cam = self.deccam(xc) + pred_cam
@@ -108,6 +116,17 @@ class HMRHead(nn.Module):
             'pred_shape': pred_shape.float(),
             'pred_cam': pred_cam.float(),
         }
+
+    def _drop(self, x: torch.Tensor,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Inverted dropout at ``dropout_rate`` in train mode (flax's
+        form: kept values divided by the keep rate, dropped ones 0)."""
+        if not self.training or self.dropout_rate == 0.0:
+            return x
+        keep = 1.0 - self.dropout_rate
+        mask = torch.rand(x.shape, device=x.device,
+                          generator=generator) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -47,10 +47,12 @@ class HMR(nn.Module):
         bbox_center: Optional[torch.Tensor] = None,
         img_w: Optional[torch.Tensor] = None,
         img_h: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> dict:
         """images (B, res, res, 3) normalized NHWC person crops; the
         camera arguments are needed with ``use_cam`` or
-        ``use_cam_feats``. Returns pred_pose (B, 24, 3, 3), pred_pose_6d,
+        ``use_cam_feats``; ``generator`` draws the head's train-mode
+        dropout masks. Returns pred_pose (B, 24, 3, 3), pred_pose_6d,
         pred_shape, pred_cam, smpl_vertices, smpl_joints3d,
         smpl_joints2d, pred_cam_t."""
         with compute_dtype(self.dtype, images.device.type):
@@ -61,9 +63,9 @@ class HMR(nn.Module):
             cam_vfov = 2.0 * torch.atan(
                 img_h.float() / (2.0 * cam_intrinsics[:, 0, 0]))
             hmr_out = self.head(features, cam_rotmat=cam_rotmat,
-                                cam_vfov=cam_vfov)
+                                cam_vfov=cam_vfov, generator=generator)
         else:
-            hmr_out = self.head(features)
+            hmr_out = self.head(features, generator=generator)
 
         if self.use_cam:
             smpl_out = smpl_cam_head(

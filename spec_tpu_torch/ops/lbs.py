@@ -204,7 +204,8 @@ def _launch(dirs: torch.Tensor, weights_t: torch.Tensor,
 
 def fused_lbs_backward(dirs: torch.Tensor, weights_t: torch.Tensor,
                        coeffs: torch.Tensor, rel_tf: torch.Tensor,
-                       num_vertices: int, grad: torch.Tensor):
+                       num_vertices: int, grad: torch.Tensor,
+                       needs=(True, True, True, True)):
     """Closed-form cotangents of the vertex pipeline (the port of
     ``spec_tpu/ops/pallas/lbs.py:_fused_core_bwd``).
 
@@ -214,7 +215,9 @@ def fused_lbs_backward(dirs: torch.Tensor, weights_t: torch.Tensor,
     recomputed here rather than saved by the forward. ``grad`` (B, V, 3)
     is zero-padded to Vp, so the packed operands' cotangents are zero on
     the padding. fp32 einsums with TF32 off. Returns (d dirs (3, C, Vp),
-    d weights_t (24, Vp), d coeffs (B, C), d rel_tf (B, 24, 3, 4)).
+    d weights_t (24, Vp), d coeffs (B, C), d rel_tf (B, 24, 3, 4)); an
+    entry whose ``needs`` flag is False is None and not computed (a train
+    step differentiates coeffs and rel_tf only).
     """
     B = coeffs.shape[0]
     Vp = dirs.shape[-1]
@@ -226,13 +229,16 @@ def fused_lbs_backward(dirs: torch.Tensor, weights_t: torch.Tensor,
         t4 = torch.einsum('ikbj,jv->ikbv', a, weights_t)         # (3,4,B,Vp)
         # d posed_c = sum_i g_i t_{ic} (c < 3)
         dposed = torch.einsum('ibv,icbv->cbv', g, t4[:, :3])
-        dcoeffs = torch.einsum('cbv,cmv->bm', dposed, dirs)
+        dcoeffs = (torch.einsum('cbv,cmv->bm', dposed, dirs)
+                   if needs[2] else None)
         # d t_{ik} = g_i posed_k (k < 3); d t_{i3} = g_i
         dt4 = torch.cat([torch.einsum('ibv,kbv->ikbv', g, posed),
                          g[:, None]], dim=1)
-        da = torch.einsum('ikbv,jv->bjik', dt4, weights_t)      # (B,24,3,4)
-        ddirs = torch.einsum('bm,cbv->cmv', coeffs, dposed)
-        dwt = torch.einsum('ikbj,ikbv->jv', a, dt4)
+        da = (torch.einsum('ikbv,jv->bjik', dt4, weights_t)     # (B,24,3,4)
+              if needs[3] else None)
+        ddirs = (torch.einsum('bm,cbv->cmv', coeffs, dposed)
+                 if needs[0] else None)
+        dwt = torch.einsum('ikbj,ikbv->jv', a, dt4) if needs[1] else None
     return ddirs, dwt, dcoeffs, da
 
 
@@ -250,7 +256,8 @@ class _FusedLBS(torch.autograd.Function):
     def backward(ctx, grad_out):
         dirs, weights_t, coeffs, rel_tf = ctx.saved_tensors
         return (*fused_lbs_backward(dirs, weights_t, coeffs, rel_tf,
-                                    ctx.num_vertices, grad_out), None)
+                                    ctx.num_vertices, grad_out,
+                                    ctx.needs_input_grad[:4]), None)
 
 
 def fused_lbs_vertices(packed: PackedLBSOperands, coeffs: torch.Tensor,

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from spec_tpu_torch.core import constants as C
 from spec_tpu_torch.data.transforms import transform_point
 from spec_tpu_torch.utils.graphs import device_constant
+from spec_tpu_torch.utils.precision import fp32_precision
 
 
 def spin_crop_corners(centers, scales, res: int = 224) -> np.ndarray:
@@ -121,3 +122,29 @@ def resize_min_side(img_u8: torch.Tensor, min_size: int) -> torch.Tensor:
                       align_corners=False, antialias=True)
     y = y.round().clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1)
     return y.reshape(*img_u8.shape[:-3], out_h, out_w, 3)
+
+
+def device_jitter_normalize(img_u8: torch.Tensor, A: torch.Tensor,
+                            b: torch.Tensor,
+                            true_shape: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """CamCalib training's ColorJitter on the device: per image the
+    affine ``x -> A @ x + b`` (sampled on the host), clipped to [0, 255],
+    then ImageNet-normalized. img_u8 (B, H, W, 3) raw frames, A (B, 3,
+    3), b (B, 3). ``true_shape`` (B, 2): each image's unpadded (h, w);
+    the pad mask is rebuilt here from it and zeroes the padding after
+    normalization, so padded pixels stay exactly 0.0."""
+    with fp32_precision():
+        x = torch.einsum('bij,bhwj->bhwi', A.float(), img_u8.float())
+    x = x + b.float()[:, None, None, :]
+    x = normalize_image(torch.clamp(x, 0.0, 255.0) / 255.0)
+    if true_shape is not None:
+        H, W = x.shape[1], x.shape[2]
+        ts = true_shape.to(x.device)
+        rows = (torch.arange(H, device=x.device)[None, :]
+                < ts[:, 0, None])                                # (B, H)
+        cols = (torch.arange(W, device=x.device)[None, :]
+                < ts[:, 1, None])                                # (B, W)
+        mask = rows[:, :, None] & cols[:, None, :]
+        x = x * mask[..., None].to(x.dtype)
+    return x

@@ -46,6 +46,7 @@ from spec_tpu_torch.utils import paths
 from spec_tpu_torch.utils.batching import pad_pow2
 from spec_tpu_torch.utils.checkpoints import (
     hmr_state_dict,
+    load_checkpoint_variables,
     load_torch_state_dict,
     select_state_dict,
 )
@@ -141,8 +142,9 @@ def build_hmr(ckpt: str, device, cfg_file: str = '',
               backbone: str = 'resnet50', use_cam_feats: bool = False,
               img_res: int = 224, dtype=None, seed: int = 1,
               tag: str = 'serving'):
-    """Stage 2's HMR (camera-aware) with ``ckpt``'s weights, or, when the
-    file is missing, a random init from ``seed`` with a warning; on
+    """Stage 2's HMR (camera-aware) with ``ckpt``'s weights (a reference
+    torch file, or a trainer checkpoint directory: its latest step), or,
+    when it is missing, a random init from ``seed`` with a warning; on
     ``device``, in eval mode. ``cfg_file`` (a SPEC config yaml) sets
     ``backbone`` and ``use_cam_feats`` as in the reference."""
     if cfg_file:
@@ -150,7 +152,9 @@ def build_hmr(ckpt: str, device, cfg_file: str = '',
         backbone, use_cam_feats = hmr_hparams_from_cfg(cfg_file)
     model = HMR(backbone=backbone, use_cam=True, use_cam_feats=use_cam_feats,
                 img_res=img_res, dtype=dtype or torch.float32)
-    if os.path.exists(ckpt):
+    if os.path.isdir(ckpt):
+        model.load_state_dict(load_checkpoint_variables(ckpt))
+    elif os.path.exists(ckpt):
         model.load_state_dict(hmr_state_dict(load_torch_state_dict(ckpt),
                                              model))
     else:

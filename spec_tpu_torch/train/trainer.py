@@ -1,0 +1,383 @@
+"""SPEC training orchestration (torch twin of
+``spec_tpu/train/trainer.py``).
+
+epoch -> rebuild the train dataset (the staged-dataset and
+teacher-force schedules live in ``make_train_dataset``) -> train steps
+on the device (``train/steps.py``; one CUDA graph replay each on a card)
+-> validation through ``eval/eval_loop.evaluate_dataset`` ->
+checkpoints ranked by ``val_mpjpe`` (top-k) -> TensorBoard scalars,
+when ``torch.utils.tensorboard`` imports.
+
+NaN guard: the step's losses are read on the host every
+``LOG_SAVE_INTERVAL`` steps and training stops on a non-finite loss.
+SIGTERM saves the in-flight state with the number of batches already
+consumed, so ``resume`` continues sample-exact mid-epoch.
+
+Not ported yet, each raising ``NotImplementedError``: TRAINING.RUN_SMPLIFY
+(ROADMAP.md §1 item 9), TRAINING.REMAT (item 9), TensorBoard image grids
+(``LOG_FREQ_TB_IMAGES > 0`` with a writer: the renderer, item 10),
+TRAINING.FSDP (item 12). One process drives one device.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from spec_tpu_torch.core import constants as C
+from spec_tpu_torch.losses import HMRLossConfig
+from spec_tpu_torch.train.state import create_train_state, make_optimizer
+from spec_tpu_torch.train.steps import SPEC_BATCH_KEYS, make_spec_train_step
+from spec_tpu_torch.utils.checkpoints import (
+    find_resume_checkpoint_dir,
+    latest_step,
+    load_checkpoint,
+    save_checkpoint,
+)
+from spec_tpu_torch.utils.graphs import device_constant
+from spec_tpu_torch.utils.profiling import StepTimer, set_seed
+
+
+class SpecTrainer:
+    def __init__(self, cfg, model, assets_by_gender, j_regressor_h36m,
+                 make_train_dataset, make_val_loaders):
+        """cfg: a resolved CfgNode (``spec_default_config`` tree);
+        model: the HMR module, on the device to train on, with its
+        starting weights (the reference always starts from pretrained
+        ones); make_train_dataset: fn(epoch) -> dataset; make_val_loaders:
+        fn() -> {ds_name: loader}."""
+        self.cfg = cfg
+        self.model = model
+        self.assets = assets_by_gender
+        self.jreg = j_regressor_h36m
+        self.make_train_dataset = make_train_dataset
+        self.make_val_loaders = make_val_loaders
+        self.device = next(model.parameters()).device
+
+        training = cfg.TRAINING
+        for key, item in (('RUN_SMPLIFY', 'ROADMAP.md §1 item 9, '
+                           'train/smplify.py'),
+                          ('REMAT', 'ROADMAP.md §1 item 9'),
+                          ('FSDP', 'ROADMAP.md §1 item 12, parallel/')):
+            if training.get(key, False):
+                raise NotImplementedError(
+                    f'TRAINING.{key} is not ported yet ({item})')
+        # Fail fast on an operator error the reference only catches at
+        # validation time, after a whole trained epoch: in-the-wild val
+        # sets have no 3D GT, so their evaluation needs images.
+        from spec_tpu_torch.utils.config import split_ds_names
+        itw = [n for n in split_ds_names(cfg.DATASET.VAL_DS)
+               if n in ('mpii', 'coco')]
+        if itw and not cfg.TESTING.SAVE_IMAGES:
+            raise SystemExit(
+                f'{itw} are in-the-wild datasets (no 3D GT): their '
+                'evaluation is qualitative only — set '
+                'TESTING.SAVE_IMAGES True (reference '
+                'spec/trainer.py:262-269)')
+
+        # The init buffers stay frozen (the reference's mean params).
+        tx = make_optimizer(
+            cfg.OPTIMIZER, freeze_buffers=True,
+            grad_accum_steps=int(training.get('GRAD_ACCUM_STEPS', 1) or 1))
+        loss_cfg = HMRLossConfig(
+            shape_loss_weight=cfg.HMR.SHAPE_LOSS_WEIGHT,
+            keypoint_loss_weight=cfg.HMR.KEYPOINT_LOSS_WEIGHT,
+            pose_loss_weight=cfg.HMR.POSE_LOSS_WEIGHT,
+            beta_loss_weight=cfg.HMR.BETA_LOSS_WEIGHT,
+            openpose_train_weight=cfg.HMR.OPENPOSE_TRAIN_WEIGHT,
+            gt_train_weight=cfg.HMR.GT_TRAIN_WEIGHT,
+            loss_weight=cfg.HMR.LOSS_WEIGHT,
+        )
+        self.state = create_train_state(model, tx)
+        self.step = make_spec_train_step(model, assets_by_gender['neutral'],
+                                         tx, loss_cfg)
+
+        self.writer = None
+        if cfg.LOGDIR:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                SummaryWriter = None
+            if SummaryWriter is not None:
+                if cfg.LOG_FREQ_TB_IMAGES > 0:
+                    raise NotImplementedError(
+                        'TensorBoard image grids (LOG_FREQ_TB_IMAGES > 0) '
+                        'need the mesh renderer, which is not ported yet '
+                        '(ROADMAP.md §1 item 10): set LOG_FREQ_TB_IMAGES 0')
+                self.writer = SummaryWriter(
+                    os.path.join(cfg.LOGDIR, 'tb_logs'),
+                    max_queue=100_000, flush_secs=600)
+        self.ckpt_dir = os.path.join(cfg.LOGDIR or '.', 'checkpoints')
+        self.best: list = []  # [(val metric, step, checkpoints dir)]
+        self._resume_epoch = 0
+        self._resume_skip = 0
+
+    # ------------------------------------------------------------------
+
+    def resume(self, wo_optimizer: bool = False):
+        """Restore the latest checkpoint. ``wo_optimizer`` takes the
+        weights and BN statistics only and keeps the fresh optimizer and
+        step 0 (the reference's ``--resume_wo_optimizer``).
+
+        Each run has its own timestamped LOGDIR, so a crashed run's
+        checkpoints are not in ``self.ckpt_dir``: fall back to
+        TRAINING.RESUME, then to the latest sibling run with
+        checkpoints."""
+        ckpt_dir, step = self.ckpt_dir, None
+        if latest_step(ckpt_dir) is None:
+            found = find_resume_checkpoint_dir(
+                self.cfg.LOGDIR,
+                explicit=self.cfg.TRAINING.get('RESUME') or None)
+            ckpt_dir, step = found if found else (None, None)
+        if ckpt_dir is None:
+            print('[train] WARNING: --resume requested but no checkpoint '
+                  'found (no TRAINING.RESUME path and no prior run with '
+                  'checkpoints next to this logdir) — starting from '
+                  'scratch')
+            return
+        try:
+            restored = load_checkpoint(ckpt_dir, step=step)
+        except FileNotFoundError:
+            print(f'[train] WARNING: no checkpoints in {ckpt_dir} — '
+                  'starting from scratch')
+            return
+        print(f'[train] restoring from {ckpt_dir}'
+              + (f' (pinned step {step})' if step is not None else ''))
+        self.model.load_state_dict(restored['model'])
+        if wo_optimizer:
+            print('[train] resumed params/batch_stats only (fresh '
+                  f'optimizer) from step {restored["step"]}')
+            return
+        self.state.optimizer.load_state_dict(restored['optimizer'])
+        self.state.step = restored['step']
+        print(f'[train] resumed from step {self.state.step}')
+        try:
+            with open(os.path.join(ckpt_dir, 'meta.json')) as f:
+                meta = json.load(f)
+            key = str(restored['step'])
+            if key in meta.get('epochs', {}):
+                self._resume_epoch = int(meta['epochs'][key])
+            self._resume_skip = int(meta.get('skip', {}).get(key, 0))
+            self.best = [(float(e[0]), int(e[1]),
+                          e[2] if len(e) > 2 else ckpt_dir)
+                         for e in meta.get('ranked', [])]
+        except (OSError, ValueError, KeyError):
+            pass
+
+    def _read_meta(self) -> dict:
+        try:
+            with open(os.path.join(self.ckpt_dir, 'meta.json')) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return {}
+
+    def _write_meta(self, next_epoch: int, step: int, skip: int = 0):
+        """The sidecar, keyed by step: the epoch to run next after that
+        step's checkpoint, the batches of it already consumed (``skip``,
+        a mid-epoch preemption save) and the top-k ranking."""
+        meta = self._read_meta()
+        meta.setdefault('epochs', {})[str(int(step))] = int(next_epoch)
+        meta.setdefault('skip', {})[str(int(step))] = int(skip)
+        meta['ranked'] = [[float(v), int(st), d] for v, st, d in self.best]
+        try:
+            with open(os.path.join(self.ckpt_dir, 'meta.json'), 'w') as f:
+                json.dump(meta, f)
+        except OSError:
+            pass
+
+    def _device_batch(self, batch) -> dict:
+        """The loader's numpy batch -> the step's tensors on the device,
+        the crops ImageNet-normalized."""
+        src = dict(batch, cam_intrinsics=batch['cam_int'])
+        dev = {}
+        for k in SPEC_BATCH_KEYS:
+            v = torch.as_tensor(np.asarray(src[k], dtype=np.float32))
+            dev[k] = v.to(self.device, non_blocking=True)
+        mean = device_constant(C.IMG_NORM_MEAN, self.device)
+        std = device_constant(C.IMG_NORM_STD, self.device)
+        dev['img'] = (dev['img'] - mean) / std
+        return dev
+
+    def _save(self, global_step: int):
+        save_checkpoint(self.ckpt_dir, self.state, global_step, keep=1000)
+
+    def fit(self, max_epochs: Optional[int] = None):
+        from spec_tpu_torch.utils.preemption import GracefulShutdown
+
+        with GracefulShutdown() as stop:
+            return self._fit(max_epochs, stop)
+
+    def _fit(self, max_epochs, stop):
+        from spec_tpu_torch.data.loader import DataLoader
+
+        cfg = self.cfg
+        max_epochs = max_epochs or cfg.TRAINING.MAX_EPOCHS
+        generator = set_seed(cfg.SEED_VALUE, self.device)
+        global_step = int(self.state.step)
+        start_epoch = min(self._resume_epoch, max_epochs)
+        if start_epoch:
+            print(f'[train] resuming at epoch {start_epoch} '
+                  f'(step {global_step})')
+        resume_skip, self._resume_skip = self._resume_skip, 0
+
+        for epoch in range(start_epoch, max_epochs):
+            skip = resume_skip if epoch == start_epoch else 0
+            batches_done = skip
+            train_ds = self.make_train_dataset(epoch)
+            group_keys = (train_ds.imgname
+                          if cfg.DATASET.get('GROUP_BY_FRAME', False)
+                          and hasattr(train_ds, 'imgname') else None)
+            loader = DataLoader(
+                train_ds, batch_size=cfg.DATASET.BATCH_SIZE,
+                shuffle=cfg.DATASET.SHUFFLE_TRAIN,
+                num_workers=cfg.DATASET.NUM_WORKERS, drop_last=True,
+                seed=epoch, skip_batches=skip, group_keys=group_keys)
+            if skip:
+                print(f'[train] epoch {epoch}: skipping {skip} already-'
+                      'trained batches (mid-epoch resume)')
+            t0 = time.time()
+            n_img = 0
+            timer = StepTimer()
+            batch_iter = iter(loader)
+            while True:
+                with timer('load'):
+                    batch = next(batch_iter, None)
+                if batch is None:
+                    break
+                if stop.requested:
+                    # Preemption: checkpoint the in-flight state (keep
+                    # 1000: recency pruning must not delete the ranked
+                    # best checkpoints) so --resume continues here.
+                    self._save(global_step)
+                    if self.writer:
+                        self.writer.flush()
+                    self._write_meta(epoch, global_step, skip=batches_done)
+                    print(f'[train] preempted at step {global_step}; '
+                          f'checkpoint saved to {self.ckpt_dir}')
+                    return self.state
+                with timer('h2d'):
+                    dev = self._device_batch(batch)
+                with timer('step'):
+                    self.state, metrics = self.step(self.state, dev,
+                                                    generator)
+                global_step += 1
+                batches_done += 1
+                n_img += cfg.DATASET.BATCH_SIZE
+                if global_step % cfg.TRAINING.LOG_SAVE_INTERVAL == 0:
+                    values = {k: float(v) for k, v in metrics.items()}
+                    total = values['loss/total_loss']
+                    if not np.isfinite(total):
+                        raise FloatingPointError(
+                            f'non-finite loss at step {global_step}: '
+                            f'{values}')
+                    ips = n_img / (time.time() - t0)
+                    print(f'[train] epoch {epoch} step {global_step} '
+                          f'loss {total:.3f} ({ips:.1f} img/s | '
+                          f'{timer.report()})')
+                    if self.writer:
+                        for k, v in values.items():
+                            self.writer.add_scalar(f'train/{k}', v,
+                                                   global_step)
+
+            val_every = max(int(cfg.TRAINING.CHECK_VAL_EVERY_N_EPOCH), 1)
+            if (epoch + 1) % val_every == 0:
+                val_metric = self.validate(epoch, global_step)
+                self._save(global_step)
+                self._write_meta(epoch + 1, global_step)
+                self._prune_ranked(val_metric, global_step)
+            else:
+                self._save(global_step)
+                self._write_meta(epoch + 1, global_step)
+            if self.writer:
+                self.writer.flush()
+        return self.state
+
+    def _prune_ranked(self, val_metric: float, step: int, keep: int = 30):
+        """Keep the ``keep`` best checkpoints by validation metric (the
+        reference's ModelCheckpoint(save_top_k=30)); an entry carries
+        the directory it was saved in (a resumed run prunes the previous
+        run's). A NaN metric ranks nothing."""
+        if not np.isfinite(val_metric):
+            return
+        self.best.append((float(val_metric), step, self.ckpt_dir))
+        self.best.sort(key=lambda t: t[:2])
+        for _, worst_step, worst_dir in self.best[keep:]:
+            shutil.rmtree(os.path.join(worst_dir, f'step_{worst_step:08d}'),
+                          ignore_errors=True)
+        self.best = self.best[:keep]
+
+    def validate(self, epoch: int, global_step: int) -> float:
+        """``evaluate_dataset`` on each val loader with the model as it
+        stands; returns the summed ``val_mpjpe`` (NaN when no dataset
+        gave a finite one) and appends each summary to
+        ``val_accuracy_results_<ds>.json``."""
+        from spec_tpu_torch.eval.eval_loop import evaluate_dataset
+
+        total, n_finite = 0.0, 0
+        try:
+            for ds_name, loader in self.make_val_loaders().items():
+                summary, _ = evaluate_dataset(
+                    self.model, None, loader, self.assets, self.jreg,
+                    use_gt_cam=self.cfg.TESTING.USE_GT_CAM,
+                    use_gender=self.cfg.DATASET.USE_GENDER,
+                    save_results=False, logdir=self.cfg.LOGDIR or None,
+                    save_images=self.cfg.TESTING.SAVE_IMAGES,
+                    save_freq=max(int(self.cfg.TESTING.SAVE_FREQ), 1),
+                    dataset_name=ds_name)
+                print(f'[val] epoch {epoch} {ds_name}: {summary}')
+                if self.writer:
+                    for k, v in summary.items():
+                        if np.isfinite(v):
+                            self.writer.add_scalar(f'val/{ds_name}/{k}', v,
+                                                   global_step)
+                v = summary.get('val_mpjpe', np.nan)
+                if np.isfinite(v):
+                    total += v
+                    n_finite += 1
+                else:
+                    print(f'[val] WARNING: no finite val_mpjpe for '
+                          f'{ds_name}; excluded from the ranking metric')
+                self._append_results_json(ds_name, epoch, summary)
+        finally:
+            self.model.train()
+        if n_finite == 0:
+            print('[val] WARNING: no quantitative val metric produced; '
+                  'skipping ranked checkpoint pruning this epoch')
+            return float('nan')
+        return total
+
+    def _append_results_json(self, ds_name, epoch, summary):
+        if not self.cfg.LOGDIR:
+            return
+        path = os.path.join(self.cfg.LOGDIR,
+                            f'val_accuracy_results_{ds_name}.json')
+        hist = []
+        if os.path.exists(path):
+            with open(path) as f:
+                hist = json.load(f)
+        hist.append({'epoch': epoch, **summary})
+        with open(path, 'w') as f:
+            json.dump(hist, f, indent=2, default=float)
+
+
+def parse_schedule(spec: str) -> dict:
+    """``'0+a_b_0.5_0.5 5+c_1.0' -> {0: 'a_b_0.5_0.5', 5: 'c_1.0'}``
+    (the reference's epoch-keyed schedule strings); a malformed entry
+    raises."""
+    if not spec:
+        return {}
+    out = {}
+    for x in spec.split():
+        epoch, plus, value = x.partition('+')
+        if not plus or not epoch.isdigit() or not value:
+            raise ValueError(
+                f'malformed schedule entry {x!r} in {spec!r} — expected '
+                "'<epoch>+<value>' tokens separated by spaces")
+        out[int(epoch)] = value
+    return out

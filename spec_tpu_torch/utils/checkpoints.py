@@ -11,11 +11,18 @@
   flax variables to this package's state_dicts (inverse of
   ``convert_torch_{resnet,camcalib,hmr}_params``).
 * :func:`assets_from_jax`: the same bridge for ``SMPLAssets``.
+* :func:`save_checkpoint`, :func:`restore_checkpoint`,
+  :func:`latest_step`, :func:`find_resume_checkpoint_dir`: the
+  trainer's own checkpoints, in the JAX package's directory layout.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import shutil
 from collections import OrderedDict
+from typing import Optional
 
 import numpy as np
 import torch
@@ -195,3 +202,150 @@ def assets_from_jax(assets):
         j_regressor_extra=t(assets.j_regressor_extra),
         j_regressor_h36m=t(assets.j_regressor_h36m),
     )
+
+
+# ---------------------------------------------------------------------------
+# The trainer's own checkpoints
+# ---------------------------------------------------------------------------
+#
+# The JAX package's layout: ``<dir>/step_NNNNNNNN/`` per checkpoint, with
+# the trainer's ``meta.json`` beside them. Each step directory here holds
+# torch files: ``model.pt`` (the model's state_dict), ``optimizer.pt``
+# and ``state.json`` (the step). It is written under a temporary name and
+# renamed into place, so a directory named ``step_NNNNNNNN`` is never
+# half-written; a JAX orbax step directory has no ``model.pt``.
+
+MODEL_FILE, OPTIMIZER_FILE, STATE_FILE = 'model.pt', 'optimizer.pt', \
+    'state.json'
+
+
+def _step_dirs(directory: str) -> dict:
+    """{step: dirname} of the complete checkpoints (an interrupted save
+    leaves ``step_NNNNNNNN.tmp-*``, which never counts)."""
+    out = {}
+    try:
+        entries = os.listdir(directory)
+    except (FileNotFoundError, NotADirectoryError):
+        return out
+    for d in entries:
+        suffix = d[len('step_'):]
+        if d.startswith('step_') and suffix.isdigit():
+            out[int(suffix)] = d
+    return out
+
+
+def latest_step(directory: str) -> Optional[int]:
+    steps = _step_dirs(directory)
+    return max(steps) if steps else None
+
+
+def _keep_latest(directory: str, keep: int) -> None:
+    steps = _step_dirs(directory)
+    for n in sorted(steps)[:-keep]:
+        shutil.rmtree(os.path.join(directory, steps[n]), ignore_errors=True)
+
+
+def save_checkpoint(directory: str, state, step: int, keep: int = 30) -> str:
+    """Write ``state`` (a ``train.state.TrainState``) as
+    ``<directory>/step_NNNNNNNN`` (replacing one of the same step) and
+    keep the ``keep`` most recent. Returns the step directory."""
+    directory = os.path.abspath(directory)
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, f'step_{step:08d}')
+    tmp = f'{final}.tmp-{os.getpid()}'
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.save({k: v.detach().cpu() for k, v in
+                state.model.state_dict().items()},
+               os.path.join(tmp, MODEL_FILE))
+    torch.save(state.optimizer.state_dict(),
+               os.path.join(tmp, OPTIMIZER_FILE))
+    with open(os.path.join(tmp, STATE_FILE), 'w') as f:
+        json.dump({'step': int(state.step)}, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    _keep_latest(directory, keep)
+    return final
+
+
+def _step_dir(directory: str, step: Optional[int]) -> str:
+    directory = os.path.abspath(directory)
+    steps = _step_dirs(directory)
+    if not steps:
+        raise FileNotFoundError(f'no checkpoints in {directory}')
+    step = max(steps) if step is None else step
+    path = os.path.join(directory, f'step_{step:08d}')
+    if not os.path.exists(os.path.join(path, MODEL_FILE)):
+        if not os.path.isdir(path):
+            raise FileNotFoundError(f'no checkpoint of step {step} in '
+                                    f'{directory}')
+        raise NotImplementedError(
+            f'{path} is not a spec_tpu_torch checkpoint (no {MODEL_FILE}): '
+            'a JAX package (orbax) checkpoint directory cannot be read by '
+            'the port; convert its weights with state_dict_from_flax')
+    return path
+
+
+def load_checkpoint(directory: str, step: Optional[int] = None) -> dict:
+    """The given (or latest) checkpoint: {'step', 'model' (a state_dict),
+    'optimizer'} on the CPU."""
+    path = _step_dir(directory, step)
+    with open(os.path.join(path, STATE_FILE)) as f:
+        saved_step = int(json.load(f)['step'])
+    return {'step': saved_step,
+            'model': torch.load(os.path.join(path, MODEL_FILE),
+                                map_location='cpu', weights_only=True),
+            'optimizer': torch.load(os.path.join(path, OPTIMIZER_FILE),
+                                    map_location='cpu', weights_only=True)}
+
+
+def restore_checkpoint(directory: str, state, step: Optional[int] = None):
+    """Load the given (or latest) checkpoint into ``state`` in place
+    (model, optimizer, step) and return it."""
+    ckpt = load_checkpoint(directory, step)
+    state.model.load_state_dict(ckpt['model'])
+    state.optimizer.load_state_dict(ckpt['optimizer'])
+    state.step = ckpt['step']
+    return state
+
+
+def load_checkpoint_variables(directory: str,
+                              step: Optional[int] = None) -> dict:
+    """The model state_dict of a trainer checkpoint directory
+    (``spec_eval --ckpt <logdir>/checkpoints``, ``build_hmr``)."""
+    path = _step_dir(directory, step)
+    return torch.load(os.path.join(path, MODEL_FILE), map_location='cpu',
+                      weights_only=True)
+
+
+def find_resume_checkpoint_dir(current_logdir: str,
+                               explicit: Optional[str] = None):
+    """A checkpoint directory to resume from: ``explicit``
+    (TRAINING.RESUME: a checkpoints dir, a run dir holding one, or a
+    single ``step_NNNNNNNN`` dir, which pins that step), else the most
+    recently modified sibling run of ``current_logdir`` with
+    checkpoints. Returns ``(checkpoints_dir, step or None)`` or None."""
+    if explicit:
+        base = os.path.basename(os.path.normpath(explicit))
+        if base.startswith('step_') and os.path.isdir(explicit):
+            suffix = base[len('step_'):]
+            if suffix.isdigit():
+                return os.path.dirname(os.path.abspath(explicit)), \
+                    int(suffix)
+        for c in (explicit, os.path.join(explicit, 'checkpoints')):
+            if latest_step(c) is not None:
+                return c, None
+        return None
+    parent = os.path.dirname(os.path.abspath(current_logdir))
+    if not os.path.isdir(parent):
+        return None
+    runs = [os.path.join(parent, d) for d in os.listdir(parent)
+            if os.path.join(parent, d) != os.path.abspath(current_logdir)]
+    runs = [r for r in runs if os.path.isdir(r)]
+    runs.sort(key=os.path.getmtime, reverse=True)
+    for r in runs:
+        ck = os.path.join(r, 'checkpoints')
+        if latest_step(ck) is not None:
+            return ck, None
+    return None

@@ -1,12 +1,8 @@
-"""SPEC config yamls: the subset of ``spec_tpu/utils/config.py`` that
-inference and evaluation read.
+"""SPEC config yamls: the SPEC part of ``spec_tpu/utils/config.py``.
 
-:class:`CfgNode` is a copy of the reference's attribute-tree dict. The
-defaults keep the reference's DATASET and TESTING trees whole (so every
-``--opts`` key of an eval command line exists), the HMR keys the model
-is built from, and the run's name and log directory; the training keys
-a yaml carries merge in permissively, as in the reference, and are
-unused. :func:`run_grid_search_experiments` is the reference's grid
+:class:`CfgNode` is a copy of the reference's attribute-tree dict, and
+:func:`spec_default_config` its SPEC defaults, every tree whole (so every
+``--opts`` key of a train or eval command line exists). :func:`run_grid_search_experiments` is the reference's grid
 search: list-valued yaml leaves expand into the cartesian product of
 configs, ``cfg_id`` picks one and its hyperparameters name the log
 directory. PyYAML is imported where a file is read or written (the
@@ -104,12 +100,16 @@ def _coerce(val: str, old):
 
 
 def spec_default_config() -> CfgNode:
-    """The reference's SPEC defaults that inference and evaluation read:
-    the DATASET and TESTING trees whole, HMR's model keys, EXP_NAME,
-    LOGDIR and RUN_TEST."""
+    """The reference's SPEC defaults (``spec_tpu.utils.config``)."""
     return CfgNode.from_dict({
         'EXP_NAME': 'spec',
         'LOGDIR': '',
+        'LOG_DIR': 'logs/experiments',
+        'LOG_FREQ_TB_IMAGES': 500,
+        'SEED_VALUE': -1,
+        'METHOD': 'hmr_cam',
+        'PROJECT_NAME': 'spec',
+        'SYSTEM': {'GPU': '', 'CLUSTER_NODE': 0.0},
         'DATASET': {
             'LOAD_TYPE': 'Base',
             'NOISE_FACTOR': 0.4,
@@ -151,6 +151,35 @@ def spec_default_config() -> CfgNode:
             'STAGE_DATASETS': '',
             'NONPARAMETRIC': False,
         },
+        # TYPE/LR/WD are the reference's; the rest are off by default
+        # (train/state.make_optimizer).
+        'OPTIMIZER': {'TYPE': 'adam', 'LR': 1e-4, 'WD': 0.0,
+                      'SCHEDULE': '', 'WARMUP_STEPS': 0,
+                      'DECAY_STEPS': 0, 'DECAY_RATE': 0.1,
+                      'MIN_LR_RATIO': 0.0, 'CLIP_GRAD_NORM': 0.0,
+                      'MOMENTUM': 0.9},
+        'TRAINING': {
+            'RESUME': None,
+            'PRETRAINED': None,
+            'PRETRAINED_LIT': None,
+            'MAX_EPOCHS': 100,
+            'LOG_SAVE_INTERVAL': 50,
+            'LOG_FREQ_TB_IMAGES': 500,
+            'CHECK_VAL_EVERY_N_EPOCH': 1,
+            'RELOAD_DATALOADERS_EVERY_EPOCH': True,
+            'NUM_SMPLIFY_ITERS': 100,
+            'RUN_SMPLIFY': False,
+            'SMPLIFY_THRESHOLD': 100,
+            'DROPOUT_P': 0.2,
+            'TEST_BEFORE_TRAINING': False,
+            'SAVE_IMAGES': False,
+            'USE_PART_SEGM_LOSS': False,
+            'USE_AMP': False,
+            'FSDP': False,
+            'FSDP_GROUP_SIZE': 0,
+            'GRAD_ACCUM_STEPS': 1,
+            'REMAT': False,
+        },
         'TESTING': {
             'SAVE_IMAGES': False,
             'SAVE_FREQ': 1,
@@ -161,8 +190,24 @@ def spec_default_config() -> CfgNode:
             'MULTI_SIDEVIEW': False,
             'USE_GT_CAM': False,
         },
-        'HMR': {'BACKBONE': 'resnet50', 'DTYPE': 'float32',
-                'USE_CAM_FEATS': False},
+        'HMR': {
+            'BACKBONE': 'resnet50',
+            'DTYPE': 'float32',
+            'USE_CAM_FEATS': False,
+            'SHAPE_LOSS_WEIGHT': 0.0,
+            'KEYPOINT_LOSS_WEIGHT': 5.0,
+            'KEYPOINT_NATIVE_LOSS_WEIGHT': 5.0,
+            'SMPL_PART_LOSS_WEIGHT': 1.0,
+            'POSE_LOSS_WEIGHT': 1.0,
+            'BETA_LOSS_WEIGHT': 0.001,
+            'OPENPOSE_TRAIN_WEIGHT': 0.0,
+            'GT_TRAIN_WEIGHT': 1.0,
+            'LOSS_WEIGHT': 60.0,
+            'ESTIMATE_UNCERTAINTY': False,
+            'UNCERTAINTY_ACTIVATION': '',
+            'USE_SEPARATE_VAR_BRANCH': False,
+            'UNCERTAINTY_LOSS': 'MultivariateGaussianNegativeLogLikelihood',
+        },
         'RUN_TEST': False,
     })
 

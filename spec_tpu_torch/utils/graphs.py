@@ -15,15 +15,25 @@ and device of each tensor argument, the key jit compiles on) as a
   A capture that fails raises, naming the stage and the signature:
   nothing falls back to eager on the card. ``StageGraph.fn`` is the
   eager body, for tests that hold replays against it.
-* **Capture.** The function runs once eagerly on a side stream first
+* **Arguments.** Positional arguments are tensors: the signature's
+  static inputs. Keyword arguments are fixed for a graph: a
+  ``torch.Generator`` is registered with it (each replay draws anew
+  from the generator's state), any other value must be hashable and
+  joins the signature.
+* **Grad mode** is the caller's: the serving stages and the pipelines
+  run under ``torch.inference_mode``; a train step records autograd
+  and runs its backward inside the graph.
+* **First call.** The function runs once eagerly on a side stream
   (PyTorch's rule for graphs), so libraries load, the kernels' one-time
   attribute calls happen and lazily built device constants
   (:func:`device_constant`) exist before the capture; then it is
-  captured on the signature's static input buffers.
-* **Replay.** The arguments are copied into the static inputs, the graph
-  replays, and the outputs are cloned out: the next replay of the same
-  graph, or of another graph in the same memory pool, overwrites the
-  static outputs.
+  captured on the signature's static input buffers. The capture runs
+  nothing, so the first call returns the eager run's output (a train
+  step takes its step once per call).
+* **Replay.** Later calls copy the arguments into the static inputs,
+  replay the graph and clone the outputs out: the next replay of the
+  same graph, or of another graph in the same memory pool, overwrites
+  the static outputs.
 * **Launch counters.** The kernel wrappers count launches in Python,
   which a replay skips. The counts a capture made are taken back (the
   capture ran nothing) and added again on every replay.
@@ -57,7 +67,8 @@ def device_constant(values, device, dtype=torch.float32) -> torch.Tensor:
     ``device``, built once per (values, dtype, device) and shared: callers
     must not write to it. Inside a captured stage the constant must
     already exist, from the warm-up run before the capture; building one
-    during a capture raises."""
+    during a capture raises. It is a normal tensor even when first built
+    in inference mode, so a later train step can save it for backward."""
     arr = np.asarray(values)
     key = (arr.tobytes(), arr.shape, arr.dtype.str, dtype, str(device))
     t = _CONSTANTS.get(key)
@@ -66,7 +77,9 @@ def device_constant(values, device, dtype=torch.float32) -> torch.Tensor:
         if dev.type == 'cuda' and torch.cuda.is_current_stream_capturing():
             raise RuntimeError('device_constant: a constant built during a '
                                'CUDA graph capture (warm up first)')
-        t = _CONSTANTS[key] = torch.as_tensor(arr, dtype=dtype, device=dev)
+        with torch.inference_mode(False):
+            t = _CONSTANTS[key] = torch.as_tensor(arr, dtype=dtype,
+                                                  device=dev)
     return t
 
 
@@ -88,23 +101,27 @@ def _flatten(out):
 
 
 class _Captured:
-    """One signature's graph, static buffers and launch counts."""
+    """One signature's graph, static buffers, launch counts and the
+    generators registered with it (held, so that no other generator
+    takes one's id while the graph lives)."""
 
-    def __init__(self, graph, inputs, outputs, rebuild, launches):
+    def __init__(self, graph, inputs, outputs, rebuild, launches,
+                 generators):
         self.graph = graph
         self.inputs = inputs
         self.outputs = outputs
         self.rebuild = rebuild
         self.launches = launches
+        self.generators = generators
 
 
 class StageGraph:
     """A stage function replayed as a CUDA graph per input signature.
 
-    ``fn(*tensors)`` returns tensors in any nesting of tuples, lists and
-    dicts.
+    ``fn(*tensors, **fixed)`` returns tensors in any nesting of tuples,
+    lists and dicts.
     ``pool``: a ``torch.cuda.graph_pool_handle()`` shared with other
-    stages, or None for a pool of this stage's own.
+    stages, or None for a pool of each graph's own.
     """
 
     def __init__(self, name: str, fn: Callable, pool=None):
@@ -114,52 +131,64 @@ class StageGraph:
         self._graphs: collections.OrderedDict = collections.OrderedDict()
 
     def signatures(self) -> list:
-        """The captured signatures, least recently used first."""
+        """The captured signatures, least recently used first: a
+        (shape, dtype, device) per tensor, then a (name, value) per fixed
+        argument (a generator's value is its id)."""
         return list(self._graphs)
 
-    def __call__(self, *args):
+    def __call__(self, *args, **fixed):
         if not all(isinstance(a, torch.Tensor) for a in args):
             raise TypeError(f'stage {self.name!r} takes tensors only')
         if not any(a.is_cuda for a in args):
-            return self.fn(*args)
+            return self.fn(*args, **fixed)
         key = tuple((tuple(a.shape), a.dtype, str(a.device)) for a in args)
-        with torch.inference_mode(), torch.cuda.device(args[0].device):
+        key += tuple((k, id(v) if isinstance(v, torch.Generator) else v)
+                     for k, v in sorted(fixed.items()))
+        with torch.cuda.device(args[0].device):
             entry = self._graphs.get(key)
             if entry is None:
-                entry = self._capture(key, args)
+                entry, out = self._capture(key, args, fixed)
                 self._graphs[key] = entry
                 while len(self._graphs) > MAX_GRAPHS:
                     _, old = self._graphs.popitem(last=False)
                     old.graph.reset()
-            else:
-                self._graphs.move_to_end(key)
-                for static, a in zip(entry.inputs, args):
-                    static.copy_(a)
-            return self._replay(entry)
+                return out
+            self._graphs.move_to_end(key)
+            for static, a in zip(entry.inputs, args):
+                static.copy_(a)
+            entry.graph.replay()
+            for mod, n in entry.launches:
+                mod.LAUNCHES += n
+            return entry.rebuild([t.clone() for t in entry.outputs])
 
-    def _replay(self, entry: _Captured):
-        entry.graph.replay()
-        for mod, n in entry.launches:
-            mod.LAUNCHES += n
-        return entry.rebuild([t.clone() for t in entry.outputs])
-
-    def _capture(self, key, args) -> _Captured:
-        """Warm up on a side stream, capture on static copies of ``args``;
-        the static inputs hold ``args`` afterwards."""
+    def _capture(self, key, args, fixed) -> tuple:
+        """Run on a side stream, then capture on static copies of
+        ``args`` (which hold ``args`` afterwards). Returns the capture
+        and a clone of the eager run's output."""
         device = args[0].device
         inputs = [a.clone() for a in args]
         side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
+        current = torch.cuda.current_stream(device)
+        side.wait_stream(current)
         with torch.cuda.stream(side):
-            self.fn(*inputs)
-        torch.cuda.current_stream(device).wait_stream(side)
+            out = self.fn(*inputs, **fixed)
+        current.wait_stream(side)
+        leaves, rebuild = _flatten(out)
+        for t in leaves:
+            t.record_stream(current)     # made on the side, read here
+        # cloned, as a replay's are: an output may alias a static input
+        out = rebuild([t.clone() for t in leaves])
 
         mods = _launch_modules()
         before = [m.LAUNCHES for m in mods]
+        generators = [g for g in fixed.values()
+                      if isinstance(g, torch.Generator)]
         graph = torch.cuda.CUDAGraph()
         try:
+            for g in generators:
+                graph.register_generator_state(g)
             with torch.cuda.graph(graph, pool=self.pool):
-                outputs, rebuild = _flatten(self.fn(*inputs))
+                outputs, rebuild = _flatten(self.fn(*inputs, **fixed))
         except Exception as e:
             raise RuntimeError(
                 f'CUDA graph capture of stage {self.name!r} failed for '
@@ -169,9 +198,15 @@ class StageGraph:
             for m, b in zip(mods, before):
                 m.LAUNCHES = b
         return _Captured(graph, inputs, outputs, rebuild,
-                         [(m, n) for m, n in zip(mods, counted) if n])
+                         [(m, n) for m, n in zip(mods, counted) if n],
+                         generators), out
 
 
 def _describe(key) -> str:
-    return ', '.join(f'{tuple(s)} {str(dt).replace("torch.", "")} {d}'
-                     for s, dt, d in key)
+    def one(item):
+        if len(item) == 2:                          # a fixed argument
+            return f'{item[0]}={item[1]}'
+        shape, dtype, device = item
+        return f'{tuple(shape)} {str(dtype).replace("torch.", "")} {device}'
+
+    return ', '.join(one(item) for item in key)

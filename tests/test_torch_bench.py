@@ -62,7 +62,7 @@ def test_arguments_and_defaults_follow_bench_py():
     assert 'rng.rand(480, 640, 3)' in (REPO / 'bench.py').read_text()
 
 
-@pytest.mark.parametrize('bad', [['--iters', '0'], ['--mode', 'train'],
+@pytest.mark.parametrize('bad', [['--iters', '0'], ['--mode', 'input'],
                                  ['--stage1', 'flax']])
 def test_bad_arguments_exit(bad):
     with pytest.raises(SystemExit):
@@ -86,6 +86,11 @@ TINY = {
              '--backbone', 'resnet18'],
     'eval fp32': ['--mode', 'eval', '--batch', '2', '--frame_h', '64',
                   '--backbone', 'resnet18', '--dtype', 'fp32'],
+    'train': ['--mode', 'train', '--batch', '2', '--frame_h', '64',
+              '--backbone', 'resnet18'],
+    'train eager fp32': ['--mode', 'train', '--batch', '2', '--frame_h',
+                         '64', '--backbone', 'resnet18', '--dtype', 'fp32',
+                         '--eager'],
 }
 
 
@@ -103,7 +108,8 @@ def test_tiny_cpu_run_prints_one_result_line(case, capsys):
     assert math.isfinite(result['value']) and result['value'] > 0
     assert spread['min'] <= result['value'] <= spread['max']
     unit = {'pipeline': 'img/s/gpu', 'serving': 'persons/s/gpu',
-            'latency': 'ms/frame e2e', 'eval': 'img/s/gpu'}[case.split()[0]]
+            'latency': 'ms/frame e2e', 'eval': 'img/s/gpu',
+            'train': 'img/s/gpu'}[case.split()[0]]
     assert result['unit'] == unit
     if case == 'latency':
         assert result['compute_ms'] == pytest.approx(
@@ -128,6 +134,39 @@ def test_eval_mode_takes_bench_py_eval_inputs():
                    'S.create_test_assets(seed=i)',
                    "('neutral', 'male', 'female')", 'use_gender=True'):
         assert phrase in body, phrase
+
+
+def test_train_mode_takes_bench_py_train_setup():
+    """--mode train: bench.py's train_bench setup (B = 64, ResNet-50
+    with camera features, bf16, synthetic SMPL, zeroed decoders, Adam
+    1e-4) and its batch, array for array."""
+    import numpy as np
+
+    import __graft_entry__ as ge
+
+    args = TB.parse_args(['--mode', 'train'])
+    assert args.batch == 64 and (args.frame_h, args.frame_w) == (224, 224)
+    assert args.backbone == 'resnet50' and args.dtype == 'bf16'
+    assert not args.eager
+    text = (REPO / 'bench.py').read_text()
+    setup = text[text.index('def _train_setup'):text.index('def train_bench')]
+    for phrase in ('S.create_test_assets()', 'use_cam_feats=True',
+                   'dtype=jnp.bfloat16', '_zero_head_decoders(variables)',
+                   'adam(1e-4)', 'S.with_packed_lbs(assets)'):
+        assert phrase in setup, phrase
+    rng = np.random.RandomState(0)
+    want = ge._example_batch(3, rng, ge._example_inputs(3, 32, rng))
+    got = TB.train_inputs(3, 32)
+    assert list(got) == list(want)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k], np.asarray(w), rtol=1e-6,
+                                   atol=1e-6, err_msg=k)
+    state, step, batch = TB.train_setup(2, 'resnet18', torch.float32,
+                                        torch.device('cpu'), res=32)
+    head = state.model.head
+    assert not any(bool(t.any()) for t in (head.decpose.weight,
+                                           head.deccam.bias))
+    assert head.init_cam.requires_grad      # Adam trains the init buffers
 
 
 def test_without_a_card_it_exits_nonzero_and_names_the_card(monkeypatch,

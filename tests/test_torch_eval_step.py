@@ -203,9 +203,11 @@ def test_unported_options_raise_and_name_their_item(models, tmp_path):
     npz = tmp_path / 'a.npz'
     np.savez(npz, imgname=np.array(['x.png']), scale=np.ones(1, 'f4'),
              center=np.zeros((1, 2), 'f4'))
-    for kw in ({'is_train': True}, {'occluders': []}, {'fast_decode': True},
-               {'region_cache_dir': str(tmp_path)}):
+    for kw in ({'fast_decode': True}, {'region_cache_dir': str(tmp_path)}):
         with pytest.raises(NotImplementedError, match='item 9'):
             CamDataset(str(npz), str(tmp_path), 'x', **kw)
+    # training mode and occluders are ported (tests/test_torch_train_data.py)
+    assert CamDataset(str(npz), str(tmp_path), 'x', is_train=True,
+                      occluders=[]).is_train
     with pytest.raises(NotImplementedError, match='item 12'):
         DataLoader([1, 2], batch_size=2, process_id=1, process_count=2)

@@ -157,6 +157,27 @@ def test_stage_graph_refuses_arguments_other_than_tensors():
         graphs.StageGraph('s', lambda x, k: x)(torch.ones(2), 3)
 
 
+def test_stage_graph_passes_fixed_arguments():
+    """Keyword arguments reach the function as they are (on the card a
+    generator is registered with the graph and the rest join the
+    signature, which a failed capture names)."""
+    seen = []
+
+    def fn(x, *, scale, generator):
+        seen.append((scale, generator))
+        return x * scale
+
+    gen = torch.Generator()
+    out = graphs.StageGraph('s', fn)(torch.ones(2), scale=3.0,
+                                     generator=gen)
+    assert torch.equal(out, torch.full((2,), 3.0))
+    assert seen == [(3.0, gen)]
+    key = ((((2, 3), torch.float32, 'cuda:0'),)
+           + (('names', ('img',)), ('update', True)))
+    assert graphs._describe(key) == \
+        "(2, 3) float32 cuda:0, names=('img',), update=True"
+
+
 @pytest.mark.parametrize('out', [
     torch.ones(2),
     (torch.ones(2), torch.zeros(3)),
@@ -192,6 +213,18 @@ def test_device_constant_is_built_once_per_values_dtype_and_device():
     idx = graphs.device_constant((2, 0), 'cpu', torch.long)
     assert idx.dtype == torch.long and idx.tolist() == [2, 0]
     assert graphs.device_constant([0.5, 2.5], 'cpu') is not a
+
+
+def test_device_constant_first_built_in_inference_mode_trains():
+    """A constant an inference-mode caller built first (an eval step,
+    the predictor) is a normal tensor: a train step can save it for
+    backward."""
+    with torch.inference_mode():
+        idx = graphs.device_constant((0, 0, 1, 7), 'cpu', torch.long)
+    assert not idx.is_inference()
+    x = torch.ones(3, 2, requires_grad=True)
+    x[idx[:3]].sum().backward()
+    assert x.grad.tolist() == [[2.0, 2.0], [1.0, 1.0], [0.0, 0.0]]
 
 
 def test_bf16_autocast_keeps_no_cache_of_cast_weights():

@@ -188,7 +188,7 @@ def test_plain_version_is_differentiable_kernel_backward_raises(rng):
     grad = torch.from_numpy(rng.randn(2, V, 3).astype('f4'))
     ctx = types.SimpleNamespace(
         saved_tensors=(packed.dirs, packed.weights_t, coeffs, rel_tf),
-        num_vertices=V)
+        num_vertices=V, needs_input_grad=(True,) * 5)
     got = TL._FusedLBS.backward(ctx, grad)
     assert len(got) == 5 and got[4] is None
     for name, g, w in zip(GRAD_NAMES, got, _plain_grads(packed, coeffs,
@@ -196,6 +196,13 @@ def test_plain_version_is_differentiable_kernel_backward_raises(rng):
         assert g.shape == w.shape, name
         _assert_rel_close(g, w, 1e-4, name)
     assert not got[0][..., V:].any() and not got[1][:, V:].any()
+    # a train step differentiates coeffs and rel_tf only: the packed
+    # operands' cotangents are skipped, the other two unchanged
+    ctx.needs_input_grad = (False, False, True, True, False)
+    part = TL._FusedLBS.backward(ctx, grad)
+    assert part[0] is None and part[1] is None
+    for g, w in zip(part[2:4], got[2:4]):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
     with pytest.raises(RuntimeError):
         TL._FusedLBS.backward(ctx, grad[:, :-1])
 
