@@ -106,7 +106,35 @@ printing its own results; any failure raises and exits nonzero:
     ``spec_eval``'s loader reading the checkpoint back); ``spec_train
     --help``; ``python -m spec_tpu_torch.bench --mode train --profile``,
     with and without ``--eager``;
-15. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
+15. CamCalib training at the released recipe
+    (``configs/camcalib/config_sa_bias_l2.yaml``: ResNet-50, one FC layer,
+    softargmax biased-L2 at weights 10, Adam 1e-3, fp32, MIN_RES 600,
+    MAX_RES 1000) on in-memory uint8 frames of 480x640 (resized to
+    600x800, bucket 640x832) and 720x1280 (562x1000, bucket 576x1024):
+    a replay of ``train/steps.make_camcalib_train_step`` held to its
+    eager body bit for bit, with fp32 batches and with DEVICE_JITTER
+    uint8 batches; ``cli/camcalib_train.train``'s epoch loop at the
+    recipe's batch of 4 (two buckets, two steps an epoch, validation MAE
+    in degrees, checkpoints), preempted after one step and resumed in a
+    sibling run that skips that batch; three fp32 steps on the card
+    against the CPU (ResNet-18, 64x96 frames); ms per step at B = 16 in
+    bucket 640x832 as a replay and eagerly, device busy, idle share and
+    peak memory; ``camcalib_train --help``;
+16. SMPLify (``train/smplify.smplify_fit``) at B = 64, 100 iterations,
+    V = 6890, keypoints projected from a perturbed pose: one graph
+    replay per fit held to its eager body bit for bit, the reprojection
+    loss falling, K1's launches per replay (the wrapper's count and the
+    profiler's, 101), ms per fit with its top device operations, K1's
+    forward time and its backward's (measured alone, times 100) against
+    the backward's bound; card against CPU at B = 8 and 10 iterations;
+    ``SpecTrainer`` with RUN_SMPLIFY over in-memory samples, with the
+    fits it accepted;
+17. REMAT at the bench's train setup (B = 64, ResNet-50, bf16): two
+    steps with and without ``remat`` from the same init, the losses,
+    parameters and BatchNorm statistics compared (bit for bit with cuDNN
+    deterministic), ms per step and peak memory both ways, then
+    ``python -m spec_tpu_torch.bench --mode train --remat`` once;
+18. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then, instead of
 the rest, profiles phase 4's predictor (wall medians per stage, device
@@ -2395,6 +2423,610 @@ def phase_train(device='cuda'):
     return launches
 
 
+# -- this slice: CamCalib training, SMPLify, REMAT ----------------------
+
+# The released CamCalib recipe, configs/camcalib/config_sa_bias_l2.yaml,
+# as a dict (the card machine has no YAML reader;
+# tests/test_torch_camcalib_train.py holds the two equal): ResNet-50, one
+# 1024-wide FC layer per head, softargmax biased-L2 at weights 10, Adam
+# 1e-3, fp32, batches of 4.
+CAMCALIB_RECIPE = {
+    'EXP_NAME': 'pano_scalenet_softargmax_biased_l2_lw10',
+    'METHOD': 'pano',
+    'DATASET': {'TRAIN_DS': 'pano_scalenet', 'VAL_DS': 'pano_scalenet',
+                'BATCH_SIZE': 4, 'NUM_WORKERS': 16, 'IMG_RES': 224},
+    'OPTIMIZER': {'TYPE': 'adam', 'LR': 0.001, 'WD': 0.0},
+    'TRAINING': {'MAX_EPOCHS': 30, 'SAVE_IMAGES': True,
+                 'LOG_SAVE_INTERVAL': 50, 'LOG_FREQ_TB_IMAGES': 2000},
+    'MODEL': {'BACKBONE': 'resnet50', 'NUM_FC_LAYERS': 1,
+              'NUM_FC_CHANNELS': 1024, 'LOSS_TYPE': 'softargmax_biased_l2',
+              'LOSS_VFOV_WEIGHT': 10.0, 'LOSS_PITCH_WEIGHT': 10.0,
+              'LOSS_ROLL_WEIGHT': 10.0},
+}
+# Full-resolution frames of the in-memory pano items and their buckets at
+# MIN_RES 600 / MAX_RES 1000 (multiples of 64): 480x640 resizes to
+# 600x800, 720x1280 to 562x1000 (562.5 rounds to even).
+CAMCALIB_FRAMES = {(480, 640): (640, 832), (720, 1280): (576, 1024)}
+CAMCALIB_MIN_MAX = (600, 1000)
+CAMCALIB_TIMING_BATCH = 16
+# Card against CPU: three fp32 steps at phase 8's small size, Adam 1e-5
+# (Adam's sign noise grows the card/CPU gap a few times per step at
+# 1e-3); phase 14's limits.
+CAMCALIB_CPU = dict(batch=4, hw=(64, 96), backbone='resnet18', steps=3,
+                    lr=1e-5)
+# SMPLify at the train batch: B = 64, the default 100 iterations,
+# synthetic SMPL (V = 6890), targets projected from a perturbed pose (the
+# reference test's problem). Card against CPU at B = 8 and 10
+# iterations: each fitted parameter within 1e-4 absolute (read on the
+# CPU against the JAX package at 100 iterations: 5e-7), the per-sample
+# reprojection loss within 1e-4 relative, the acceptance at the median
+# per-joint loss equal.
+SMPLIFY_BATCH, SMPLIFY_ITERS = 64, 100
+SMPLIFY_CPU = dict(batch=8, iters=10)
+SMPLIFY_PARAM_ATOL, SMPLIFY_REPROJ_RTOL = 1e-4, 1e-4
+
+
+def _k1_backward_work(B, V=6890, C=218):
+    """FLOPs and bytes of ``ops/lbs.fused_lbs_backward`` for the
+    ``coeffs`` and ``rel_tf`` cotangents over V vertices: the recompute
+    of ``posed`` (2 B C 3 V) and of the blended transforms (2 B 12 24 V),
+    ``dposed`` (2 B 9 V), ``dcoeffs`` (2 B 3 V C), ``dt`` (B 9 V) and
+    ``da`` (2 B 12 V 24); each input read once (dirs, weights_t over V
+    vertices, coeffs, rel_tf, the (B, V, 3) cotangent), each output
+    written once (dcoeffs, da)."""
+    flops = 2.0 * B * V * (3 * C + 12 * 24 + 9 + 3 * C + 12 * 24) \
+        + 9.0 * B * V
+    nbytes = 4.0 * (3 * C * V + 24 * V + 2 * B * C + 2 * B * 24 * 12
+                    + B * V * 3)
+    return flops, nbytes
+
+
+class _StopAfter:
+    """A GracefulShutdown whose flag rises at check ``n + 1``: a preempted
+    run, without a signal."""
+
+    def __init__(self, n):
+        self.n, self.checks = n, 0
+
+    @property
+    def requested(self):
+        self.checks += 1
+        return self.checks > self.n
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+class _PanoItems:
+    """In-memory CamCalib items as ``CameraRegressorDataset`` yields them
+    (the card machine decodes no JPEG): uint8 frames already resized from
+    the full-resolution sizes of CAMCALIB_FRAMES, in turns, with
+    ``shape_buckets`` from those sizes; DEVICE_JITTER items carry the
+    jitter affine, the others are jittered (train) or normalized (val)
+    on the host."""
+
+    def __init__(self, n, seed, device_jitter, is_train, frames=None):
+        import numpy as np
+
+        from spec_tpu_torch.data import pano_dataset as TP
+
+        rng = np.random.RandomState(seed)
+        frames = frames or list(CAMCALIB_FRAMES)
+        min_max = CAMCALIB_MIN_MAX
+        self.items, self.buckets = [], {}
+        for i in range(n):
+            h, w = frames[i % len(frames)]
+            s = TP.resize_scale(w, h, *min_max)
+            arr = rng.randint(0, 256, (round(h * s), round(w * s), 3)
+                              ).astype(np.uint8)
+            self.items.append(TP.make_item(
+                arr, np.array((w, h), np.int32), 0.6 + 0.02 * i,
+                0.01 * i - 0.1, 0.05 - 0.01 * i, f'frame{i}',
+                'softargmax_biased_l2', is_train, device_jitter, rng))
+            self.buckets.setdefault(TP.resized_bucket(w, h, *min_max),
+                                    []).append(i)
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+    def shape_buckets(self):
+        return self.buckets
+
+
+def _pano_batch(n, hw, device_jitter, seed, device):
+    """One bucketed batch of ``n`` frames of full-resolution ``hw`` on
+    ``device``, in the train step's layout."""
+    import torch
+
+    from spec_tpu_torch.cli.camcalib_train import _TRAIN_KEYS
+    from spec_tpu_torch.data.pano_dataset import pad_collate
+
+    items = _PanoItems(n, seed, device_jitter, True, frames=[hw])
+    (bucket,) = items.shape_buckets()
+    batch = pad_collate(items.items, fixed_hw=bucket)
+    return {k: torch.from_numpy(batch[k]).to(device) for k in _TRAIN_KEYS
+            if k in batch}
+
+
+def _camcalib_cfg(logdir):
+    from spec_tpu_torch.utils.config import camcalib_default_config
+
+    cfg = camcalib_default_config()
+    cfg.merge_from_dict(CAMCALIB_RECIPE)
+    cfg.DATASET.MIN_RES, cfg.DATASET.MAX_RES = CAMCALIB_MIN_MAX
+    cfg.LOGDIR = str(logdir)
+    cfg.SEED_VALUE = 0
+    return cfg
+
+
+def _same_state(label, state, want_sd, got, want):
+    """Bit for bit: the metrics and the whole state_dict."""
+    import torch
+
+    same = set(got) == set(want) and all(
+        torch.equal(got[k], want[k]) for k in want) and all(
+        torch.equal(v, want_sd[k])
+        for k, v in state.model.state_dict().items())
+    print(f'[{label}] replay vs eager from one state (cuDNN deterministic): '
+          f'bit-identical {same}', flush=True)
+    if not same:
+        raise RuntimeError(f'{label}: the replay differs from the eager body')
+
+
+def phase_camcalib_train(device='cuda'):
+    """CamCalib training at the released recipe (see the module
+    docstring). ``device='cpu'`` rehearses the logic on a machine
+    without a card (shrink CAMCALIB_FRAMES, the recipe's backbone and
+    CAMCALIB_TIMING_BATCH first)."""
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from spec_tpu_torch.cli import camcalib_train as TC
+    from spec_tpu_torch.models.camcalib import CameraRegressorNetwork
+    from spec_tpu_torch.train import (
+        adam,
+        create_train_state,
+        make_camcalib_train_step,
+        make_optimizer,
+    )
+    from spec_tpu_torch.utils import preemption
+    from spec_tpu_torch.utils.config import resolve_camcalib_loss
+
+    card = device == 'cuda'
+    dev = torch.device(device)
+    work = ROOT / 'build' / 'spec_tpu_torch' / 'camcalib_smoke'
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = _camcalib_cfg(work / 'run0')
+    loss_kw = dict(loss_type=resolve_camcalib_loss(cfg),
+                   vfov_loss_weight=cfg.MODEL.LOSS_VFOV_WEIGHT,
+                   pitch_loss_weight=cfg.MODEL.LOSS_PITCH_WEIGHT,
+                   roll_loss_weight=cfg.MODEL.LOSS_ROLL_WEIGHT)
+    B = cfg.DATASET.BATCH_SIZE
+    hw0 = next(iter(CAMCALIB_FRAMES))
+    label = (f'camcalib step {cfg.MODEL.BACKBONE} fp32 B={B} '
+             f'bucket {CAMCALIB_FRAMES[hw0]}')
+
+    # 15.1 a replay against the eager body from one state, fp32 batches
+    # and DEVICE_JITTER uint8 batches with their affines
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = TC.build_model(cfg, dev)
+        state = create_train_state(model, make_optimizer(cfg.OPTIMIZER))
+        step = make_camcalib_train_step(model, **loss_kw)
+        for jitter in (False, True):
+            batch = _pano_batch(B, hw0, jitter, seed=1, device=dev)
+            step(state, batch)                  # eager first step, capture
+            snap = _snapshot(state)
+            _, eager = step.eager(state, batch)
+            eager_sd = {k: v.detach().clone()
+                        for k, v in state.model.state_dict().items()}
+            _restore(state, snap)
+            _, replay = step(state, batch)
+            _same_state(f'{label}{" u8 jitter" if jitter else ""}', state,
+                        eager_sd, replay, eager)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f'[{label}] graphs {len(step.graphs.signatures())}: '
+          + '; '.join(str(s[0][0]) + ' ' + str(s[0][1]).replace('torch.', '')
+                      for s in step.graphs.signatures()), flush=True)
+    del model, state, step, batch
+    if card:
+        _release()
+
+    # 15.2 the epoch loop over in-memory datasets: two buckets, two steps
+    # an epoch; a run preempted after its first step, and a resume in a
+    # sibling run that skips that batch and trains on to epoch 2
+    train_ds = _PanoItems(2 * B, 2, True, True)
+    val_ds = _PanoItems(B, 3, False, False)
+    cfg.TRAINING.LOG_SAVE_INTERVAL = 1
+    cfg.TRAINING.MAX_EPOCHS = 1
+    cfg.DATASET.NUM_WORKERS = 2
+    logs = {}
+    shutdown = preemption.GracefulShutdown
+    try:
+        for run, stop_after, epochs, resume in (('run0', 1, 1, False),
+                                                ('run1', 10 ** 6, 2, True)):
+            cfg.LOGDIR = str(work / run)
+            cfg.TRAINING.MAX_EPOCHS = epochs
+            os.makedirs(cfg.LOGDIR, exist_ok=True)
+            preemption.GracefulShutdown = lambda n=stop_after: _StopAfter(n)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                st = TC.train(cfg, train_ds, val_ds, dev, resume=resume)
+            logs[run] = (buf.getvalue(), st.step)
+            for line in buf.getvalue().splitlines():
+                if line.startswith('[camcalib'):
+                    print(f'[camcalib fit {run}] {line}', flush=True)
+            del st
+    finally:
+        preemption.GracefulShutdown = shutdown
+    text0, step0 = logs['run0']
+    text1, step1 = logs['run1']
+    want_skip = 'skipping 0 completed epoch(s) + 1 batch(es) (2 steps/epoch)'
+    ok = (step0 == 1 and 'preempted at step 1' in text0 and step1 == 4
+          and want_skip in text1 and text1.count('MAE(deg)') == 2
+          and 'nan' not in text1.lower())
+    print(f'[camcalib fit] preempted at step {step0}, resumed in a sibling '
+          f'run to step {step1} (skip line present: {want_skip in text1}); '
+          f'ok {ok}', flush=True)
+    if not ok:
+        raise RuntimeError('the CamCalib fit loop, checkpoint or resume '
+                           'failed')
+    shutil.rmtree(work, ignore_errors=True)
+    if card:
+        _release()
+
+    # 15.3 card against CPU: CAMCALIB_CPU['steps'] fp32 steps, one init
+    c = CAMCALIB_CPU
+    base = CameraRegressorNetwork(backbone=c['backbone'], num_fc_layers=1)
+    base.reset_parameters(torch.Generator().manual_seed(4))
+    rng = np.random.RandomState(5)
+    arrays = {'img': rng.randn(c['batch'], *c['hw'], 3).astype('f4'),
+              'vfov': rng.uniform(-1, 1, c['batch']).astype('f4'),
+              'pitch': rng.uniform(-1, 1, c['batch']).astype('f4'),
+              'roll': rng.uniform(-1, 1, c['batch']).astype('f4')}
+    runs = {}
+    for where in (device, 'cpu'):
+        m = CameraRegressorNetwork(backbone=c['backbone'], num_fc_layers=1)
+        m.load_state_dict(base.state_dict())
+        m = m.to(where).train()
+        st = create_train_state(m, adam(c['lr']))
+        stp = make_camcalib_train_step(m, **loss_kw)
+        b = {k: torch.from_numpy(v).to(where) for k, v in arrays.items()}
+        runs[where] = [(stp(st, b)[1], {k: v.detach().cpu().clone()
+                                        for k, v in m.state_dict().items()})
+                       for _ in range(c['steps'])]
+    worst_loss = worst_model = 0.0
+    for (gl, gsd), (wl, wsd) in zip(runs[device], runs['cpu']):
+        worst_loss = max(worst_loss, _hold_losses(
+            'camcalib card vs cpu', gl, wl, TRAIN_LOSS_RTOL))
+        worst_model = max(worst_model, _model_rel(gsd, wsd))
+    print(f'[camcalib card vs cpu fp32] {c["steps"]} steps at '
+          f'B={c["batch"]} {c["hw"][0]}x{c["hw"][1]} {c["backbone"]}: '
+          f'losses {worst_loss:.3e} relative (limit {TRAIN_LOSS_RTOL:.0e}), '
+          f'the model {worst_model:.3e} relative (limit '
+          f'{TRAIN_MODEL_RTOL:.0e})', flush=True)
+    if not worst_model <= TRAIN_MODEL_RTOL:
+        raise RuntimeError('CamCalib steps on the card disagree with the '
+                           'CPU')
+    del runs
+
+    # 15.4 ms per step at CAMCALIB_TIMING_BATCH in the first bucket
+    out = {}
+    if card:
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        cfg.LOGDIR = str(work)
+        model = TC.build_model(cfg, dev)
+        state = create_train_state(model, make_optimizer(cfg.OPTIMIZER))
+        step = make_camcalib_train_step(model, **loss_kw)
+        bt = CAMCALIB_TIMING_BATCH
+        for jitter in (False, True):
+            batch = _pano_batch(bt, hw0, jitter, seed=6, device=dev)
+            tag = 'u8 jitter' if jitter else 'fp32'
+            wall = _wall_ms(lambda: step(state, batch), 5)
+            eager_wall = _wall_ms(lambda: step.eager(state, batch), 3)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f'[camcalib step {tag} B={bt} bucket {CAMCALIB_FRAMES[hw0]}]'
+                  f' graph {wall:.3f} ms, eager {eager_wall:.3f} ms per step '
+                  f'(median of 5 and 3); {bt / wall * 1e3:.1f} img/s; peak '
+                  f'memory {peak:.2f} GiB (max_memory_allocated since the '
+                  'model was built)', flush=True)
+            prof = _device_profile(f'camcalib step {tag} B={bt}',
+                                   lambda: step(state, batch), wall, 2,
+                                   top=6)
+            out[tag] = dict(ms=wall, eager_ms=eager_wall, peak_gib=peak,
+                            busy_ms=prof['busy_ms'])
+        del model, state, step, batch
+        _release()
+
+    # 15.5 the CLI imports and parses here
+    proc = subprocess.run(
+        [sys.executable, '-m', 'spec_tpu_torch.cli.camcalib_train', '--help'],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0 or 'usage' not in proc.stdout:
+        raise RuntimeError('camcalib_train --help failed: '
+                           f'{proc.stderr[-2000:]}')
+    print('[camcalib cli] python -m spec_tpu_torch.cli.camcalib_train '
+          '--help: ok', flush=True)
+    return out
+
+
+def _smplify_problem(B, assets, seed):
+    """The reference test's fitting problem (``tests/test_smplify.py``):
+    49 keypoints projected from a GT pose (camera at 5 m, f = 1000 px),
+    the fit started from a perturbed one. numpy arrays, in
+    ``smplify_fit``'s order."""
+    import numpy as np
+    import torch
+
+    from spec_tpu_torch.core import smpl as S
+
+    rng = np.random.RandomState(seed)
+    gt_go = rng.randn(B, 1, 3).astype('f4') * 0.2
+    gt_bp = rng.randn(B, 23, 3).astype('f4') * 0.2
+    gt_betas = rng.randn(B, 10).astype('f4') * 0.5
+    gt_t = np.tile(np.array([[0.0, 0.0, 5.0]], 'f4'), (B, 1))
+    R = np.tile(np.eye(3, dtype='f4'), (B, 1, 1))
+    K = np.tile(np.array([[1000.0, 0, 500], [0, 1000.0, 500], [0, 0, 1]],
+                         'f4'), (B, 1, 1))
+    with torch.no_grad():
+        joints = S.smpl_forward(
+            assets, torch.from_numpy(gt_betas), torch.from_numpy(gt_bp),
+            torch.from_numpy(gt_go), pose2rot=True,
+            joint_set='spin49').joints.numpy()
+    pts = joints + gt_t[:, None]
+    proj = pts @ K[0].T
+    kp = np.concatenate([proj[..., :2] / proj[..., 2:3],
+                         np.ones((B, 49, 1), 'f4')], -1).astype('f4')
+    return [gt_go + rng.randn(*gt_go.shape).astype('f4') * 0.1,
+            gt_bp + rng.randn(*gt_bp.shape).astype('f4') * 0.15,
+            np.zeros((B, 10), 'f4'),
+            gt_t + rng.randn(B, 3).astype('f4') * 0.2, kp, R, K]
+
+
+def phase_smplify(device='cuda'):
+    """In-loop SMPLify (see the module docstring). Returns K1's launches
+    per fit replay and the fit's numbers. ``device='cpu'`` rehearses the
+    logic (shrink SMPLIFY_BATCH, SMPLIFY_ITERS and the trainer sizes)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from spec_tpu_torch.core import smpl as S
+    from spec_tpu_torch.models.hmr import HMR
+    from spec_tpu_torch.ops import lbs as L
+    from spec_tpu_torch.train import smplify as TF
+    from spec_tpu_torch.train.trainer import SpecTrainer
+
+    card = device == 'cuda'
+    dev = torch.device(device)
+    full = S.create_test_assets()
+    assets = S.fused_on(full, dev)
+    B, n_it = SMPLIFY_BATCH, SMPLIFY_ITERS
+    label = f'smplify B={B} iters={n_it} V={full.num_vertices}'
+    args = [torch.from_numpy(a).to(dev)
+            for a in _smplify_problem(B, full, seed=11)]
+
+    # 16.1 a replay against the eager body, bit for bit
+    TF.smplify_fit(assets, *args, num_iters=n_it)     # eager run, capture
+    eager = TF.smplify_fit(assets, *args, num_iters=n_it, eager=True)
+    before = L.LAUNCHES
+    replay = TF.smplify_fit(assets, *args, num_iters=n_it)
+    launches = L.LAUNCHES - before
+    same = all(torch.equal(a, b) for a, b in zip(replay, eager))
+    print(f'[{label}] replay vs eager: bit-identical {same}', flush=True)
+    if not same:
+        raise RuntimeError('the SMPLify replay differs from its eager body')
+
+    # 16.2 the reprojection loss falls from the start
+    start = TF.smplify_fit(assets, *args, num_iters=0, eager=True)
+    r0 = start.reproj_loss.cpu().numpy()
+    r1 = replay.reproj_loss.cpu().numpy()
+    fell = int((r1 < r0).sum())
+    print(f'[{label}] reprojection loss (px^2, conf-weighted GMoF summed '
+          f'over joints): median {np.median(r0):.1f} -> {np.median(r1):.1f};'
+          f' fell for {fell} of {B} samples; finite '
+          f'{bool(np.isfinite(r1).all())}', flush=True)
+    if not (np.isfinite(r1).all() and r1.sum() < r0.sum()
+            and fell >= 0.9 * B):
+        raise RuntimeError('the SMPLify fit did not bring the loss down')
+
+    # 16.3 ms per fit and the replay's device profile: K1 launches per
+    # replay (the wrapper's count above and the profiler's), the top
+    # device operations, K1's forward time and its backward's estimate
+    out = {'launches': launches}
+    if card:
+        fit = lambda: TF.smplify_fit(assets, *args, num_iters=n_it)  # noqa
+        wall = _wall_ms(fit, 5)
+        prof = _device_profile(label, fit, wall, 2, top=10)
+        print(f'[{label}] K1 launches per replay: wrapper {launches}, '
+              f'profiler {prof["lbs_kernel"]:g} (expected {n_it + 1})',
+              flush=True)
+        if not launches == prof['lbs_kernel'] == n_it + 1:
+            raise RuntimeError('the SMPLify fit did not launch K1 once per '
+                               'forward')
+        k1_fwd = sum(ms for name, ms in prof['by_name'].items()
+                     if 'lbs_kernel' in name)
+        packed = assets.packed_lbs
+        coeffs, rel_tf = _lbs_operands(packed, assets, B, seed=13)
+        gout = torch.randn(B, full.num_vertices, 3, device=dev)
+        from spec_tpu_torch.bench import device_profile
+        with torch.no_grad():
+            bwd = device_profile(lambda: L.fused_lbs_backward(
+                packed.dirs, packed.weights_t, coeffs, rel_tf,
+                full.num_vertices, gout, needs=(False, False, True, True)),
+                20)
+        k1_bwd = n_it * bwd['busy_ms']
+        flops, nbytes = _k1_backward_work(B, full.num_vertices)
+        bwd_bound, bwd_by = _bound(flops, nbytes, PEAK_FLOPS['fp32'])
+        busy = prof['busy_ms']
+        print(f'[{label}] {wall:.3f} ms per fit (host wall with syncs, '
+              f'median of 5), device busy {busy:.3f} ms; K1 forward '
+              f'{k1_fwd:.3f} ms per fit ({k1_fwd / busy:.1%} of busy, '
+              f'{n_it + 1} launches); K1 backward {bwd["busy_ms"]:.4f} ms '
+              f'alone at B={B} (mean of 20, {bwd["device_ops"]:.0f} device '
+              f'ops), x{n_it} = {k1_bwd:.3f} ms ({k1_bwd / busy:.1%} of '
+              f'busy, an estimate from the backward run alone); backward '
+              f'bound {bwd_bound:.4f} ms ({bwd_by}: {flops / 1e9:.3f} GFLOP,'
+              f' {nbytes / 1e6:.1f} MB), share '
+              f'{bwd_bound / bwd["busy_ms"]:.3f}', flush=True)
+        out.update(ms=wall, busy_ms=busy, k1_fwd_ms=k1_fwd,
+                   k1_bwd_ms=bwd['busy_ms'], k1_bwd_bound_ms=bwd_bound)
+        del packed, coeffs, rel_tf, gout
+        _release()
+
+    # 16.4 card against CPU at SMPLIFY_CPU's size
+    c = SMPLIFY_CPU
+    small = _smplify_problem(c['batch'], full, seed=12)
+    fits = {}
+    for where in (device, 'cpu'):
+        a = S.fused_on(full, where)
+        fits[where] = TF.smplify_fit(
+            a, *[torch.from_numpy(x).to(where) for x in small],
+            num_iters=c['iters'])
+    got, want = fits[device], fits['cpu']
+    p_err = max(float((g.cpu() - w).abs().max()) for g, w in
+                zip(got[:4], want[:4]))
+    r_err = float(((got.reproj_loss.cpu() - want.reproj_loss).abs()
+                   / want.reproj_loss.abs()).max())
+    thr = float(np.median(want.reproj_loss.numpy() / 49.0))
+    batch = {'pose': np.zeros((c['batch'], 72), 'f4'),
+             'betas': np.zeros((c['batch'], 10), 'f4'),
+             'has_smpl': np.zeros(c['batch'], 'f4'),
+             'keypoints_orig': small[4]}
+    same_mask = np.array_equal(
+        TF.apply_smplify_update(batch, got, thr)['has_smpl'],
+        TF.apply_smplify_update(batch, want, thr)['has_smpl'])
+    print(f'[smplify card vs cpu] B={c["batch"]} iters={c["iters"]}: '
+          f'parameters {p_err:.3e} absolute (limit '
+          f'{SMPLIFY_PARAM_ATOL:.0e}), reprojection loss {r_err:.3e} '
+          f'relative (limit {SMPLIFY_REPROJ_RTOL:.0e}), acceptance equal '
+          f'{same_mask}', flush=True)
+    if not (p_err <= SMPLIFY_PARAM_ATOL and r_err <= SMPLIFY_REPROJ_RTOL
+            and same_mask):
+        raise RuntimeError('SMPLify on the card disagrees with the CPU')
+    del fits
+
+    # 16.5 SpecTrainer with RUN_SMPLIFY over in-memory samples
+    work = ROOT / 'build' / 'spec_tpu_torch' / 'smplify_smoke'
+    shutil.rmtree(work, ignore_errors=True)
+    items = _TrainItems(TRAINER_SAMPLES, TRAIN_RES, seed=14)
+    items.arrays['has_smpl'][::2] = 0.0          # half have no GT SMPL
+    cfg = _train_cfg(work / 'run0', TRAINER_BACKBONE, TRAINER_BATCH,
+                     TRAIN_RES)
+    cfg.TRAINING.RUN_SMPLIFY = True
+    model = HMR(backbone=TRAINER_BACKBONE, use_cam_feats=True,
+                dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    trainer = SpecTrainer(cfg, model.to(dev).train(), {'neutral': full},
+                          full.j_regressor_h36m.numpy(), lambda e: items,
+                          lambda: {})
+    counts = {'fits': 0, 'samples': 0, 'accepted': 0}
+    hook = trainer._run_smplify
+
+    def counted(dev_batch):
+        res = hook(dev_batch)
+        counts['fits'] += 1
+        counts['samples'] += len(res['has_smpl'])
+        counts['accepted'] += int((res['has_smpl']
+                                   - dev_batch['has_smpl']).sum())
+        return res
+
+    trainer._run_smplify = counted
+    trainer.fit(max_epochs=1)
+    per_epoch = TRAINER_SAMPLES // TRAINER_BATCH
+    print(f'[trainer RUN_SMPLIFY] {counts["fits"]} fits of '
+          f'{cfg.TRAINING.NUM_SMPLIFY_ITERS} iterations over '
+          f'{counts["samples"]} samples (half without GT SMPL), '
+          f'{counts["accepted"]} fits accepted at SMPLIFY_THRESHOLD '
+          f'{cfg.TRAINING.SMPLIFY_THRESHOLD}; step {trainer.state.step}',
+          flush=True)
+    if counts['fits'] != per_epoch or trainer.state.step != per_epoch:
+        raise RuntimeError('the trainer did not fit before every step')
+    del trainer, model
+    shutil.rmtree(work, ignore_errors=True)
+    if card:
+        _release()
+    return out
+
+
+def phase_remat(device='cuda'):
+    """TRAINING.REMAT at the bench's train setup (see the module
+    docstring). ``device='cpu'`` rehearses the logic (shrink TRAIN_*)."""
+    import torch
+
+    from spec_tpu_torch import bench
+
+    card = device == 'cuda'
+    dev = torch.device(device)
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            if card:
+                _release()
+                torch.cuda.reset_peak_memory_stats()
+            state, step, batch = bench.train_setup(
+                TRAIN_BATCH, TRAIN_BACKBONE, torch.bfloat16, dev, TRAIN_RES,
+                remat=remat)
+            state.model.head.dropout_rate = 0.0
+            step(state, batch)                # eager first step, capture
+            _, losses = step(state, batch)    # one replay
+            sd = {k: v.detach().cpu().clone()
+                  for k, v in state.model.state_dict().items()}
+            wall = peak = None
+            if card:
+                wall = _wall_ms(lambda: step(state, batch), 5)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            runs[remat] = (losses, sd, wall, peak)
+            del state, step, batch
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (l0, sd0, w0, p0), (l1, sd1, w1, p1) = runs[False], runs[True]
+    same = all(torch.equal(l0[k], l1[k]) for k in l0) and all(
+        torch.equal(sd0[k], sd1[k]) for k in sd0)
+    loss_rel = _hold_losses('remat vs plain', l1, l0, TRAIN_REPLAY_LOSS_RTOL)
+    rel = _model_rel(sd1, sd0)
+    stats = [k for k in sd0 if 'running' in k or 'num_batches' in k]
+    stats_same = all(torch.equal(sd0[k], sd1[k]) for k in stats)
+    label = f'remat {TRAIN_BACKBONE} bf16 B={TRAIN_BATCH}'
+    print(f'[{label}] two steps (eager, then a replay) with and without '
+          f'remat, cuDNN deterministic, dropout off: bit-identical {same} '
+          f'(BN running statistics {stats_same}); losses {loss_rel:.3e} '
+          f'relative (limit {TRAIN_REPLAY_LOSS_RTOL:.0e}), the model '
+          f'{rel:.3e} relative (limit {TRAIN_REPLAY_MODEL_RTOL:.0e})',
+          flush=True)
+    if not rel <= TRAIN_REPLAY_MODEL_RTOL:
+        raise RuntimeError('the remat step differs from the plain one')
+    out = {}
+    if card:
+        print(f'[{label}] graph replay {w0:.3f} ms without remat, {w1:.3f} '
+              f'ms with (median of 5); peak memory {p0:.2f} GiB without, '
+              f'{p1:.2f} GiB with (max_memory_allocated over setup, eager '
+              'step, capture and replays)', flush=True)
+        out = dict(ms=w0, remat_ms=w1, peak_gib=p0, remat_peak_gib=p1)
+        _release()
+        print('[remat bench] python -m spec_tpu_torch.bench --mode train '
+              '--remat', flush=True)
+        if bench.main(['--mode', 'train', '--remat']) != 0:
+            raise RuntimeError('the remat train bench failed')
+        _release()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2449,6 +3081,9 @@ def main() -> int:
     serve_launches = phase_serve()
     eval_launches = phase_eval()
     train_launches = phase_train()
+    phase_camcalib_train()
+    smplify = phase_smplify()
+    phase_remat()
 
     row = lbs_rows[TRAIN_BATCH]        # K1's batch on this slice's path
 
@@ -2484,13 +3119,19 @@ def main() -> int:
         'batch': TRAIN_BATCH,
         'launches_by_path': {'train': train_launches,
                              'serve window': serve_launches,
-                             'eval step replay': eval_launches},
+                             'eval step replay': eval_launches,
+                             'smplify fit': smplify['launches']},
         'max_abs_err': max(r['max_abs_err'] for r in lbs_rows.values()),
         'ms': row['ms'],
         'wrapper_ms': row['wrapper_ms'],
         'plain_ms': row['plain_ms'],
         'bound_ms': row['bound_ms'],
         'bound_by': row['bound_by'],
+        # the closed-form backward at the same batch: measured alone in
+        # the SMPLify phase, bound from its code (_k1_backward_work)
+        'backward_ms': smplify['k1_bwd_ms'],
+        'backward_bound_ms': _bound(*_k1_backward_work(TRAIN_BATCH),
+                                    PEAK_FLOPS['fp32'])[0],
         'library_ms': None,        # no single PyTorch call computes it
     }, k3_entry('bf16'), k3_entry('fp32'), {
         'name': 'project_points',

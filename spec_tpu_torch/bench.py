@@ -28,8 +28,9 @@ flax`` is ``module`` here, and ``--dtype`` picks the compute dtype):
   ``train_bench`` setup: B = 64 crops of 224² (``--batch``), ResNet-50
   HMR with camera features, bf16, synthetic SMPL (V = 6890), zeroed head
   decoders, its batch drawn in its order. One CUDA graph replay per
-  step; ``--eager`` runs the step's eager body instead. img/s and ms
-  per step by the host clock (each window ends with a sync); ``--profile``
+  step; ``--eager`` runs the step's eager body instead; ``--remat``
+  checkpoints the backbone's blocks (TRAINING.REMAT). img/s and ms per
+  step by the host clock (each window ends with a sync); ``--profile``
   adds K1's own device time per step.
 
 Every mode warms up first (the graph captures included) and times
@@ -102,6 +103,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument('--eager', action='store_true',
                         help="[train] run the step's eager body, not its "
                              'CUDA graph')
+    parser.add_argument('--remat', action='store_true',
+                        help='[train] recompute the backbone blocks in the '
+                             'backward (TRAINING.REMAT, a memory knob)')
     parser.add_argument('--iters', type=int, default=10,
                         help='calls per timed window')
     parser.add_argument('--frames', type=int, default=16,
@@ -521,12 +525,13 @@ def train_inputs(B: int, res: int, seed: int = 0) -> dict:
 
 
 def train_setup(B: int, backbone: str, dtype: torch.dtype, device,
-                res: int = 224):
+                res: int = 224, remat: bool = False):
     """``bench.py``'s ``_train_setup``: synthetic SMPL (V = 6890; K1's
-    packed operands on a card), the HMR with camera features, random
-    weights from seed 0 with zeroed head decoders, Adam 1e-4 (the init
-    buffers trained, as ``adam`` does there), the step and its batch on
-    ``device``. Returns (state, step, batch)."""
+    packed operands on a card), the HMR with camera features (``remat``:
+    its blocks checkpointed), random weights from seed 0 with zeroed head
+    decoders, Adam 1e-4 (the init buffers trained, as ``adam`` does
+    there), the step and its batch on ``device``. Returns (state, step,
+    batch)."""
     from spec_tpu_torch.core import smpl as S
     from spec_tpu_torch.models.hmr import HMR
     from spec_tpu_torch.train import (
@@ -537,7 +542,7 @@ def train_setup(B: int, backbone: str, dtype: torch.dtype, device,
 
     assets = S.create_test_assets()
     model = HMR(backbone=backbone, use_cam=True, use_cam_feats=True,
-                dtype=dtype)
+                dtype=dtype, remat=remat)
     model.reset_parameters(torch.Generator().manual_seed(0))
     with torch.no_grad():
         for dec in (model.head.decpose, model.head.decshape,
@@ -556,7 +561,7 @@ def train_bench(args, device) -> dict:
     """The SPEC train step on one fixed batch, in place on one state."""
     B, res = args.batch, args.frame_h
     state, step, batch = train_setup(B, args.backbone, _dtype(args), device,
-                                     res)
+                                     res, remat=args.remat)
     gen = torch.Generator(device=device).manual_seed(1)
     run = step.eager if args.eager else step
 
@@ -581,8 +586,9 @@ def train_bench(args, device) -> dict:
               flush=True)
     return _emit(args, device,
                  f'SPEC train step (fwd + GT/pred SMPL through K1 + loss + '
-                 f'bwd + Adam in place, {mode}, {args.backbone}, '
-                 f'{args.dtype}), B={B} {res}^2', ms,
+                 f'bwd + Adam in place, {mode}, {args.backbone}'
+                 + (', remat' if args.remat else '')
+                 + f', {args.dtype}), B={B} {res}^2', ms,
                  lambda m: B / m * 1e3, 'img/s/gpu',
                  ms_per_step=statistics.median(ms))
 

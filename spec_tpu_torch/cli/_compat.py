@@ -8,7 +8,7 @@ whose implementation is stubbed out in the reference itself
 is imported but never registered (``scripts/spec_train.py:17,64-73``).
 Scripts written against the reference CLIs pass these; accept them as
 documented no-ops so such invocations run unchanged. The trainer's
-``--num_gpus`` comes with the trainer's CLI (ROADMAP.md §1 item 9).
+``--num_gpus`` is one more no-op (``num_gpus=True``; ``camcalib_train``).
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ from __future__ import annotations
 import argparse
 
 
-def add_cluster_flags(parser: argparse.ArgumentParser) -> None:
+def add_cluster_flags(parser: argparse.ArgumentParser,
+                      num_gpus: bool = False) -> None:
     g = parser.add_argument_group(
         'reference compatibility (accepted no-ops)')
     g.add_argument('--cluster', action='store_true',
@@ -27,6 +28,9 @@ def add_cluster_flags(parser: argparse.ArgumentParser) -> None:
                    help='no-op (cluster)')
     g.add_argument('--num_cpus', type=int, default=8,
                    help='no-op (cluster)')
+    if num_gpus:
+        g.add_argument('--num_gpus', type=int, default=1,
+                       help='no-op (cluster)')
     g.add_argument('--gpu_min_mem', type=int, default=10000,
                    help='no-op (cluster)')
     g.add_argument('--gpu_arch', default=None, nargs='*',

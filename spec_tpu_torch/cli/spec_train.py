@@ -74,8 +74,9 @@ def _augmentation(cfg):
 
 
 def build_model(cfg, ckpt: str, device):
-    """The camera-aware HMR of the config on ``device`` in train mode:
-    ``ckpt``'s weights, or a random init from seed 0 with a warning."""
+    """The camera-aware HMR of the config on ``device`` in train mode
+    (TRAINING.REMAT checkpoints its blocks): ``ckpt``'s weights, or a
+    random init from seed 0 with a warning."""
     import torch
 
     from spec_tpu_torch.serving import build_hmr
@@ -91,7 +92,8 @@ def build_model(cfg, ckpt: str, device):
     # (224), whatever DATASET.IMG_RES is.
     model = build_hmr(str(ckpt or ''), device, backbone=cfg.HMR.BACKBONE,
                       use_cam_feats=cfg.HMR.USE_CAM_FEATS, dtype=dtype,
-                      seed=0, tag='train')
+                      seed=0, tag='train',
+                      remat=bool(cfg.TRAINING.get('REMAT', False)))
     return model.train()
 
 

@@ -8,15 +8,54 @@ with torchvision's parameter names, so released checkpoints load with
 (B, C_out, H/32, W/32). The JAX package's TPU-only space-to-depth stem
 is not carried over. BatchNorm in train mode updates its running
 statistics as flax's does (:class:`BatchNorm2d`).
+
+``remat`` (TRAINING.REMAT): each residual block runs under
+``torch.utils.checkpoint`` (non-reentrant), which keeps only the block's
+input and recomputes its activations in the backward, as flax's
+``nn.remat`` does. The recompute runs the block's forward a second
+time; flax's statistics update is functional, but this BatchNorm
+updates its buffers in place, so while its block is recomputed
+(:class:`_Recompute`) it writes its running statistics to scratch
+copies and counts no batch: the statistics after a step are those of a
+step without ``remat``. The blocks draw no random numbers, so the RNG
+state is not saved (``preserve_rng_state=False``, which also keeps the
+checkpoint capturable in a CUDA graph).
 """
 
 from __future__ import annotations
+
+import contextlib
+import functools
 
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+
+class _Recompute:
+    """The context of a checkpointed block's recompute: its BatchNorms
+    leave their running statistics alone inside it. (The autograd
+    engine may recompute on a thread of its own, so the mark is on the
+    modules, not thread-local.)"""
+
+    def __init__(self, block: nn.Module):
+        self.norms = [m for m in block.modules()
+                      if isinstance(m, BatchNorm2d)]
+
+    def __enter__(self):
+        for m in self.norms:
+            m.recomputing = True
+
+    def __exit__(self, *exc):
+        for m in self.norms:
+            m.recomputing = False
+
+
+def _remat_contexts(block):
+    return contextlib.nullcontext(), _Recompute(block)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -32,12 +71,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     not be rescaled in place: autograd saves the tensor the call was
     given.)"""
 
+    recomputing = False     # set by _Recompute
+
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
         n = x.numel() // x.shape[1]
         if n < 2 or self.momentum is None:
             return super().forward(x)    # torch raises for one value
+        if self.recomputing:
+            # The same fused call on scratch copies of the statistics: the
+            # output (batch statistics) is the first forward's, and the
+            # buffers keep that forward's one update.
+            return F.batch_norm(x, self.running_mean.clone(),
+                                self.running_var * (n / (n - 1)),
+                                self.weight, self.bias, True, self.momentum,
+                                self.eps)
         self.num_batches_tracked.add_(1)
         var = self.running_var * (n / (n - 1))
         y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
@@ -105,8 +154,10 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """ResNet trunk returning the final NCHW feature map."""
 
-    def __init__(self, block, stage_sizes: Sequence[int]):
+    def __init__(self, block, stage_sizes: Sequence[int],
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
@@ -130,10 +181,18 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
-        x = self.layer1(x)
-        x = self.layer2(x)
-        x = self.layer3(x)
-        return self.layer4(x)
+        if not (self.remat and torch.is_grad_enabled()):
+            x = self.layer1(x)
+            x = self.layer2(x)
+            x = self.layer3(x)
+            return self.layer4(x)
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for block in layer:
+                x = checkpoint(block, x, use_reentrant=False,
+                               preserve_rng_state=False,
+                               context_fn=functools.partial(
+                                   _remat_contexts, block))
+        return x
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -158,13 +217,13 @@ _RESNETS = {
 }
 
 
-def get_backbone(backbone: str) -> ResNet:
+def get_backbone(backbone: str, remat: bool = False) -> ResNet:
     """Instantiate a ResNet trunk by name (``resnet18`` ... ``resnet152``);
-    HRNet comes with a later port."""
+    HRNet comes with a later port. ``remat``: checkpoint each block."""
     name = backbone.split('-')[0]
     if name not in _RESNETS:
         raise NotImplementedError(
             f'backbone {backbone!r} is not ported yet (ResNet-18..152 are; '
             'HRNet is ROADMAP.md §1 item 10)')
     block, stages = _RESNETS[name]
-    return ResNet(block, stages)
+    return ResNet(block, stages, remat=remat)

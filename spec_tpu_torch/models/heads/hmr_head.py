@@ -1,6 +1,5 @@
 """HMR/SPIN iterative SMPL-parameter regressor head (torch twin of
-``spec_tpu/models/heads/hmr_head.py``; its ``estimate_var`` branch is not
-carried over yet, ROADMAP.md §1 item 9).
+``spec_tpu/models/heads/hmr_head.py``).
 
 Input: the backbone feature map, global-avgpooled to (B, C). Learned
 initial estimates ``init_pose`` (1, 144 = 24 x 6D), ``init_shape``
@@ -8,7 +7,11 @@ initial estimates ``init_pose`` (1, 144 = 24 x 6D), ``init_shape``
 checkpoints. ``n_iter`` refinement steps: concat [features, pose, shape,
 cam (+ flattened camera rotmat and vfov with ``use_cam_feats``)] -> fc1
 -> dropout -> fc2 -> dropout -> three linear decoders adding deltas.
-Output ``pred_pose`` is (B, 24, 3, 3) via 6D -> rotmat.
+Output ``pred_pose`` is (B, 24, 3, 3) via 6D -> rotmat. With
+``estimate_var`` two more linears, ``decpose_var`` and ``decshape_var``,
+regress per-parameter log-variances from the last refinement's features:
+``pred_pose_logvar`` (B, 144) and ``pred_shape_logvar`` (B, 10), the
+inputs of ``losses/hmr.smpl_param_loss_uncertainty``.
 
 In train mode dropout draws its masks from the ``generator`` the caller
 passes (the counterpart of the JAX head's ``rngs={'dropout': key}``), or
@@ -57,12 +60,14 @@ class HMRHead(nn.Module):
     """Iterative regressor head; ``dtype`` is the FC compute dtype."""
 
     def __init__(self, num_features: int, use_cam_feats: bool = False,
+                 estimate_var: bool = False,
                  n_iter: int = 3, hidden_dim: int = 1024,
                  dropout_rate: float = 0.5,
                  dtype: torch.dtype = torch.float32,
                  mean_params: Optional[dict] = None):
         super().__init__()
         self.use_cam_feats = use_cam_feats
+        self.estimate_var = estimate_var
         self.n_iter = n_iter
         self.dtype = dtype
         mean = mean_params or default_init_params()
@@ -76,6 +81,9 @@ class HMRHead(nn.Module):
         self.decpose = nn.Linear(hidden_dim, NPOSE)
         self.decshape = nn.Linear(hidden_dim, 10)
         self.deccam = nn.Linear(hidden_dim, 3)
+        if estimate_var:
+            self.decpose_var = nn.Linear(hidden_dim, NPOSE)
+            self.decshape_var = nn.Linear(hidden_dim, 10)
 
     def forward(self, features: torch.Tensor,
                 cam_rotmat: Optional[torch.Tensor] = None,
@@ -108,9 +116,14 @@ class HMRHead(nn.Module):
                 pred_pose = self.decpose(xc) + pred_pose
                 pred_shape = self.decshape(xc) + pred_shape
                 pred_cam = self.deccam(xc) + pred_cam
+            extra = {}
+            if self.estimate_var:
+                extra['pred_pose_logvar'] = self.decpose_var(xc).float()
+                extra['pred_shape_logvar'] = self.decshape_var(xc).float()
 
         pred_pose = pred_pose.float()
         return {
+            **extra,
             'pred_pose': rot6d_to_rotmat(pred_pose.reshape(B, 24, 6)),
             'pred_pose_6d': pred_pose,
             'pred_shape': pred_shape.float(),
@@ -130,10 +143,13 @@ class HMRHead(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Random init from an explicit generator: fc1/fc2 torch's
-        default Linear init; decoders xavier-uniform with gain 0.01 (the
-        reference's), so a random model predicts about the mean params."""
-        for fc in (self.fc1, self.fc2):
+        """Random init from an explicit generator: fc1, fc2 and the
+        variance linears torch's default Linear init; decoders
+        xavier-uniform with gain 0.01 (the reference's), so a random
+        model predicts about the mean params."""
+        var = ((self.decpose_var, self.decshape_var) if self.estimate_var
+               else ())
+        for fc in (self.fc1, self.fc2) + var:
             bound = fc.in_features ** -0.5
             fc.weight.uniform_(-bound, bound, generator=generator)
             fc.bias.uniform_(-bound, bound, generator=generator)

@@ -1,7 +1,9 @@
 """SPEC's camera-conditioned HMR model (torch twin of
 ``spec_tpu/models/hmr.py``): backbone -> HMRHead (optionally conditioned
 on the CamCalib camera) -> SMPL(Cam) projection head. SMPL tensors come
-in as an argument, as in the JAX module."""
+in as an argument, as in the JAX module. ``remat`` (TRAINING.REMAT)
+checkpoints each backbone block: a memory knob, numerically the same
+(``models/backbones/resnet.py``)."""
 
 from __future__ import annotations
 
@@ -25,14 +27,15 @@ class HMR(nn.Module):
     def __init__(self, backbone: str = 'resnet50', use_cam: bool = True,
                  use_cam_feats: bool = False, focal_length: float = 5000.0,
                  img_res: int = 224, dtype: torch.dtype = torch.float32,
-                 mean_params: Optional[dict] = None):
+                 mean_params: Optional[dict] = None,
+                 remat: bool = False):
         super().__init__()
         self.use_cam = use_cam
         self.use_cam_feats = use_cam_feats
         self.focal_length = focal_length
         self.img_res = img_res
         self.dtype = dtype
-        self.backbone = get_backbone(backbone)
+        self.backbone = get_backbone(backbone, remat=remat)
         self.head = HMRHead(self.backbone.out_channels,
                             use_cam_feats=use_cam_feats, dtype=dtype,
                             mean_params=mean_params)

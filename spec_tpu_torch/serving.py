@@ -141,17 +141,18 @@ def build_camcalib(ckpt: str, backbone: str, device, dtype=None,
 def build_hmr(ckpt: str, device, cfg_file: str = '',
               backbone: str = 'resnet50', use_cam_feats: bool = False,
               img_res: int = 224, dtype=None, seed: int = 1,
-              tag: str = 'serving'):
+              tag: str = 'serving', remat: bool = False):
     """Stage 2's HMR (camera-aware) with ``ckpt``'s weights (a reference
     torch file, or a trainer checkpoint directory: its latest step), or,
     when it is missing, a random init from ``seed`` with a warning; on
     ``device``, in eval mode. ``cfg_file`` (a SPEC config yaml) sets
-    ``backbone`` and ``use_cam_feats`` as in the reference."""
+    ``backbone`` and ``use_cam_feats`` as in the reference; ``remat``
+    checkpoints the backbone's blocks (training)."""
     if cfg_file:
         from spec_tpu_torch.utils.config import hmr_hparams_from_cfg
         backbone, use_cam_feats = hmr_hparams_from_cfg(cfg_file)
     model = HMR(backbone=backbone, use_cam=True, use_cam_feats=use_cam_feats,
-                img_res=img_res, dtype=dtype or torch.float32)
+                img_res=img_res, dtype=dtype or torch.float32, remat=remat)
     if os.path.isdir(ckpt):
         model.load_state_dict(load_checkpoint_variables(ckpt))
     elif os.path.exists(ckpt):

@@ -13,10 +13,16 @@ NaN guard: the step's losses are read on the host every
 SIGTERM saves the in-flight state with the number of batches already
 consumed, so ``resume`` continues sample-exact mid-epoch.
 
-Not ported yet, each raising ``NotImplementedError``: TRAINING.RUN_SMPLIFY
-(ROADMAP.md §1 item 9), TRAINING.REMAT (item 9), TensorBoard image grids
-(``LOG_FREQ_TB_IMAGES > 0`` with a writer: the renderer, item 10),
-TRAINING.FSDP (item 12). One process drives one device.
+TRAINING.RUN_SMPLIFY fits SMPL to each batch's keypoints before its
+step (:meth:`SpecTrainer._run_smplify`, ``train/smplify.py``: one graph
+replay for the prediction, one for the fit on a card) and swaps the fit
+in as supervision where the acceptance rule takes it. TRAINING.REMAT is
+the model's (``HMR(remat=True)``, which ``cli/spec_train`` builds from
+it).
+
+Not ported yet, each raising ``NotImplementedError``: TensorBoard image
+grids (``LOG_FREQ_TB_IMAGES > 0`` with a writer: the renderer, ROADMAP.md
+§1 item 10), TRAINING.FSDP (item 12). One process drives one device.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 
 from spec_tpu_torch.core import constants as C
+from spec_tpu_torch.core import smpl as S
 from spec_tpu_torch.losses import HMRLossConfig
 from spec_tpu_torch.train.state import create_train_state, make_optimizer
 from spec_tpu_torch.train.steps import SPEC_BATCH_KEYS, make_spec_train_step
@@ -40,7 +47,7 @@ from spec_tpu_torch.utils.checkpoints import (
     load_checkpoint,
     save_checkpoint,
 )
-from spec_tpu_torch.utils.graphs import device_constant
+from spec_tpu_torch.utils.graphs import StageGraph, device_constant
 from spec_tpu_torch.utils.profiling import StepTimer, set_seed
 
 
@@ -61,13 +68,16 @@ class SpecTrainer:
         self.device = next(model.parameters()).device
 
         training = cfg.TRAINING
-        for key, item in (('RUN_SMPLIFY', 'ROADMAP.md §1 item 9, '
-                           'train/smplify.py'),
-                          ('REMAT', 'ROADMAP.md §1 item 9'),
-                          ('FSDP', 'ROADMAP.md §1 item 12, parallel/')):
-            if training.get(key, False):
-                raise NotImplementedError(
-                    f'TRAINING.{key} is not ported yet ({item})')
+        if training.get('FSDP', False):
+            raise NotImplementedError(
+                'TRAINING.FSDP is not ported yet (ROADMAP.md §1 item 12, '
+                'parallel/)')
+        if bool(training.get('REMAT', False)) != bool(
+                getattr(model.backbone, 'remat', False)):
+            raise ValueError(
+                f'TRAINING.REMAT is {training.get("REMAT", False)} but the '
+                f'model was built with remat={model.backbone.remat}: build '
+                'it with HMR(remat=cfg.TRAINING.REMAT)')
         # Fail fast on an operator error the reference only catches at
         # validation time, after a whole trained epoch: in-the-wild val
         # sets have no 3D GT, so their evaluation needs images.
@@ -95,6 +105,9 @@ class SpecTrainer:
             loss_weight=cfg.HMR.LOSS_WEIGHT,
         )
         self.state = create_train_state(model, tx)
+        # SMPLify's SMPL (K1's operands attached) and its prediction graph
+        self._fit_assets = None
+        self._predict = None
         self.step = make_spec_train_step(model, assets_by_gender['neutral'],
                                          tx, loss_cfg)
 
@@ -204,6 +217,56 @@ class SpecTrainer:
         dev['img'] = (dev['img'] - mean) / std
         return dev
 
+    def _run_smplify(self, dev: dict) -> dict:
+        """In-loop fitting (TRAINING.RUN_SMPLIFY): predict SMPL with the
+        current model in eval mode (a StageGraph), fit it to the
+        keypoints (``smplify_fit``, one graph replay) and, on the host,
+        swap the fit in as supervision where its per-joint reprojection
+        loss beats SMPLIFY_THRESHOLD (``apply_smplify_update``). Returns
+        ``dev`` with new ``pose``, ``betas`` and ``has_smpl`` tensors."""
+        from spec_tpu_torch.core.geometry import rotmat_to_aa
+        from spec_tpu_torch.train.smplify import (
+            apply_smplify_update,
+            smplify_fit,
+        )
+
+        if self._fit_assets is None:
+            self._fit_assets = S.fused_on(self.assets['neutral'],
+                                          self.device)
+            assets = self._fit_assets
+
+            def predict(img, rotmat, K, scale, center, w, h):
+                out = self.model(assets, img, rotmat, K, scale, center, w,
+                                 h)
+                return {k: out[k] for k in ('pred_pose', 'pred_shape',
+                                            'pred_cam_t')}
+
+            self._predict = StageGraph('smplify_predict', predict)
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                out = self._predict(
+                    dev['img'], dev['cam_rotmat'], dev['cam_intrinsics'],
+                    dev['scale'], dev['center'], dev['orig_shape'][:, 1],
+                    dev['orig_shape'][:, 0])
+                aa = rotmat_to_aa(out['pred_pose'])         # (B, 24, 3)
+        finally:
+            self.model.train()
+        res = smplify_fit(
+            self._fit_assets, aa[:, :1], aa[:, 1:], out['pred_shape'],
+            out['pred_cam_t'], dev['keypoints_orig'], dev['cam_rotmat'],
+            dev['cam_intrinsics'],
+            num_iters=int(self.cfg.TRAINING.NUM_SMPLIFY_ITERS))
+        host = {k: dev[k] for k in ('pose', 'betas', 'has_smpl',
+                                    'keypoints_orig')}
+        upd = apply_smplify_update(
+            host, res, float(self.cfg.TRAINING.SMPLIFY_THRESHOLD))
+        out = dict(dev)
+        for k in ('pose', 'betas', 'has_smpl'):
+            out[k] = torch.as_tensor(upd[k], dtype=torch.float32).to(
+                self.device, non_blocking=True)
+        return out
+
     def _save(self, global_step: int):
         save_checkpoint(self.ckpt_dir, self.state, global_step, keep=1000)
 
@@ -263,6 +326,9 @@ class SpecTrainer:
                     return self.state
                 with timer('h2d'):
                     dev = self._device_batch(batch)
+                if cfg.TRAINING.RUN_SMPLIFY:
+                    with timer('smplify'):
+                        dev = self._run_smplify(dev)
                 with timer('step'):
                     self.state, metrics = self.step(self.state, dev,
                                                     generator)

@@ -7,6 +7,10 @@
   the state_dict of this package's modules (same names as the reference,
   so this is mostly selecting keys; for HMR, SPIN's unprefixed head keys
   and missing init buffers are handled as the JAX converter handles them).
+* :func:`merge_with_template` / :func:`load_camcalib_variables`: a
+  released CamCalib file as a state_dict, keeping a fresh model's
+  tensor wherever the file's shape differs or is missing (the
+  reference's ``overwrite_shape_mismatch=True``).
 * :func:`state_dict_from_flax`: the weight bridge from the JAX package's
   flax variables to this package's state_dicts (inverse of
   ``convert_torch_{resnet,camcalib,hmr}_params``).
@@ -28,7 +32,8 @@ import numpy as np
 import torch
 
 _HEAD_KEYS = ('fc1.', 'fc2.', 'decpose.', 'decshape.', 'deccam.', 'drop1.',
-              'drop2.', 'init_pose', 'init_shape', 'init_cam')
+              'drop2.', 'init_pose', 'init_shape', 'init_cam',
+              'decpose_var.', 'decshape_var.')
 
 
 def load_torch_state_dict(path: str) -> dict:
@@ -88,6 +93,47 @@ def hmr_state_dict(sd: dict, model: torch.nn.Module,
     sd = dict(sd)
     for buf in ('init_pose', 'init_shape', 'init_cam'):
         sd.setdefault(f'head.{buf}', fallback[buf])
+    return select_state_dict(sd, model)
+
+
+def merge_with_template(state_dict: dict, template: dict,
+                        verbose: bool = True) -> 'OrderedDict':
+    """``template``'s keys (a freshly initialized model's state_dict),
+    each taken from ``state_dict`` where it is there with the same
+    shape, else kept from ``template`` (printed when ``verbose``)."""
+    out = OrderedDict()
+    for k, leaf in template.items():
+        cand = state_dict.get(k)
+        if cand is not None and tuple(np.shape(cand)) == tuple(leaf.shape):
+            out[k] = torch.as_tensor(np.asarray(cand), dtype=leaf.dtype)
+            continue
+        if verbose and cand is not None:
+            print(f'[checkpoints] shape mismatch at {k}: checkpoint '
+                  f'{tuple(np.shape(cand))} vs model {tuple(leaf.shape)} '
+                  '— keeping model init')
+        elif verbose and not k.endswith('num_batches_tracked'):
+            print(f'[checkpoints] missing in checkpoint: {k} — keeping '
+                  'model init')
+        out[k] = leaf.detach().clone()
+    return out
+
+
+def load_camcalib_variables(path: str, backbone: str = 'resnet50',
+                            num_fc_layers: int = 1,
+                            template: Optional[dict] = None) -> dict:
+    """A released CamCalib torch file (``camcalib_sa_biased_l2.ckpt``:
+    ResNet-50, one FC layer) -> the state_dict of a
+    :class:`~spec_tpu_torch.models.camcalib.CameraRegressorNetwork` of
+    ``backbone`` and ``num_fc_layers``. With ``template`` (that model's
+    fresh state_dict) mismatched or missing tensors keep the template's
+    (:func:`merge_with_template`); without it a missing tensor raises."""
+    from spec_tpu_torch.models.camcalib import CameraRegressorNetwork
+
+    sd = load_torch_state_dict(path)
+    if template is not None:
+        return merge_with_template(sd, template)
+    model = CameraRegressorNetwork(backbone=backbone,
+                                   num_fc_layers=num_fc_layers)
     return select_state_dict(sd, model)
 
 
@@ -173,8 +219,10 @@ def state_dict_from_flax(variables: dict, kind: str,
     for name in ('init_pose', 'init_shape', 'init_cam'):
         out[f'head.{name}'] = torch.from_numpy(
             np.asarray(hp[name], np.float32).copy())
-    for name in ('fc1', 'fc2', 'decpose', 'decshape', 'deccam'):
-        _dense(out, f'head.{name}', hp[name])
+    for name in ('fc1', 'fc2', 'decpose', 'decshape', 'deccam',
+                 'decpose_var', 'decshape_var'):
+        if name in hp:          # the last two with ``estimate_var`` only
+            _dense(out, f'head.{name}', hp[name])
     return out
 
 

@@ -1,9 +1,11 @@
-"""SPEC config yamls: the SPEC part of ``spec_tpu/utils/config.py``.
+"""Config yamls: a copy of ``spec_tpu/utils/config.py``.
 
 :class:`CfgNode` is a copy of the reference's attribute-tree dict, and
-:func:`spec_default_config` its SPEC defaults, every tree whole (so every
-``--opts`` key of a train or eval command line exists). :func:`run_grid_search_experiments` is the reference's grid
-search: list-valued yaml leaves expand into the cartesian product of
+:func:`spec_default_config` and :func:`camcalib_default_config` its SPEC
+and CamCalib defaults, every tree whole (so every ``--opts`` key of a
+train or eval command line exists).
+:func:`run_grid_search_experiments` is the reference's grid search:
+list-valued yaml leaves expand into the cartesian product of
 configs, ``cfg_id`` picks one and its hyperparameters name the log
 directory. PyYAML is imported where a file is read or written (the
 machine with the card has none).
@@ -212,10 +214,85 @@ def spec_default_config() -> CfgNode:
     })
 
 
-def update_hparams(cfg_file: Optional[str] = None) -> CfgNode:
+def camcalib_default_config() -> CfgNode:
+    """The reference's CamCalib defaults (``spec_tpu.utils.config``)."""
+    return CfgNode.from_dict({
+        'EXP_NAME': 'camcalib',
+        'LOGDIR': '',
+        'LOG_DIR': 'logs/camcalib',
+        'METHOD': 'camcalib',
+        'PROJECT_NAME': 'camcalib',
+        'SEED_VALUE': -1,
+        'SYSTEM': {'GPU': '', 'CLUSTER_NODE': 0.0},
+        'DATASET': {
+            'TRAIN_DS': 'pano',
+            'VAL_DS': 'pano',
+            'MIN_RES': 600,
+            'MAX_RES': 1000,
+            'BATCH_SIZE': 32,
+            'NUM_WORKERS': 8,
+            'PIN_MEMORY': True,
+            'SHUFFLE_TRAIN': True,
+            'IMG_RES': 224,
+            # PIL draft decode of the train loader's JPEGs (the samples
+            # resize down to MIN_RES anyway).
+            'FAST_DECODE': False,
+            # Decoded and resized frames kept per dataset (0: none).
+            'DECODE_CACHE': 0,
+            # Subsample the split without replacement (-1: all).
+            'NUM_IMAGES': -1,
+            # ColorJitter and normalize on the device for the train
+            # loader: items carry raw uint8 and a per-image affine.
+            'DEVICE_JITTER': False,
+            # Legacy alias of MODEL.LOSS_TYPE (resolve_camcalib_loss).
+            'LOSS_TYPE': 'ce',
+        },
+        'OPTIMIZER': {'TYPE': 'adam', 'LR': 1e-3, 'WD': 0.0,
+                      'SCHEDULE': '', 'WARMUP_STEPS': 0,
+                      'DECAY_STEPS': 0, 'DECAY_RATE': 0.1,
+                      'MIN_LR_RATIO': 0.0, 'CLIP_GRAD_NORM': 0.0,
+                      'MOMENTUM': 0.9},
+        'TRAINING': {
+            'RESUME': None,
+            'PRETRAINED': None,
+            'PRETRAINED_LIT': None,
+            'MAX_EPOCHS': 100,
+            'LOG_SAVE_INTERVAL': 50,
+            'LOG_FREQ_TB_IMAGES': 500,
+            'CHECK_VAL_EVERY_N_EPOCH': 1,
+            'RELOAD_DATALOADERS_EVERY_EPOCH': True,
+            'SAVE_IMAGES': False,
+            'GRAD_ACCUM_STEPS': 1,
+        },
+        'MODEL': {
+            'BACKBONE': 'resnet34',
+            'DTYPE': 'float32',
+            'NUM_FC_LAYERS': 1,
+            'NUM_FC_CHANNELS': 1024,
+            'LOSS_VFOV_WEIGHT': 1.0,
+            'LOSS_PITCH_WEIGHT': 1.0,
+            'LOSS_ROLL_WEIGHT': 1.0,
+            'LOSS_TYPE': 'ce',
+        },
+        'RUN_TEST': False,
+    })
+
+
+def resolve_camcalib_loss(cfg: CfgNode) -> str:
+    """The CamCalib loss type from either config dialect: MODEL.LOSS_TYPE
+    (the reference's) or the legacy DATASET.LOSS_TYPE; a value other
+    than the default 'ce' wins, MODEL's when both are set."""
+    model_lt = cfg.get('MODEL', {}).get('LOSS_TYPE', 'ce')
+    dataset_lt = cfg.get('DATASET', {}).get('LOSS_TYPE', 'ce')
+    return model_lt if model_lt != 'ce' else dataset_lt
+
+
+def update_hparams(cfg_file: Optional[str] = None,
+                   dialect: str = 'spec') -> CfgNode:
     """The defaults merged with a yaml (the reference's config entry
-    point, SPEC dialect)."""
-    cfg = spec_default_config()
+    point); ``dialect`` 'spec' or 'camcalib' picks the default tree."""
+    cfg = (camcalib_default_config() if dialect == 'camcalib'
+           else spec_default_config())
     if cfg_file:
         cfg.merge_from_file(cfg_file)
     return cfg

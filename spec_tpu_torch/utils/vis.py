@@ -1,11 +1,11 @@
-"""Horizon-line and keypoint drawing for the demos (port of the drawing
-in ``spec_tpu/utils/vis.py``).
+"""Horizon-line and keypoint drawing for the demos, and CamCalib's error
+CDF plot (port of those parts of ``spec_tpu/utils/vis.py``).
 
 For a pinhole camera with vertical fov, pitch and roll, the horizon
 crosses the vertical image midline at ``ctr = 0.5 - 0.5 * tan(pitch) /
 tan(vfov / 2)`` (a fraction of the height) and tilts with the roll: its
 ends at the left and right edges are offset by ``-/+ w * tan(roll) / 2``.
-cv2 is imported inside the drawing functions.
+cv2 and matplotlib are imported inside the functions.
 """
 
 from __future__ import annotations
@@ -37,6 +37,27 @@ def draw_horizon_line(img, vfov, pitch, roll, color=(0, 255, 255),
                     cv2.FONT_HERSHEY_SIMPLEX, max(0.4, h / 1500.0),
                     (255, 40, 40), 2)
     return out
+
+
+def plot_error_cdf(errors_deg, out_path, label='error'):
+    """The cumulative error plot of CamCalib's validation: fraction of
+    images against angular error in degrees, written to ``out_path``
+    (matplotlib, imported here)."""
+    import matplotlib
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+
+    errors = np.sort(np.asarray(errors_deg))
+    frac = np.arange(1, len(errors) + 1) / len(errors)
+    fig, ax = plt.subplots(figsize=(5, 4))
+    ax.plot(errors, frac)
+    ax.set_xlabel(f'{label} (degrees)')
+    ax.set_ylabel('fraction of images')
+    ax.set_ylim(0, 1)
+    ax.grid(True, alpha=0.3)
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=80)
+    plt.close(fig)
 
 
 def gt_vs_pred_horizon(img, gt_angles, pred_angles):

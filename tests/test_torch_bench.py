@@ -91,6 +91,8 @@ TINY = {
     'train eager fp32': ['--mode', 'train', '--batch', '2', '--frame_h',
                          '64', '--backbone', 'resnet18', '--dtype', 'fp32',
                          '--eager'],
+    'train remat': ['--mode', 'train', '--batch', '2', '--frame_h', '64',
+                    '--backbone', 'resnet18', '--remat'],
 }
 
 

@@ -194,7 +194,8 @@ def test_unported_options_raise(kwargs, err):
 def test_import_hygiene():
     """The port's serving path, the e2e pipeline, the bench, the CLIs and
     their host helpers, the eval path (metrics, eval loop, evaluator, the
-    eval dataset and loader), the stage graphs and every kernel wrapper
+    eval dataset and loader), the training path (the trainers, SMPLify,
+    the pano datasets), the stage graphs and every kernel wrapper
     import no JAX, flax, PIL, cv2, PyYAML, joblib, matplotlib or triton
     (none of them exist on the machine with the card) and nothing of the JAX
     package spec_tpu, and importing them builds no kernel, captures no
@@ -211,6 +212,9 @@ def test_import_hygiene():
         'spec_eval\n'
         'from spec_tpu_torch.data import cache, cam_dataset, image_folder, '
         'loader, tracking, transforms\n'
+        'from spec_tpu_torch.data import pano_agora_dataset, pano_dataset\n'
+        'from spec_tpu_torch.cli import camcalib_train, spec_train\n'
+        'from spec_tpu_torch.train import smplify, trainer\n'
         'from spec_tpu_torch.eval import eval_loop, evaluator, metrics\n'
         'from spec_tpu_torch.core import kp_utils\n'
         'from spec_tpu_torch.utils import cam_params, config, smoothing, '
