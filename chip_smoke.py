@@ -134,7 +134,31 @@ printing its own results; any failure raises and exits nonzero:
     parameters and BatchNorm statistics compared (bit for bit with cuDNN
     deterministic), ms per step and peak memory both ways, then
     ``python -m spec_tpu_torch.bench --mode train --remat`` once;
-18. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
+18. the detector (run after phase 5, so that phase 6 times K1 at its
+    path's batch): ``models/detector.YoloDetector`` at 416² in bf16, its
+    batch of 8 and the tail ladder 4, 2, 1, each replay held to the
+    eager body bit for bit; YOLOv3 in fp32 on the card against the CPU
+    (B = 2, the whole decode, every row at its fixed index, within 1e-3
+    of max(1, max |CPU|)); ``SpecPredictor(detector='yolo')`` at full
+    ResNet-50 width, bf16, ``predict(frames)`` without boxes on phase 4's
+    four 720x1280 frames (the random-init detector's threshold, a
+    host-only knob, just under the weakest frame's best score, so every
+    frame yields a box): persons per frame, K1's launches in the call
+    (the kernels line's ``launches``: this slice's path), the replay
+    against the eager stages and detector, the same results as
+    ``predict(frames, boxes=detect(frames))`` bit for bit, ms per call
+    both ways and its device profile; ``bench --mode detect`` at B = 32
+    (img/s, ms per batch, the bound from YOLOv3's 65.9 GFLOP per image);
+19. HRNet: HMR with ``hrnet_w32-conv`` in the predictor's stage 2 (bf16,
+    phase 4's input): replay against eager, K1 launches per call, ms per
+    call and stage 2 alone, the device profile; card against CPU at
+    phase 8's small setup and limits with HRNet in stage 2 (its
+    BatchNorm statistics set from one batch of random crops, so a random
+    HRNet's activations stay near unit scale); the SPEC
+    train step with the HRNet HMR at the train phase's B = 64 (bf16):
+    replay against eager from one state, K1 launches over three replays,
+    ms per step, peak memory, the device profile;
+20. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then, instead of
 the rest, profiles phase 4's predictor (wall medians per stage, device
@@ -3027,6 +3051,358 @@ def phase_remat(device='cuda'):
     return out
 
 
+
+# The detector phase: YoloDetector at the reference's 416² in bf16 with
+# its batch of 8 and the tail ladder (replays bit for bit against the
+# eager body); card against CPU in fp32 (the whole decode, every row at
+# its fixed index, relative to max(1, max |CPU|)); predict(frames)
+# without boxes at phase 4's input with detector='yolo' (the threshold
+# lowered, a host-only knob, to just under the weakest frame's best
+# candidate, so every frame yields a box from the random-init detector);
+# the detector's img/s at the bench's B = 32.
+DET_SIZE, DET_BATCH, DET_LADDER, DET_BENCH_BATCH = 416, 8, (4, 2, 1), 32
+DET_CPU = dict(size=416, batch=2)
+DET_FP32_LIMIT = 1e-3
+# The HRNet phase: HMR with HRNet-W32 and the conv head in the
+# predictor's stage 2 (bf16, phase 4's input; replay against eager bit
+# for bit), card against CPU at phase 8's small setup and limits
+# (HRNET_CPU_BACKBONE for stage 2), and the SPEC train step with the
+# HRNet HMR at the train phase's batch.
+HRNET_BACKBONE, HRNET_CPU_BACKBONE = 'hrnet_w32-conv', 'hrnet_w32-conv'
+HRNET_TRAIN_REPLAYS = 3
+
+
+def _yolo_work(size, batch):
+    """YOLOv3's convolution operations at ``size``² for ``batch``
+    images (2 x multiply-adds; BatchNorm, activations and the decode
+    left out) and the bytes of its input, weights (bf16) and candidate
+    output."""
+    from spec_tpu_torch.models.detector import YOLOV3_LAYERS
+
+    flops, cin, hist, hw, params = 0.0, 3, [], size, 0
+    hw_hist = []
+    for spec in YOLOV3_LAYERS:
+        if spec[0] == 'conv':
+            _, ch, k, s, _ = spec
+            hw //= s
+            flops += 2.0 * cin * ch * k * k * hw * hw
+            params += cin * ch * k * k
+            cin = ch
+        elif spec[0] == 'route':
+            cin = sum(hist[i] for i in spec[1])
+            hw = hw_hist[spec[1][0]]
+        elif spec[0] == 'upsample':
+            hw *= 2
+        hist.append(cin)
+        hw_hist.append(hw)
+    nbytes = batch * size * size * 3 * 4 + params * 2 + batch * 256 * 5 * 4
+    return flops * batch, nbytes
+
+
+@contextlib.contextmanager
+def _eager_detector(det):
+    """``det``'s forward runs its eager body (no graph) inside."""
+    graph = det._fwd
+    det._fwd = graph.fn
+    try:
+        yield
+    finally:
+        det._fwd = graph
+
+
+def _weakest_best_score(det, frames):
+    """Just under the lowest, over ``frames``, of each frame's best
+    person score: the threshold at which every frame keeps a box."""
+    pending = det.detect_dispatch(frames)
+    best = min(float(c[:len(p), 0, 4].min()) for p, c in pending)
+    return best * (1.0 - 1e-4)
+
+
+def phase_detector(device='cuda'):
+    """The detector phase (see the module docstring). Returns K1's
+    launches in ``predict(frames)`` without boxes and its stage-2 batch.
+    ``device='cpu'`` rehearses the logic (shrink DET_* and FRAME_HW)."""
+    import numpy as np
+    import torch
+
+    from spec_tpu_torch import bench
+    from spec_tpu_torch.models.detector import YoloDetector, YoloV3
+    from spec_tpu_torch.ops import lbs as L
+    from spec_tpu_torch.serving import SpecPredictor
+    from spec_tpu_torch.utils.batching import pad_pow2
+
+    card = device == 'cuda'
+    dev = torch.device(device)
+    rng = np.random.RandomState(5)
+    det = YoloDetector(img_size=DET_SIZE, batch_size=DET_BATCH, seed=0,
+                       device=dev)
+    with torch.inference_mode():
+        for B in (DET_BATCH,) + DET_LADDER:
+            x = torch.from_numpy(rng.rand(B, DET_SIZE, DET_SIZE, 3).astype(
+                'f4')).to(dev)
+            want = det._fwd.fn(x)
+            det._fwd(x)                                  # capture
+            got = det._fwd(x)
+            same = torch.equal(got, want)
+            print(f'[detector bf16 {DET_SIZE}^2 B={B}] replay vs eager '
+                  f'(B, topk, 5) = {tuple(got.shape)}: bit-identical {same}',
+                  flush=True)
+            if not same:
+                raise RuntimeError(f'detector replay differs at B={B}')
+        sigs = sorted(k[0][0][0] for k in det._fwd.signatures())
+        print(f'[detector] graphs for batches {sigs}')
+
+    # card against CPU in fp32
+    sd = {k: v.cpu() for k, v in det.model.state_dict().items()}
+    x = torch.from_numpy(rng.rand(DET_CPU['batch'], DET_CPU['size'],
+                                  DET_CPU['size'], 3).astype('f4'))
+    outs = []
+    for where in (device, 'cpu'):
+        model = YoloV3(torch.float32)
+        model.load_state_dict(sd)
+        model = model.to(where).eval()
+        with torch.inference_mode():
+            outs.append(model(x.to(where)).cpu())
+    err = float((outs[0] - outs[1]).abs().max()) / max(
+        1.0, float(outs[1].abs().max()))
+    print(f'[detector card vs cpu] fp32 {DET_CPU["size"]}^2 B='
+          f'{DET_CPU["batch"]}: raw decode {tuple(outs[1].shape)}, every '
+          f'row at its index: max |difference| {err:.3e} of max(1, max '
+          f'|cpu|) (limit {DET_FP32_LIMIT:.0e})', flush=True)
+    if not err <= DET_FP32_LIMIT:
+        raise RuntimeError('the detector on the card disagrees with the CPU')
+    del det, outs
+    if card:
+        _release()
+
+    # predict(frames) without boxes, the detector in the predictor
+    frames, _ = _frames_and_boxes(4, PERSONS_PER_FRAME, seed=0)
+    pred = SpecPredictor(
+        device=dev, backbone='resnet50', camcalib_backbone='resnet50',
+        use_cam_feats=True, img_res=224, min_size=600,
+        batch_size=BATCH_SIZE, dtype=torch.bfloat16, detector='yolo')
+    pred.detector.conf_thresh = _weakest_best_score(pred.detector, frames)
+    boxes = pred.detector.detect(frames)
+    n_persons = sum(len(b) for b in boxes)
+    pred.predict(frames)                                 # captures
+    L.LAUNCHES = 0
+    got = pred.predict(frames, return_cameras=True)
+    launches = L.LAUNCHES
+    with _eager(pred), _eager_detector(pred.detector):
+        want = pred.predict(frames, return_cameras=True)
+    _check_results(got[0], n_persons)
+    if [len(r) for r in got[0]] != [len(b) for b in boxes] or not all(
+            len(b) for b in boxes):
+        raise RuntimeError(f'predict found {[len(r) for r in got[0]]} '
+                           f'persons, detect {[len(b) for b in boxes]}')
+    via_boxes = pred.predict(frames, boxes=boxes, return_cameras=True)
+    same_boxes = _predict_diff(got, via_boxes)[0]
+    print(f'[detector predict bf16] 4 frames {FRAME_HW[0]}x{FRAME_HW[1]}, '
+          f'conf_thresh {pred.detector.conf_thresh:.4f}: persons per frame '
+          f'{[len(b) for b in boxes]}; K1 launches {launches} in one call; '
+          f'the same as predict(frames, boxes=detect(frames)) bit for bit '
+          f'{same_boxes}', flush=True)
+    _hold_predict('detector predict bf16', got, want, 'bf16')
+    if card and launches < 1:
+        raise RuntimeError('predict(frames) did not launch K1')
+    if not same_boxes:
+        raise RuntimeError('predict(frames) differs from predict(frames, '
+                           'boxes=detect(frames))')
+    out = {'launches': launches, 'persons': n_persons,
+           'batch': pad_pow2(min(n_persons, BATCH_SIZE), BATCH_SIZE)}
+    if card:
+        wall = _wall_ms(lambda: pred.predict(frames), 5)
+        seq = _wall_ms(lambda: pred.predict(
+            frames, boxes=pred.detector.detect(frames)), 5)
+        print(f'[detector predict bf16] {wall:.3f} ms per call '
+              f'(detection and stage 1 queued before either is fetched), '
+              f'{seq:.3f} ms with detect() fetched first (median of 5)',
+              flush=True)
+        _device_profile('detector predict bf16',
+                        lambda: pred.predict(frames), wall, 3, top=6)
+        out['ms'] = wall
+    del pred
+    if card:
+        _release()
+        with torch.inference_mode():
+            args = bench.parse_args(['--mode', 'detect', '--batch',
+                                     str(DET_BENCH_BATCH)])
+            payload = bench.detect_bench(args, dev)
+        bound, by = _bound(*_yolo_work(DET_SIZE, DET_BENCH_BATCH),
+                           PEAK_FLOPS['bf16'])
+        print(f'[detector bench] B={DET_BENCH_BATCH} {DET_SIZE}^2 bf16: '
+              f'{payload["value"]:.1f} img/s, {payload["ms_per_batch"]:.3f} '
+              f'ms per batch; bound {bound:.3f} ms ({by}: '
+              f'{_yolo_work(DET_SIZE, 1)[0] / 1e9:.1f} GFLOP of '
+              f'convolutions per image), share '
+              f'{bound / payload["ms_per_batch"]:.3f}', flush=True)
+        out['bench'] = payload
+        _release()
+    return out
+
+
+def _calibrated_bn(model, res, n=16, seed=0):
+    """``model``'s state_dict with every BatchNorm's running statistics
+    set to those of one batch of ``n`` random crops (computed on the
+    CPU). A random HRNet with unit statistics (mean 0, var 1) grows its
+    activations through every exchange module, and an absolute card vs
+    CPU limit would then measure that growth; with the statistics of
+    its own activations each layer stays near unit scale."""
+    import copy
+
+    import torch
+
+    m = copy.deepcopy(model).cpu().float().train()
+    for bn in m.modules():
+        if isinstance(bn, torch.nn.BatchNorm2d):
+            bn.reset_running_stats()
+            bn.momentum = None           # a cumulative average: one batch
+    x = torch.randn(n, 3, res, res,
+                    generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        m.backbone(x)
+    return {k: v for k, v in m.state_dict().items()}
+
+
+def phase_hrnet(device='cuda'):
+    """The HRNet phase (see the module docstring). Returns K1's launches
+    in one HRNet predict call and over the train replays.
+    ``device='cpu'`` rehearses the logic (shrink FRAME_HW, TRAIN_*)."""
+    import numpy as np
+    import torch
+
+    from spec_tpu_torch import bench
+    from spec_tpu_torch.ops import lbs as L
+    from spec_tpu_torch.serving import SpecPredictor
+
+    card = device == 'cuda'
+    dev = torch.device(device)
+    out = {}
+    # predict with HMR-HRNet in stage 2, bf16
+    frames, boxes = _frames_and_boxes(4, PERSONS_PER_FRAME, seed=0)
+    n_persons = sum(len(b) for b in boxes)
+    pred = SpecPredictor(
+        device=dev, backbone=HRNET_BACKBONE, camcalib_backbone='resnet50',
+        use_cam_feats=True, img_res=224, min_size=600,
+        batch_size=BATCH_SIZE, dtype=torch.bfloat16)
+    pred.predict(frames, boxes)                          # captures
+    L.LAUNCHES = 0
+    got = pred.predict(frames, boxes, return_cameras=True)
+    out['predict_launches'] = L.LAUNCHES
+    with _eager(pred):
+        want = pred.predict(frames, boxes, return_cameras=True)
+    _check_results(got[0], n_persons)
+    print(f'[hrnet predict bf16] {HRNET_BACKBONE} stage 2, 4 frames '
+          f'{FRAME_HW[0]}x{FRAME_HW[1]}, {n_persons} persons: K1 launches '
+          f'{out["predict_launches"]} in one call', flush=True)
+    _hold_predict('hrnet predict bf16', got, want, 'bf16')
+    if card and out['predict_launches'] != 1:
+        raise RuntimeError('the HRNet predict call launched K1 '
+                           f'{out["predict_launches"]} times')
+    if card:
+        wall = _wall_ms(lambda: pred.predict(frames, boxes), 5)
+        with torch.inference_mode():
+            frames_dev = [pred._upload(f) for f in frames]
+            cams = pred.estimate_cameras(frames)
+            (s2,) = [x for *_, x in pred._stage2_batches(frames_dev, boxes,
+                                                         cams)]
+            stage2 = _time_ms(lambda: pred._stage2(*s2), n=20)
+        print(f'[hrnet predict bf16] {wall:.3f} ms per call (median of 5); '
+              f'stage 2 alone {stage2:.3f} ms per replay at B = '
+              f'{s2[0].shape[0]} (CUDA events, median of 20)', flush=True)
+        _device_profile('hrnet predict bf16',
+                        lambda: pred.predict(frames, boxes), wall, 3, top=6)
+        out.update(predict_ms=wall, stage2_ms=stage2)
+    del pred
+    if card:
+        _release()
+
+    # card against CPU at phase 8's setup, HRNet in stage 2, with
+    # calibrated BatchNorm statistics on both sides
+    rng = np.random.RandomState(11)
+    small = [(rng.rand(96, 128, 3) * 255).astype(np.uint8) for _ in range(2)]
+    small_boxes = [np.array([[40.0, 55.0, 50.0, 50.0]], np.float32),
+                   np.array([[60.0, 50.0, 40.0, 70.0],
+                             [90.0, 40.0, 30.0, 55.0]], np.float32)]
+    kw = dict(backbone=HRNET_CPU_BACKBONE, camcalib_backbone='resnet18',
+              use_cam_feats=True, min_size=96, img_res=64, batch_size=8)
+    sd = None
+    res = []
+    for where in (dev, 'cpu'):
+        p = SpecPredictor(device=where, **kw)
+        if sd is None:
+            sd = _calibrated_bn(p.spec, 64)
+        p.spec.load_state_dict(sd)
+        res.append(p.predict(small, small_boxes, return_cameras=True))
+    res_g, res_c = res
+    _, errs, cam = _predict_diff(res_g, res_c)
+    limits = PREDICT_LIMITS['fp32']
+    print(f'[hrnet card vs cpu] {HRNET_CPU_BACKBONE} fp32 min_size 96 '
+          f'img_res 64: camera angles {cam:.2e} rad (limit '
+          f'{ANGLE_LIMIT["fp32"]}), '
+          + ', '.join(f'{k} {errs[k]:.2e} (limit {lim})'
+                      for k, lim in limits.items()), flush=True)
+    bad = [k for k, lim in limits.items() if not errs[k] <= lim]
+    if cam > ANGLE_LIMIT['fp32'] or bad:
+        raise RuntimeError(f'HRNet card and CPU disagree: {bad or "cameras"}')
+
+    # the SPEC train step with HMR-HRNet at the train phase's batch
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    state, step, batch = bench.train_setup(
+        TRAIN_BATCH, HRNET_BACKBONE, torch.bfloat16, dev, TRAIN_RES)
+    head = state.model.head
+    head.dropout_rate = 0.0
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        step(state, batch)                       # eager first step, capture
+        snap = _snapshot(state)
+        _, eager = step.eager(state, batch)
+        eager_sd = {k: v.detach().clone()
+                    for k, v in state.model.state_dict().items()}
+        _restore(state, snap)
+        _, replay = step(state, batch)
+        rel = _model_rel(state.model.state_dict(), eager_sd)
+        same = all(torch.equal(replay[k], eager[k]) for k in eager) and \
+            rel == 0.0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    label = f'hrnet train step {HRNET_BACKBONE} bf16 B={TRAIN_BATCH}'
+    print(f'[{label}] replay vs eager from one state (cuDNN deterministic, '
+          f'dropout off): bit-identical {same}; the model after the step '
+          f'{rel:.3e} relative (limit {TRAIN_REPLAY_MODEL_RTOL:.0e})',
+          flush=True)
+    if not rel <= TRAIN_REPLAY_MODEL_RTOL:
+        raise RuntimeError('the HRNet train step replay differs from eager')
+    L.LAUNCHES = 0
+    losses = [float(step(state, batch)[1]['loss/total_loss'])
+              for _ in range(HRNET_TRAIN_REPLAYS)]
+    out['train_launches'] = L.LAUNCHES
+    print(f'[{label}] {HRNET_TRAIN_REPLAYS} replays: total loss '
+          + ' '.join(f'{v:.3f}' for v in losses)
+          + f'; K1 launches {out["train_launches"]}', flush=True)
+    if not np.all(np.isfinite(losses)):
+        raise RuntimeError(f'HRNet train loss not finite: {losses}')
+    if card and out['train_launches'] != \
+            TRAIN_K1_PER_STEP * HRNET_TRAIN_REPLAYS:
+        raise RuntimeError('the HRNet train step launched K1 '
+                           f'{out["train_launches"]} times')
+    if card:
+        wall = _wall_ms(lambda: step(state, batch), 5)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f'[{label}] graph {wall:.3f} ms per step (median of 5), '
+              f'{TRAIN_BATCH / wall * 1e3:.1f} img/s, peak memory '
+              f'{peak:.2f} GiB (max_memory_allocated over setup, eager '
+              f'step, capture and replays)', flush=True)
+        _device_profile(label, lambda: step(state, batch), wall, 3, top=6)
+        out.update(train_ms=wall)
+    del state, step, batch
+    if card:
+        _release()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3062,14 +3438,17 @@ def main() -> int:
     k3_rows = phase_bottleneck()
     pred = phase_predictor()
     pipe = phase_pipeline()
+    det = phase_detector()
+    hrnet = phase_hrnet()
     # K1 at the batches the paths gave it: the predictor's one padded
-    # stage-2 chunk, the pipeline's rows of SMPL (K1 wrote its vertices)
-    # and the train step's batch.
+    # stage-2 chunk, the detector path's, the pipeline's rows of SMPL (K1
+    # wrote its vertices) and the train step's batch.
     main_batch = pad_pow2(min(sum(PERSONS_PER_FRAME), BATCH_SIZE),
                           BATCH_SIZE)
     pipe_batch = pipe['bf16']['fused']['outs'][0].shape[0]
     lbs_rows = phase_lbs(sorted(set(LBS_BATCHES)
-                                | {main_batch, pipe_batch, TRAIN_BATCH}))
+                                | {main_batch, pipe_batch, TRAIN_BATCH,
+                                   det['batch']}))
     verts, _, cam_t, vfov, pitch, roll = pipe['fp32']['fused']['outs']
     k2 = phase_projection(_projection_operands(verts, cam_t, vfov, pitch,
                                                roll))
@@ -3085,7 +3464,7 @@ def main() -> int:
     smplify = phase_smplify()
     phase_remat()
 
-    row = lbs_rows[TRAIN_BATCH]        # K1's batch on this slice's path
+    row = lbs_rows[det['batch']]       # K1's batch on this slice's path
 
     def k3_entry(tag):
         """K3 in ``tag`` (bf16, or fp32 as 3xTF32): layer1's block at
@@ -3113,11 +3492,15 @@ def main() -> int:
         'route': 'cuda',
         'source': 'spec_tpu_torch/csrc/lbs.cu',
         'replaces': 'spec_tpu/ops/pallas/lbs.py:97',
-        # this slice's path: the train phase's TRAIN_STEPS - 1 replays;
-        # the times below are phase 6's at the train step's batch
-        'launches': train_launches,
-        'batch': TRAIN_BATCH,
-        'launches_by_path': {'train': train_launches,
+        # this slice's path: one predict(frames) call without boxes, the
+        # detector's boxes through stage 2; the times below are phase
+        # 6's at that path's stage-2 batch
+        'launches': det['launches'],
+        'batch': det['batch'],
+        'launches_by_path': {'detector predict': det['launches'],
+                             'hrnet predict': hrnet['predict_launches'],
+                             'hrnet train': hrnet['train_launches'],
+                             'train': train_launches,
                              'serve window': serve_launches,
                              'eval step replay': eval_launches,
                              'smplify fit': smplify['launches']},
@@ -3127,8 +3510,10 @@ def main() -> int:
         'plain_ms': row['plain_ms'],
         'bound_ms': row['bound_ms'],
         'bound_by': row['bound_by'],
-        # the closed-form backward at the same batch: measured alone in
-        # the SMPLify phase, bound from its code (_k1_backward_work)
+        # the closed-form backward at the train step's batch: measured
+        # alone in the SMPLify phase, bound from its code
+        # (_k1_backward_work)
+        'backward_batch': TRAIN_BATCH,
         'backward_ms': smplify['k1_bwd_ms'],
         'backward_bound_ms': _bound(*_k1_backward_work(TRAIN_BATCH),
                                     PEAK_FLOPS['fp32'])[0],

@@ -1,8 +1,9 @@
 """The port's benchmark: ``python -m spec_tpu_torch.bench``.
 
-The counterpart of ``bench.py``'s ``pipeline``, ``serving`` and
-``latency`` modes (argument names and defaults from there; ``--stage1
-flax`` is ``module`` here, and ``--dtype`` picks the compute dtype):
+The counterpart of ``bench.py``'s ``pipeline``, ``serving``,
+``latency``, ``eval``, ``train`` and ``detect`` modes (argument names
+and defaults from there; ``--stage1 flax`` is ``module`` here, and
+``--dtype`` picks the compute dtype):
 
 * ``pipeline`` (default): ``pipeline.build_pipeline`` on B = 128 raw
   frames of 512x672 in device memory, one person per frame: img/s per
@@ -13,7 +14,11 @@ flax`` is ``module`` here, and ``--dtype`` picks the compute dtype):
   (``predict`` fetches its results to the host). ``--compute_only``
   replays the predictor's stage graphs on inputs staged on the device
   (the reference's jitted stage bodies on staged inputs), by CUDA
-  events.
+  events. ``--detector`` also builds the predictor's YOLOv3 (random
+  init) and times ``predict(frames)`` without boxes, which queues
+  detection and stage 1 before fetching either (overlapped), against
+  ``detector.detect`` fetched first and then ``predict(frames, boxes)``
+  (sequential): ms per frame each way.
 * ``latency``: ``predict`` on one 480x640 frame with one box: e2e ms per
   call, and stage-1 and stage-2 ms from replays on staged inputs.
 * ``eval``: the eval step (``eval/eval_loop.make_eval_step``) at
@@ -22,6 +27,12 @@ flax`` is ``module`` here, and ``--dtype`` picks the compute dtype):
   three synthetic asset sets (V = 6890), J14 Procrustes, J24 and V2V:
   img/s by the host clock (the step's Procrustes tail reads back on the
   host).
+* ``detect``: the YOLOv3 person detector (``models/detector.py``) at
+  ``bench.py``'s ``detect_bench`` setup: B = 32 (``--batch``) inputs of
+  416² (``--frame_h``) in device memory, bf16, the forward and the
+  device-side top-K person filter, one graph replay per call (random
+  init from seed 0): img/s and ms per batch by CUDA events; the (B,
+  256, 5) candidates stay on the device.
 * ``train``: the SPEC train step (``train/steps.make_spec_train_step``:
   forward, GT and predicted SMPL through K1, ``hmr_cam_loss``, backward
   with K1's closed-form VJP, Adam 1e-4 in place) at ``bench.py``'s
@@ -64,9 +75,10 @@ WINDOWS = 10
 # Frame sizes per mode when --frame_h/--frame_w are not given: the
 # pipeline's stage-1 bucket, and the serving and latency frames.
 FRAME_HW = {'pipeline': (512, 672), 'serving': (480, 640),
-            'latency': (480, 640), 'eval': (224, 224), 'train': (224, 224)}
+            'latency': (480, 640), 'eval': (224, 224), 'train': (224, 224),
+            'detect': (416, 416)}
 # bench.py's batch per mode (128 unless named).
-BATCH = {'train': 64}
+BATCH = {'train': 64, 'detect': 32}
 # CUDA runtime calls that put work on the device, as the profiler names
 # them: what the host issues per call.
 _LAUNCH_CALLS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
@@ -78,17 +90,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         prog='python -m spec_tpu_torch.bench',
         description='spec_tpu_torch e2e bench (pipeline, serving, '
-                    'latency, eval, train)')
+                    'latency, eval, train, detect)')
     parser.add_argument('--mode',
                         choices=['pipeline', 'serving', 'latency', 'eval',
-                                 'train'],
+                                 'train', 'detect'],
                         default='pipeline')
     parser.add_argument('--batch', type=int, default=None,
-                        help='[pipeline, eval, train] frames or crops per '
-                             'call (default: 64 for train, else 128)')
+                        help='[pipeline, eval, train, detect] frames or '
+                             'crops per call (default: 64 for train, 32 '
+                             'for detect, else 128)')
     parser.add_argument('--frame_h', type=int, default=None,
                         help='default: 512 (pipeline) / 480 (serving, '
-                             'latency); eval: the crop side, 224')
+                             'latency); eval, train: the crop side, 224; '
+                             'detect: the input side, 416')
     parser.add_argument('--frame_w', type=int, default=None,
                         help='default: 672 (pipeline) / 640 (serving, '
                              'latency)')
@@ -116,6 +130,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help='[serving, latency] stage-1 resize target')
     parser.add_argument('--camcalib_every', type=int, default=1,
                         help='[serving] CamCalib on every Nth frame only')
+    parser.add_argument('--detector', action='store_true',
+                        help='[serving] also run the in-process YOLOv3 '
+                             '(random init) and time predict(frames) '
+                             'without boxes, overlapped and sequential')
     parser.add_argument('--compute_only', action='store_true',
                         help='[serving] replay the stage graphs on inputs '
                              'staged on the device')
@@ -301,12 +319,12 @@ def pipeline_bench(args, device) -> dict:
                  ms_per_call=statistics.median(ms))
 
 
-def _predictor(args, device, camcalib_every=1):
+def _predictor(args, device, camcalib_every=1, detector=''):
     from spec_tpu_torch.serving import SpecPredictor
 
     return SpecPredictor(batch_size=32, min_size=args.min_size,
                          dtype=_dtype(args), camcalib_every=camcalib_every,
-                         device=device)
+                         detector=detector, device=device)
 
 
 def _serving_inputs(args):
@@ -339,7 +357,8 @@ def _staged(pred, frames, boxes, every=1):
 def serving_bench(args, device) -> dict:
     frames, boxes = _serving_inputs(args)
     n_persons = args.frames * args.persons
-    pred = _predictor(args, device, args.camcalib_every)
+    pred = _predictor(args, device, args.camcalib_every,
+                      'yolo' if args.detector else '')
     for _ in range(2):          # captures for every padded shape
         pred.predict(frames, boxes)
         pred.reset_camera_stream()
@@ -379,10 +398,36 @@ def serving_bench(args, device) -> dict:
     if args.profile and device.type == 'cuda':
         _print_profile(f'serving predict ({where})', call,
                        statistics.median(ms))
+    extra = _detector_ms(pred, frames, args, device) if args.detector \
+        else {}
     return _emit(args, device, f'serving predict() e2e, {where}', ms,
                  lambda m: n_persons / m * 1e3, 'persons/s/gpu',
                  ms_per_call=statistics.median(ms),
-                 ms_per_call_spread=[min(ms), max(ms)])
+                 ms_per_call_spread=[min(ms), max(ms)], **extra)
+
+
+def _detector_ms(pred, frames, args, device) -> dict:
+    """``serving --detector``: ms per frame of ``predict(frames)`` with
+    the predictor's detector (detection and stage 1 queued before
+    either is fetched) and of the sequential order (``detect`` fetched
+    first, then ``predict(frames, boxes)``): the same work both ways,
+    medians of the windows by the host clock."""
+    def overlapped():
+        pred.predict(frames)
+
+    def sequential():
+        pred.predict(frames, boxes=pred.detector.detect(frames))
+
+    for fn in (overlapped, sequential):
+        for _ in range(2):      # captures for every padded shape
+            fn()
+    n = len(frames)
+    out = {}
+    for name, fn in (('overlap', overlapped), ('sequential', sequential)):
+        ms = _windows(_host_ms, fn, args.iters, device)
+        out[f'detect_stage1_{name}_ms_per_frame'] = statistics.median(ms) / n
+        out[f'detect_stage1_{name}_spread'] = [min(ms) / n, max(ms) / n]
+    return out
 
 
 def latency_bench(args, device) -> dict:
@@ -593,6 +638,33 @@ def train_bench(args, device) -> dict:
                  ms_per_step=statistics.median(ms))
 
 
+def detect_bench(args, device) -> dict:
+    """The YOLOv3 forward and top-K person filter (``YoloDetector``'s
+    stage graph) on ``--batch`` random inputs of ``--frame_h``², as
+    ``bench.py``'s ``detect_bench`` draws them."""
+    from spec_tpu_torch.models.detector import YoloDetector
+
+    B, S = args.batch, args.frame_h
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(B, S, S, 3).astype('f4')).to(device)
+    det = YoloDetector(img_size=S, batch_size=B, seed=0,
+                       dtype=_dtype(args), device=device)
+    for _ in range(2):          # capture, then one replay
+        cand = det._fwd(x)
+    _sync(device)
+    if cand.shape != (B, min(256, 3 * 21 * (S // 32) ** 2), 5) or not bool(
+            torch.isfinite(cand).all()):
+        raise RuntimeError(f'bad detector output {tuple(cand.shape)}')
+    ms = _windows(_device_ms, lambda: det._fwd(x), args.iters, device)
+    if args.profile and device.type == 'cuda':
+        _print_profile(f'detect {S}^2 {args.dtype} B={B}',
+                       lambda: det._fwd(x), statistics.median(ms))
+    return _emit(args, device,
+                 f'yolov3 person detection ({S}^2 {args.dtype}, device '
+                 f'top-K), B={B}', ms, lambda m: B / m * 1e3, 'img/s/gpu',
+                 ms_per_batch=statistics.median(ms))
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     device = torch.device(args.device)
@@ -608,7 +680,7 @@ def main(argv=None) -> int:
         return 2
     bench = {'pipeline': pipeline_bench, 'serving': serving_bench,
              'latency': latency_bench, 'eval': eval_bench,
-             'train': train_bench}[args.mode]
+             'train': train_bench, 'detect': detect_bench}[args.mode]
     # Training needs autograd; every other mode runs in inference mode.
     with (contextlib.nullcontext() if args.mode == 'train'
           else torch.inference_mode()):

@@ -20,8 +20,9 @@ Protocol (numpy .npz over POST):
                              frame_0, boxes_0, frame_1, boxes_1, ...
                            boxes are [cx, cy, w, h] (scale =
                            max_side / 200). A request without boxes asks
-                           for server-side detection, which is not
-                           ported yet (400). Any frame may instead come
+                           for server-side detection (start with
+                           --detector yolo; 400 otherwise). Any frame
+                           may instead come
                            ENCODED as frame_jpeg / frame_{i}_jpeg: a 1-D
                            uint8 buffer of JPEG or PNG bytes, decoded on
                            the server with OpenCV (400 where cv2 is not
@@ -424,10 +425,10 @@ def create_server(predictor, host: str = '0.0.0.0', port: int = 8080,
             except Exception as e:      # malformed payload -> client error
                 self._error(400, str(e))
                 return
-            if boxes is None:
-                self._error(400, 'request has no boxes and server-side '
-                                 'detection is not ported yet '
-                                 '(ROADMAP.md §1 item 10)')
+            if boxes is None and getattr(predictor, 'detector',
+                                         None) is None:
+                self._error(400, 'request has no boxes and the server was '
+                                 'started without --detector')
                 return
             try:
                 stream = self.headers.get('X-Spec-Stream') or None
@@ -498,15 +499,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help='cap on frames micro-batched per device '
                              'round across concurrent requests '
                              '(0 = batch_size)')
+    parser.add_argument('--detector', type=str, default='',
+                        choices=['', 'yolo'],
+                        help="'yolo' serves box-less requests with the "
+                             'in-process YOLOv3 (--yolo_weights)')
+    parser.add_argument('--yolo_weights', type=str, default='',
+                        help='official darknet yolov3.weights path')
+    parser.add_argument('--yolo_img_size', type=int, default=416,
+                        help='detector letterbox size (multiple of 32)')
     add_device_flag(parser)
     g = parser.add_argument_group(
         'reference flags not ported yet (each raises NotImplementedError)')
-    g.add_argument('--detector', type=str, default='', choices=['', 'yolo'],
-                   help="'yolo': ROADMAP.md §1 item 10")
-    g.add_argument('--yolo_weights', type=str, default='',
-                   help='with --detector yolo')
-    g.add_argument('--yolo_img_size', type=int, default=416,
-                   help='with --detector yolo')
     g.add_argument('--data_parallel', action='store_true',
                    help='ROADMAP.md §1 item 12')
     g.add_argument('--spatial_parallel', action='store_true',
@@ -517,8 +520,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _unported(args) -> None:
-    for flag, item in (('detector', 10), ('data_parallel', 12),
-                       ('spatial_parallel', 12), ('exported', 11)):
+    for flag, item in (('data_parallel', 12), ('spatial_parallel', 12),
+                       ('exported', 11)):
         if getattr(args, flag):
             raise NotImplementedError(
                 f'--{flag} is not ported yet (ROADMAP.md §1 item {item})')
@@ -532,6 +535,8 @@ def build_predictor(args, device):
         spec_ckpt=args.spec_ckpt, camcalib_ckpt=args.camcalib_ckpt,
         smpl_model_dir=args.smpl_model_dir, cfg_file=args.cfg,
         batch_size=args.batch_size or 32, min_size=args.min_size,
+        detector=args.detector, yolo_weights=args.yolo_weights,
+        yolo_img_size=args.yolo_img_size,
         camcalib_every=args.camcalib_every,
         cut_threshold=args.cut_threshold, device=device)
 

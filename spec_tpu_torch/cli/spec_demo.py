@@ -4,16 +4,16 @@ or a live webcam/stream (port of ``spec_tpu/cli/spec_demo.py``).
 * Stage 1 runs in-process: :func:`camcalib_demo.run_camcalib_on_folder`
   (one padded batch per resized shape); its pickles are still written,
   the reference's stage-1 -> stage-2 interface.
-* Person boxes come from a file (``--bbox_file``) or one whole-image box
-  per frame. ``--detector yolo`` is not ported yet (``ROADMAP.md`` §1
-  item 10).
+* Person boxes come from a file (``--bbox_file``), the in-process YOLOv3
+  (``--detector yolo``, ``--yolo_weights``; its boxes are saved as
+  ``detections.json``) or one whole-image box per frame.
 * Every person crop of every image is cut on the device
   (``serving.crop_boxes``, the port's ``ops/preprocess`` crop) from the
   uploaded frame, and runs in padded batches of ``batch_size`` through
   one stage-2 function: HMR, SMPL through the fused LBS kernel and the
   camera (``serving._spec_forward``); on a GPU it replays a CUDA graph.
 * Overlays draw the horizon and the 2D joints. The mesh overlay waits
-  for the renderer (``ROADMAP.md`` §1 item 10).
+  for the renderer (``ROADMAP.md`` §1 item 10, the next slice).
 
 Outputs per image: ``spec_results/<img>.pkl`` with the model outputs
 (smpl_vertices/joints3d/joints2d, pred_cam_t, pred_pose/shape/cam), and
@@ -41,6 +41,7 @@ from spec_tpu_torch.data.detection import (
     bbox_to_center_scale,
     full_image_bboxes,
     load_bboxes_file,
+    run_yolo_detections,
 )
 from spec_tpu_torch.data.image_folder import list_images
 from spec_tpu_torch.ops.preprocess import spin_crop_corners
@@ -58,8 +59,8 @@ _MODEL_CACHE: dict = {}
 _IMAGE_CACHE_MAX = 32
 
 _NO_MESH = ('[spec] mesh overlay not drawn: the renderer is not ported '
-            'yet (ROADMAP.md §1 item 10); overlays show the horizon and '
-            'the 2D joints')
+            'yet (ROADMAP.md §1 item 10, the next slice); overlays show '
+            'the horizon and the 2D joints')
 
 
 def _get_spec_model(smpl_model_dir: str, cfg_file: str, spec_ckpt: str,
@@ -177,7 +178,10 @@ def run_spec_on_folder(
     smpl_model_dir: str = '',
     save_obj: bool = False,
     cfg_file: str = '',
+    detection_threshold: float = 0.7,
     detector: str = '',
+    yolo_weights: str = '',
+    yolo_img_size: int = 416,
     min_size: int = 600,
     camcalib_every: int = 1,
     cut_threshold: float = 0.5,
@@ -188,9 +192,9 @@ def run_spec_on_folder(
 
     from spec_tpu_torch.cli.camcalib_demo import run_camcalib_on_folder
 
-    if detector:
-        raise NotImplementedError(f'--detector {detector} is not ported '
-                                  'yet (ROADMAP.md §1 item 10)')
+    if detector not in ('', 'yolo'):
+        raise ValueError(f"unknown detector {detector!r}; use 'yolo' or "
+                         "'' (--bbox_file or full-frame boxes)")
     t_total_start = time.perf_counter()
     cam_out = os.path.join(output_folder, 'camcalib')
     res_out = os.path.join(output_folder, 'spec_results')
@@ -207,6 +211,22 @@ def run_spec_on_folder(
         shapes[os.path.basename(name)] = (h, w)
     if bbox_file:
         dets = load_bboxes_file(bbox_file)
+    elif detector == 'yolo':
+        import json
+
+        dets = run_yolo_detections(
+            image_names, yolo_weights, img_size=yolo_img_size,
+            conf_thresh=detection_threshold, device=device)
+        # Saved (merged across the video mode's chunks) so tracking and
+        # users read them as any --bbox_file.
+        det_json = os.path.join(output_folder, 'detections.json')
+        merged = {}
+        if os.path.exists(det_json):
+            with open(det_json) as f:
+                merged = json.load(f)
+        merged.update({k: np.asarray(v).tolist() for k, v in dets.items()})
+        with open(det_json, 'w') as f:
+            json.dump(merged, f)
     else:
         print('[spec] no --bbox_file given; using full-frame boxes')
         dets = full_image_bboxes(shapes)
@@ -526,8 +546,14 @@ def run_spec_on_video(
     from spec_tpu_torch.data.tracking import track_video_boxes
 
     h, w = first_hw
-    dets = (vid_dets if vid_dets is not None
-            else full_image_bboxes({n: (h, w) for n in names}))
+    if vid_dets is not None:
+        dets = vid_dets
+    elif folder_kwargs.get('detector') == 'yolo':
+        # run_spec_on_folder saved each chunk's detections.
+        dets = load_bboxes_file(
+            os.path.join(output_folder, 'detections.json'))
+    else:
+        dets = full_image_bboxes({n: (h, w) for n in names})
     per_frame = [np.asarray(dets.get(n, np.zeros((0, 4), np.float32)),
                             np.float32).reshape(-1, 4) for n in names]
     ids = track_video_boxes(per_frame, method=tracker)
@@ -563,6 +589,8 @@ def run_spec_webcam(
     cfg_file: str = '',
     smpl_model_dir: str = '',
     detector: str = '',
+    yolo_weights: str = '',
+    yolo_img_size: int = 416,
     min_size: int = 600,
     img_res: int = 224,
     max_frames: int = 0,
@@ -576,7 +604,8 @@ def run_spec_webcam(
     (:class:`spec_tpu_torch.serving.SpecPredictor`), the latency path.
 
     ``source`` is a camera index ('0', '1', ...) or any cv2-readable
-    stream or file. Per frame: a full-frame person box -> CamCalib (on
+    stream or file. Per frame: the detector's boxes (``detector='yolo'``)
+    or a full-frame person box -> CamCalib (on
     ``camcalib_every`` keyframes) -> SPEC -> horizon and joints overlay
     -> ``spec_webcam_output.mp4`` (and a ``cv2.imshow`` window with
     ``display``; ``q`` quits). Per-frame results go to
@@ -609,6 +638,7 @@ def run_spec_webcam(
         spec_ckpt=spec_ckpt, camcalib_ckpt=camcalib_ckpt,
         cfg_file=cfg_file, smpl_model_dir=smpl_model_dir, img_res=img_res,
         batch_size=8, min_size=min_size, detector=detector,
+        yolo_weights=yolo_weights, yolo_img_size=yolo_img_size,
         cut_threshold=cut_threshold, device=device)
 
     out_path = os.path.join(output_folder, 'spec_webcam_output.mp4')
@@ -631,8 +661,11 @@ def run_spec_webcam(
                            if camcalib_every > 1 and sel.cut_threshold > 0
                            else None):
             cam = pred.estimate_cameras([rgb])[0]
-        full = full_image_bboxes({'f': (h, w)})['f']
-        persons = pred.predict([rgb], [full], cameras=[cam])[0]
+        if pred.detector is not None:
+            persons = pred.predict([rgb], cameras=[cam])[0]
+        else:
+            full = full_image_bboxes({'f': (h, w)})['f']
+            persons = pred.predict([rgb], [full], cameras=[cam])[0]
         latencies.append((time.perf_counter() - t0) * 1000.0)
 
         if persons:
@@ -704,7 +737,8 @@ def _say_no_mesh() -> None:
 
 def _render_overlay_img(img_rgb, merged, cam_data):
     """Horizon and 2D joints over an RGB frame. The mesh overlay waits
-    for the renderer (ROADMAP.md §1 item 10); the first call says so."""
+    for the renderer (ROADMAP.md §1 item 10, the next slice); the first
+    call says so."""
     from spec_tpu_torch.utils.vis import draw_horizon_line, draw_skeleton
 
     _say_no_mesh()
@@ -779,13 +813,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help='experiment suffix appended to the output dir')
     parser.add_argument('--detector', type=str, default='',
                         choices=['', 'yolo', 'maskrcnn'],
-                        help="'yolo' is not ported yet (ROADMAP.md §1 "
-                             'item 10; NotImplementedError); default is '
+                        help="'yolo' runs the in-process YOLOv3 "
+                             '(--yolo_weights; random init without); '
+                             'default is '
                              '--bbox_file or full-frame boxes')
     parser.add_argument('--yolo_weights', type=str, default='',
-                        help='with --detector yolo')
+                        help='path to the official darknet '
+                             'yolov3.weights for --detector yolo')
     parser.add_argument('--yolo_img_size', type=int, default=416,
-                        help='with --detector yolo')
+                        help='--detector yolo letterbox size (a multiple '
+                             'of 32)')
     for noop in ('--tracking_method', '--staf_dir'):
         parser.add_argument(noop, type=str, default=None,
                             help='accepted for reference CLI parity; '
@@ -833,9 +870,10 @@ def main(argv=None):
         raise SystemExit(
             '--detector maskrcnn is not bundled; precompute boxes with '
             'any detector and pass --bbox_file')
-    if args.detector == 'yolo':
-        raise NotImplementedError('--detector yolo is not ported yet '
-                                  '(ROADMAP.md §1 item 10)')
+    if args.detector == 'yolo' and not args.yolo_weights:
+        print('[spec] WARNING: --detector yolo without --yolo_weights '
+              'runs a random-init detector (pipeline check only); point '
+              '--yolo_weights at the official darknet yolov3.weights')
     device = resolve_device(args.device, 'spec_tpu_torch.cli.spec_demo')
     if args.ckpt and not args.spec_ckpt:
         args.spec_ckpt = args.ckpt
@@ -856,18 +894,21 @@ def main(argv=None):
         bbox_file=args.bbox_file, batch_size=args.batch_size,
         save_results=not args.no_save, render=not args.no_render,
         smpl_model_dir=args.smpl_model_dir, save_obj=args.save_obj,
-        cfg_file=args.cfg, min_size=args.min_size,
-        camcalib_every=args.camcalib_every,
+        cfg_file=args.cfg, detector=args.detector,
+        yolo_weights=args.yolo_weights, yolo_img_size=args.yolo_img_size,
+        min_size=args.min_size, camcalib_every=args.camcalib_every,
         cut_threshold=args.cut_threshold, device=device)
     if args.mode == 'webcam':
         if args.bbox_file:
             print('[spec] WARNING: --bbox_file is ignored in webcam mode '
-                  '(live frames have no precomputed boxes); full-frame '
-                  'boxes are used')
+                  '(live frames have no precomputed boxes); use '
+                  '--detector yolo or the full-frame fallback')
         run_spec_webcam(
             source=args.webcam_source, output_folder=out_folder,
             spec_ckpt=args.spec_ckpt, camcalib_ckpt=args.camcalib_ckpt,
             cfg_file=args.cfg, smpl_model_dir=args.smpl_model_dir,
+            detector=args.detector, yolo_weights=args.yolo_weights,
+            yolo_img_size=args.yolo_img_size,
             min_size=args.min_size, max_frames=args.max_frames,
             display=args.display, save_results=not args.no_save,
             camcalib_every=args.camcalib_every,

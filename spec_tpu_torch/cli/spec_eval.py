@@ -19,7 +19,7 @@ reference's torch files or the port trainer's checkpoint directories
 seeded random init with a warning, and a JAX package (orbax) checkpoint
 directory raises. Not ported yet: ``--data_parallel`` and multi-host
 ``--coordinator_address`` (ROADMAP.md §1 item 12),
-``TESTING.SAVE_IMAGES`` (the renderer, item 10).
+``TESTING.SAVE_IMAGES`` (the renderer, item 10, the next slice).
 """
 
 from __future__ import annotations

@@ -1,16 +1,17 @@
 """Person boxes for the demos and the server (the host part of
 ``spec_tpu/data/detection.py``).
 
-Boxes are ``[cx, cy, w, h]`` in pixels. They come from a precomputed
-file (:func:`load_bboxes_file`) or one whole-image box per frame
-(:func:`full_image_bboxes`). The in-process YOLOv3 is not ported yet
-(``ROADMAP.md`` §1 item 10).
+Boxes are ``[cx, cy, w, h]`` in pixels. They come from the in-process
+YOLOv3 (:func:`run_yolo_detections`, :mod:`spec_tpu_torch.models.detector`),
+a precomputed file (:func:`load_bboxes_file`) or one whole-image box per
+frame (:func:`full_image_bboxes`).
 """
 
 from __future__ import annotations
 
 import json
-from typing import Dict
+import os
+from typing import Dict, List
 
 import numpy as np
 
@@ -39,6 +40,41 @@ def full_image_bboxes(image_shapes: Dict[str, tuple],
     for name, (h, w) in image_shapes.items():
         side = max(w * (1 - 2 * margin), h * (1 - 2 * margin))
         out[name] = np.array([[w / 2.0, h / 2.0, side, side]], np.float32)
+    return out
+
+
+# One detector (weights loaded, graphs captured) per configuration: the
+# chunked video demo calls run_yolo_detections once per chunk.
+_YOLO_CACHE: Dict[tuple, object] = {}
+
+
+def run_yolo_detections(image_paths: List[str], weights_path: str,
+                        img_size: int = 416, batch_size: int = 8,
+                        conf_thresh: float = 0.7,
+                        device='cuda') -> Dict[str, np.ndarray]:
+    """The in-process YOLOv3 over image files (read with PIL) ->
+    {basename: (N, 4) square [cx, cy, w, h] person boxes}. ``conf_thresh``
+    is host-only, so it is not part of the detector's cache key."""
+    from PIL import Image
+
+    from spec_tpu_torch.models.detector import YoloDetector
+
+    key = (weights_path, img_size, batch_size, str(device))
+    if key not in _YOLO_CACHE:
+        _YOLO_CACHE[key] = YoloDetector(
+            weights_path=weights_path or None, img_size=img_size,
+            batch_size=batch_size, device=device)
+    det = _YOLO_CACHE[key]
+    out: Dict[str, np.ndarray] = {}
+    for start in range(0, len(image_paths), 64):   # bounds host memory
+        chunk = image_paths[start:start + 64]
+        frames = []
+        for p in chunk:
+            with Image.open(p) as im:
+                frames.append(np.asarray(im.convert('RGB')))
+        for p, boxes in zip(chunk,
+                            det.detect(frames, conf_thresh=conf_thresh)):
+            out[os.path.basename(p)] = boxes
     return out
 
 

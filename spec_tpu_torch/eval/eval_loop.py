@@ -16,7 +16,7 @@ run eagerly after each replay (:func:`_procrustes_tail`). That split is
 the design, not a fallback: a capture that fails raises.
 
 Not ported yet: ``save_images`` (the mesh renderer, ROADMAP.md §1 item
-10) and ``mesh=`` (data-parallel eval, item 12) raise
+10, the next slice) and ``mesh=`` (data-parallel eval, item 12) raise
 ``NotImplementedError``.
 """
 
@@ -180,7 +180,8 @@ def evaluate_dataset(
     if save_images:
         raise NotImplementedError(
             'evaluate_dataset(save_images=True) needs the mesh renderer, '
-            'which is not ported yet (ROADMAP.md §1 item 10)')
+            'which is not ported yet (ROADMAP.md §1 item 10, the next '
+            'slice)')
     if mesh is not None:
         raise NotImplementedError(
             'evaluate_dataset(mesh=...): data-parallel eval is not ported '

@@ -218,12 +218,12 @@ _RESNETS = {
 
 
 def get_backbone(backbone: str, remat: bool = False) -> ResNet:
-    """Instantiate a ResNet trunk by name (``resnet18`` ... ``resnet152``);
-    HRNet comes with a later port. ``remat``: checkpoint each block."""
+    """Instantiate a ResNet trunk by name (``resnet18`` ... ``resnet152``;
+    HRNet is ``models.backbones.get_backbone``'s). ``remat``: checkpoint
+    each block."""
     name = backbone.split('-')[0]
     if name not in _RESNETS:
-        raise NotImplementedError(
-            f'backbone {backbone!r} is not ported yet (ResNet-18..152 are; '
-            'HRNet is ROADMAP.md §1 item 10)')
+        raise ValueError(f'unknown ResNet {backbone!r}; use one of '
+                         f'{sorted(_RESNETS)}')
     block, stages = _RESNETS[name]
     return ResNet(block, stages, remat=remat)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from spec_tpu_torch.models.backbones.resnet import get_backbone
+from spec_tpu_torch.models.backbones import get_backbone
 from spec_tpu_torch.utils.precision import compute_dtype
 
 HEADS = ('fc_vfov', 'fc_pitch', 'fc_roll')

@@ -1,9 +1,10 @@
 """SPEC's camera-conditioned HMR model (torch twin of
 ``spec_tpu/models/hmr.py``): backbone -> HMRHead (optionally conditioned
 on the CamCalib camera) -> SMPL(Cam) projection head. SMPL tensors come
-in as an argument, as in the JAX module. ``remat`` (TRAINING.REMAT)
-checkpoints each backbone block: a memory knob, numerically the same
-(``models/backbones/resnet.py``)."""
+in as an argument, as in the JAX module. ``backbone``: a ResNet or
+HRNet (``hrnet_w32-conv`` ...; ``models/backbones``). ``remat``
+(TRAINING.REMAT) checkpoints each ResNet block or HRNet exchange module:
+a memory knob, numerically the same."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 import torch.nn as nn
 
 from spec_tpu_torch.core.smpl import SMPLAssets
-from spec_tpu_torch.models.backbones.resnet import get_backbone
+from spec_tpu_torch.models.backbones import get_backbone
 from spec_tpu_torch.models.heads.hmr_head import HMRHead
 from spec_tpu_torch.models.heads.smpl_head import smpl_cam_head, smpl_head
 from spec_tpu_torch.utils.precision import compute_dtype
@@ -22,7 +23,7 @@ from spec_tpu_torch.utils.precision import compute_dtype
 class HMR(nn.Module):
     """Composite SPEC network; ``dtype`` is the backbone and head FC
     compute dtype (float32 or bfloat16). Parameter names: ``backbone.*``
-    (torchvision) and ``head.*`` (PARE/SPIN head)."""
+    (torchvision or official HRNet) and ``head.*`` (PARE/SPIN head)."""
 
     def __init__(self, backbone: str = 'resnet50', use_cam: bool = True,
                  use_cam_feats: bool = False, focal_length: float = 5000.0,

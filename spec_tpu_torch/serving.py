@@ -1,8 +1,9 @@
 """In-process serving engine: persistent two-stage SPEC predictor on a
 torch device (port of ``spec_tpu/serving.py``).
 
-numpy frames + person boxes in, per-person SMPL results out. Both models
-stay on the device across calls. Each frame is uploaded once; the
+numpy frames (and person boxes, or the in-process YOLOv3 detector's) in,
+per-person SMPL results out. Both models stay on the device across
+calls. Each frame is uploaded once; the
 stage-1 resize and normalization, the stage-2 SPIN crops and the SMPL
 forward (through the fused LBS CUDA kernel on a GPU) all run on the
 device. Stage-1 and stage-2 batches are padded to a power of two (capped
@@ -180,8 +181,12 @@ class SpecPredictor:
     checkpoints give a random init from fixed seeds, with a warning
     (smoke tests only). ``cfg_file`` (a SPEC config yaml) sets
     ``backbone`` and ``use_cam_feats`` as in the reference.
-    ``data_parallel``, ``spatial_parallel`` and ``detector='yolo'`` are
-    not ported yet and raise.
+    ``detector='yolo'`` builds a :class:`~spec_tpu_torch.models.detector.
+    YoloDetector` (bf16, batches of 8, its graphs in the stages' pool;
+    random init without ``yolo_weights``, with a warning) that
+    ``predict(frames)`` without boxes runs first.
+    ``data_parallel`` and ``spatial_parallel`` are not ported yet and
+    raise.
 
     Streams: ``camcalib_every`` state is kept per stream name, at most
     ``max_streams`` named streams, least recently used evicted. Unlike
@@ -222,9 +227,6 @@ class SpecPredictor:
         if detector not in ('', 'yolo'):
             raise ValueError(f'unknown detector {detector!r}; '
                              "use '' (caller boxes) or 'yolo'")
-        if detector == 'yolo':
-            raise NotImplementedError(
-                "detector='yolo' is not ported yet (ROADMAP.md §1 item 10)")
         if data_parallel and spatial_parallel:
             raise ValueError(
                 'data_parallel and spatial_parallel are mutually '
@@ -270,6 +272,18 @@ class SpecPredictor:
             _cam_forward, self.camcalib, self.loss_type), pool)
         self._stage2 = StageGraph('stage2', functools.partial(
             _spec_forward, self.spec, self.assets), pool)
+
+        self.detector = None
+        if detector == 'yolo':
+            from spec_tpu_torch.models.detector import YoloDetector
+
+            if not yolo_weights:
+                print('[serving] WARNING: detector=yolo without '
+                      'yolo_weights runs a random-init detector '
+                      '(pipeline smoke only)')
+            self.detector = YoloDetector(
+                weights_path=yolo_weights or None, img_size=yolo_img_size,
+                batch_size=8, device=self.device, pool=pool)
 
     # -- stage 1 ------------------------------------------------------------
 
@@ -423,7 +437,8 @@ class SpecPredictor:
         """Two-stage inference.
 
         frames: RGB images (HWC, uint8 or float in [0, 255]); boxes: per
-        frame (N_i, 4) [cx, cy, w, h] person boxes (N_i may be 0);
+        frame (N_i, 4) [cx, cy, w, h] person boxes (N_i may be 0), or
+        None to run the predictor's detector (``detector='yolo'``);
         cameras: optional precomputed stage-1 outputs; stream: the
         ``camcalib_every`` stream of these frames (None = default);
         return_cameras: also return the per-frame cameras used.
@@ -433,22 +448,30 @@ class SpecPredictor:
         pred_pose, pred_pose_6d, pred_shape, pred_cam) plus the frame's
         'camera'; with ``return_cameras``: ``(results, cameras)``.
         """
-        if boxes is None:
+        if boxes is None and self.detector is None:
             raise ValueError(
-                'predict(frames) needs per-frame boxes: the in-process '
-                'detector is not ported yet (ROADMAP.md §1 item 10)')
+                'predict(frames) without boxes needs an in-process '
+                "detector — construct SpecPredictor(detector='yolo', "
+                "yolo_weights=...) or pass per-frame boxes")
         frames_dev = [self._upload(fr) for fr in frames]
+        # Detection and stage 1 are independent: both are queued before
+        # either is fetched, so the host's NMS overlaps stage 1.
+        pending_det = (self.detector.detect_dispatch(frames_dev)
+                       if boxes is None else None)
         # Stream-state writes are deferred to the end of the call, so a
         # call that raises leaves its stream exactly as it was.
-        stream_update = st = None
+        stream_update = st = cam_pending = None
         if cameras is None:
             if self.camcalib_every > 1:
                 cameras, stream_update, st = self._stream_cameras(
                     frames, frames_dev, stream)
             else:
-                cameras = self._cameras_fetch(
-                    self._cameras_dispatch(frames_dev),
-                    [f.shape[0] for f in frames_dev])
+                cam_pending = self._cameras_dispatch(frames_dev)
+        if pending_det is not None:
+            boxes = self.detector.detect_fetch(pending_det)
+        if cam_pending is not None:
+            cameras = self._cameras_fetch(cam_pending,
+                                          [f.shape[0] for f in frames_dev])
 
         results: List[List[dict]] = [[] for _ in frames]
         pending = [(chunk, n_valid, self._stage2(*inputs))

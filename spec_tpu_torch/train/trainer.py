@@ -22,7 +22,8 @@ it).
 
 Not ported yet, each raising ``NotImplementedError``: TensorBoard image
 grids (``LOG_FREQ_TB_IMAGES > 0`` with a writer: the renderer, ROADMAP.md
-§1 item 10), TRAINING.FSDP (item 12). One process drives one device.
+§1 item 10, the next slice), TRAINING.FSDP (item 12). One process drives
+one device.
 """
 
 from __future__ import annotations
@@ -122,7 +123,8 @@ class SpecTrainer:
                     raise NotImplementedError(
                         'TensorBoard image grids (LOG_FREQ_TB_IMAGES > 0) '
                         'need the mesh renderer, which is not ported yet '
-                        '(ROADMAP.md §1 item 10): set LOG_FREQ_TB_IMAGES 0')
+                        '(ROADMAP.md §1 item 10, the next slice): set '
+                        'LOG_FREQ_TB_IMAGES 0')
                 self.writer = SummaryWriter(
                     os.path.join(cfg.LOGDIR, 'tb_logs'),
                     max_queue=100_000, flush_secs=600)

@@ -13,7 +13,8 @@
   reference's ``overwrite_shape_mismatch=True``).
 * :func:`state_dict_from_flax`: the weight bridge from the JAX package's
   flax variables to this package's state_dicts (inverse of
-  ``convert_torch_{resnet,camcalib,hmr}_params``).
+  ``convert_torch_{resnet,hrnet,camcalib,hmr}_params``; and the YOLOv3
+  detector's).
 * :func:`assets_from_jax`: the same bridge for ``SMPLAssets``.
 * :func:`save_checkpoint`, :func:`restore_checkpoint`,
   :func:`latest_step`, :func:`find_resume_checkpoint_dir`: the
@@ -59,11 +60,13 @@ def load_torch_state_dict(path: str) -> dict:
     return out
 
 
-def select_state_dict(sd: dict, model: torch.nn.Module) -> dict:
+def select_state_dict(sd: dict, model: torch.nn.Module,
+                      keep_init: tuple = ()) -> dict:
     """Flat reference dict -> ``model``'s state_dict: keep the model's own
     keys (extra checkpoint keys are ignored, as the JAX converters ignore
-    them); BN ``num_batches_tracked`` counters may be absent. Any other
-    missing key raises."""
+    them); BN ``num_batches_tracked`` counters may be absent, and so may
+    keys that start with one of ``keep_init`` (the model's own tensor is
+    kept). Any other missing key raises."""
     out = {}
     missing = []
     for k, ref in model.state_dict().items():
@@ -71,6 +74,8 @@ def select_state_dict(sd: dict, model: torch.nn.Module) -> dict:
             out[k] = torch.as_tensor(np.asarray(sd[k]), dtype=ref.dtype)
         elif k.endswith('num_batches_tracked'):
             out[k] = torch.zeros_like(ref)
+        elif k.startswith(keep_init):
+            out[k] = ref.detach().clone()
         else:
             missing.append(k)
     if missing:
@@ -83,7 +88,10 @@ def hmr_state_dict(sd: dict, model: torch.nn.Module,
                    mean_params: dict = None) -> dict:
     """Flat reference SPEC/HMR dict (lightning, PARE or SPIN dialect) ->
     ``model``'s state_dict. Checkpoints without the init buffers get
-    them from ``mean_params`` (default: identity mean params)."""
+    them from ``mean_params`` (default: identity mean params). An HRNet
+    trunk's ``-conv`` downsample head (PARE's, not in the official
+    trunk) keeps the model's init where the file lacks it, as the JAX
+    converter does."""
     from spec_tpu_torch.models.heads.hmr_head import default_init_params
 
     if not any(k.startswith(('backbone.', 'head.')) for k in sd):
@@ -93,7 +101,8 @@ def hmr_state_dict(sd: dict, model: torch.nn.Module,
     sd = dict(sd)
     for buf in ('init_pose', 'init_shape', 'init_cam'):
         sd.setdefault(f'head.{buf}', fallback[buf])
-    return select_state_dict(sd, model)
+    return select_state_dict(sd, model,
+                             keep_init=('backbone.downsample_stage_',))
 
 
 def merge_with_template(state_dict: dict, template: dict,
@@ -181,6 +190,120 @@ def _resnet_state_dict(params: dict, stats: dict, arch: str,
     return out
 
 
+def _hrnet_state_dict(params: dict, stats: dict, arch: str,
+                      prefix: str) -> 'OrderedDict[str, torch.Tensor]':
+    """The JAX HRNet's variables -> official HRNet names (the inverse of
+    ``convert_torch_hrnet_params``), plus the ``-conv`` head's
+    ``down{b}_conv{k}`` / ``down{b}_bn{k}`` as ``downsample_stage_{b+1}
+    .{k}.{0,1}`` when the variables have it."""
+    from spec_tpu_torch.models.backbones.hrnet import HRNET_CONFIGS, STAGES
+
+    cfg = HRNET_CONFIGS[arch.split('-')[0]]
+    out: 'OrderedDict[str, torch.Tensor]' = OrderedDict()
+
+    def t(x):
+        return torch.from_numpy(np.array(x, np.float32, order='C'))
+
+    def conv(torch_name, p):
+        out[f'{prefix}{torch_name}.weight'] = t(
+            np.transpose(np.asarray(p['conv']['kernel']), (3, 2, 0, 1)))
+
+    def bn(torch_name, p, s):
+        out[f'{prefix}{torch_name}.weight'] = t(p['scale'])
+        out[f'{prefix}{torch_name}.bias'] = t(p['bias'])
+        out[f'{prefix}{torch_name}.running_mean'] = t(s['mean'])
+        out[f'{prefix}{torch_name}.running_var'] = t(s['var'])
+        out[f'{prefix}{torch_name}.num_batches_tracked'] = torch.tensor(0)
+
+    def conv_bn(tconv, tbn, p, s, fconv, fbn):
+        conv(tconv, p[fconv])
+        bn(tbn, p[fbn], s[fbn])
+
+    conv_bn('conv1', 'bn1', params, stats, 'conv1', 'bn1')
+    conv_bn('conv2', 'bn2', params, stats, 'conv2', 'bn2')
+    for k in range(4):
+        p, s = params[f'layer1_{k}'], stats[f'layer1_{k}']
+        for ci in (1, 2, 3):
+            conv_bn(f'layer1.{k}.conv{ci}', f'layer1.{k}.bn{ci}', p, s,
+                    f'conv{ci}', f'bn{ci}')
+        if 'downsample_conv' in p:
+            conv_bn(f'layer1.{k}.downsample.0', f'layer1.{k}.downsample.1',
+                    p, s, 'downsample_conv', 'downsample_bn')
+    for si, name in enumerate(STAGES, start=1):
+        scfg = cfg[name]
+        p, s = params[f'transition_{name}'], stats[f'transition_{name}']
+        for i in range(scfg['num_branches']):
+            if f't{i}_conv' not in p:
+                continue
+            base = f'transition{si}.{i}' + ('.0' if i >= si else '')
+            conv_bn(f'{base}.0', f'{base}.1', p, s, f't{i}_conv',
+                    f't{i}_bn')
+        for m in range(scfg['num_modules']):
+            p, s = params[f'{name}_m{m}'], stats[f'{name}_m{m}']
+            mbase = f'stage{si + 1}.{m}'
+            for b in range(scfg['num_branches']):
+                for k in range(scfg['num_blocks'][b]):
+                    bp, bs = p[f'branch{b}_block{k}'], s[f'branch{b}_block{k}']
+                    for ci in (1, 2):
+                        conv_bn(f'{mbase}.branches.{b}.{k}.conv{ci}',
+                                f'{mbase}.branches.{b}.{k}.bn{ci}', bp, bs,
+                                f'conv{ci}', f'bn{ci}')
+            for i in range(scfg['num_branches']):
+                for j in range(scfg['num_branches']):
+                    if i == j:
+                        continue
+                    fp, fs = p[f'fuse_{i}_{j}'], s[f'fuse_{i}_{j}']
+                    base = f'{mbase}.fuse_layers.{i}.{j}'
+                    if j > i:
+                        conv_bn(f'{base}.0', f'{base}.1', fp, fs, 'conv',
+                                'bn')
+                    else:
+                        for k in range(i - j):
+                            conv_bn(f'{base}.{k}.0', f'{base}.{k}.1', fp, fs,
+                                    f'conv{k}', f'bn{k}')
+    for b in range(4):
+        k = 0
+        while f'down{b}_conv{k}' in params:
+            conv_bn(f'downsample_stage_{b + 1}.{k}.0',
+                    f'downsample_stage_{b + 1}.{k}.1', params, stats,
+                    f'down{b}_conv{k}', f'down{b}_bn{k}')
+            k += 1
+    return out
+
+
+def _trunk_state_dict(params: dict, stats: dict, backbone: str,
+                      prefix: str) -> 'OrderedDict[str, torch.Tensor]':
+    if backbone.startswith('hrnet'):
+        return _hrnet_state_dict(params, stats, backbone, prefix)
+    return _resnet_state_dict(params, stats, backbone, prefix)
+
+
+def _yolo_state_dict(params: dict, stats: dict
+                     ) -> 'OrderedDict[str, torch.Tensor]':
+    """The JAX ``YoloV3``'s variables -> :class:`~spec_tpu_torch.models.
+    detector.YoloV3`'s state_dict: ``conv{i}`` HWIO kernels to OIHW,
+    ``bn{i}`` scale, bias, mean and var."""
+    out: 'OrderedDict[str, torch.Tensor]' = OrderedDict()
+    n = sum(1 for k in params if k.startswith('conv'))
+    for i in range(n):
+        node = params[f'conv{i}']
+        out[f'conv{i}.weight'] = torch.from_numpy(np.array(np.transpose(
+            np.asarray(node['kernel'], np.float32), (3, 2, 0, 1)),
+            order='C'))
+        if 'bias' in node:
+            out[f'conv{i}.bias'] = torch.from_numpy(
+                np.asarray(node['bias'], np.float32).copy())
+        if f'bn{i}' in params:
+            p, s = params[f'bn{i}'], stats[f'bn{i}']
+            for name, leaf in (('weight', p['scale']), ('bias', p['bias']),
+                               ('running_mean', s['mean']),
+                               ('running_var', s['var'])):
+                out[f'bn{i}.{name}'] = torch.from_numpy(
+                    np.asarray(leaf, np.float32).copy())
+            out[f'bn{i}.num_batches_tracked'] = torch.tensor(0)
+    return out
+
+
 def _dense(out: dict, torch_name: str, node: dict) -> None:
     """flax Dense (kernel (in, out)) -> torch Linear (weight (out, in))."""
     out[f'{torch_name}.weight'] = torch.from_numpy(
@@ -195,19 +318,27 @@ def state_dict_from_flax(variables: dict, kind: str,
     """JAX package variables ({'params', 'batch_stats'}, numpy or jax
     arrays) -> this package's state_dict.
 
-    kind: 'resnet' (a bare trunk, for
-    :class:`~spec_tpu_torch.models.backbones.resnet.ResNet`), 'camcalib'
-    (:class:`~spec_tpu_torch.models.camcalib.CameraRegressorNetwork`) or
-    'hmr' (:class:`~spec_tpu_torch.models.hmr.HMR`).
+    kind: 'resnet' or 'hrnet' (a bare trunk of ``backbone``, for
+    ``models.backbones.get_backbone``), 'camcalib'
+    (:class:`~spec_tpu_torch.models.camcalib.CameraRegressorNetwork`),
+    'hmr' (:class:`~spec_tpu_torch.models.hmr.HMR` with a ResNet or
+    HRNet ``backbone``) or 'yolo'
+    (:class:`~spec_tpu_torch.models.detector.YoloV3`).
     """
     params, stats = variables['params'], variables['batch_stats']
-    if kind == 'resnet':
-        return _resnet_state_dict(params, stats, backbone, '')
+    if kind in ('resnet', 'hrnet'):
+        if kind != ('hrnet' if backbone.startswith('hrnet') else 'resnet'):
+            raise ValueError(f'kind {kind!r} does not match backbone '
+                             f'{backbone!r}')
+        return _trunk_state_dict(params, stats, backbone, '')
+    if kind == 'yolo':
+        return _yolo_state_dict(params, stats)
     if kind not in ('camcalib', 'hmr'):
-        raise ValueError(f"unknown kind {kind!r}; use 'resnet', 'camcalib' "
-                         "or 'hmr'")
-    out = _resnet_state_dict(params['ResNet_0'], stats['ResNet_0'],
-                             backbone, 'backbone.')
+        raise ValueError(f"unknown kind {kind!r}; use 'resnet', 'hrnet', "
+                         "'camcalib', 'hmr' or 'yolo'")
+    trunk = 'HRNet_0' if backbone.startswith('hrnet') else 'ResNet_0'
+    out = _trunk_state_dict(params[trunk], stats[trunk], backbone,
+                            'backbone.')
     if kind == 'camcalib':
         for head in ('fc_vfov', 'fc_pitch', 'fc_roll'):
             n = sum(1 for k in params if k.startswith(f'{head}_'))

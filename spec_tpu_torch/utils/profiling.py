@@ -1,6 +1,6 @@
 """The trainer's part of ``spec_tpu/utils/profiling.py``: named
 wall-clock stage timers and seeding. (The torch profiler and NVTX ranges
-are ROADMAP.md §1 item 10.)"""
+are ROADMAP.md §1 item 10, the next slice.)"""
 
 from __future__ import annotations
 

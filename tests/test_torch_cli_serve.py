@@ -413,7 +413,7 @@ def test_http_roundtrip_matches_reference_server(predictors, rng):
             assert server.status(b'not-an-npz')[0] == 400
             assert server.status(b'x', path='/nowhere')[0] == 404
         code, msg = tp.status(_npz(frame=frame))
-        assert code == 400 and 'item 10' in msg
+        assert code == 400 and (code, msg) == rf.status(_npz(frame=frame))
         assert tp.get('/healthz') == b'ok'
     with _Server(TServe, port_pred, max_request_bytes=100) as small:
         assert small.status(b'x' * 200)[0] == 413
@@ -630,12 +630,13 @@ def test_serve_help_documents_streams_and_unported_flags(capsys,
     assert e.value.code == 0
     helptext = capsys.readouterr().out
     for phrase in ('X-Spec-Stream', 'PER STREAM', '--device',
-                   'item 10', 'item 11', 'item 12'):
+                   'box-less requests', 'item 11', 'item 12'):
         assert phrase in helptext, phrase
 
 
 @pytest.mark.parametrize('flags,item', [
-    (['--detector', 'yolo'], 10), (['--data_parallel'], 12),
+    (['--detector', 'yolo', '--data_parallel'], 12),
+    (['--data_parallel'], 12),
     (['--spatial_parallel'], 12), (['--exported', 'art.specx'], 11)])
 def test_serve_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f'item {item}'):

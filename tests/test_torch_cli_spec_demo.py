@@ -398,9 +398,9 @@ def test_model_cache_reused(bridged):
 
 
 def test_reference_flag_surface_and_unported(capsys, monkeypatch, tmp_path):
-    """The reference demo's flags parse (--help lists them); --detector
-    yolo raises NotImplementedError naming ROADMAP.md item 10; without a
-    card and without --device cpu the demo exits non-zero."""
+    """The reference demo's flags parse (--help lists them); a detector
+    other than yolo is refused; without a card and without --device cpu
+    the demo exits non-zero."""
     from spec_tpu.cli.spec_demo import main as ref_main
 
     monkeypatch.setenv('COLUMNS', '200')
@@ -415,9 +415,9 @@ def test_reference_flag_surface_and_unported(capsys, monkeypatch, tmp_path):
     port_flags = {w.strip('[,') for w in helps[0].split()
                   if w.startswith(('--', '[--'))}
     assert ref_flags <= port_flags and '--device' in port_flags
-    with pytest.raises(NotImplementedError, match='item 10'):
-        TDemo.main(['--image_folder', str(tmp_path), '--detector', 'yolo',
-                    '--device', 'cpu'])
+    with pytest.raises(ValueError, match='unknown detector'):
+        TDemo.run_spec_on_folder(str(tmp_path), str(tmp_path / 'o'),
+                                 detector='ssd', device='cpu')
     with pytest.raises(SystemExit, match='maskrcnn'):
         TDemo.main(['--image_folder', str(tmp_path), '--detector',
                     'maskrcnn'])

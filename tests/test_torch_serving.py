@@ -178,7 +178,7 @@ def test_camcalib_every_stream_matches_jax(predictors):
 @pytest.mark.parametrize('kwargs,err', [
     (dict(data_parallel=True), NotImplementedError),
     (dict(spatial_parallel=True), NotImplementedError),
-    (dict(detector='yolo'), NotImplementedError),
+    (dict(detector='yolo', data_parallel=True), NotImplementedError),
     (dict(cfg_file='no_such_config.yaml'), FileNotFoundError),
     (dict(detector='ssd'), ValueError),
     (dict(use_fused_lbs=False), ValueError),
@@ -193,9 +193,10 @@ def test_unported_options_raise(kwargs, err):
 
 def test_import_hygiene():
     """The port's serving path, the e2e pipeline, the bench, the CLIs and
-    their host helpers, the eval path (metrics, eval loop, evaluator, the
-    eval dataset and loader), the training path (the trainers, SMPLify,
-    the pano datasets), the stage graphs and every kernel wrapper
+    their host helpers, the detector and HRNet, the eval path (metrics,
+    eval loop, evaluator, the eval dataset and loader), the training path
+    (the trainers, SMPLify, the pano datasets), the stage graphs and
+    every kernel wrapper
     import no JAX, flax, PIL, cv2, PyYAML, joblib, matplotlib or triton
     (none of them exist on the machine with the card) and nothing of the JAX
     package spec_tpu, and importing them builds no kernel, captures no
@@ -207,6 +208,9 @@ def test_import_hygiene():
         'import spec_tpu_torch.pipeline\n'
         'import spec_tpu_torch.bench\n'
         'import spec_tpu_torch.models.backbones.fused_resnet\n'
+        'from spec_tpu_torch.models import backbones, detector\n'
+        'from spec_tpu_torch.models.backbones import hrnet\n'
+        'from spec_tpu_torch.data import detection\n'
         'from spec_tpu_torch.cli import camcalib_demo, serve, spec_demo\n'
         'from spec_tpu_torch.cli import annotate_camcalib, compute_error, '
         'spec_eval\n'
