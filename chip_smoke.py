@@ -8,7 +8,8 @@ printing its own results; any failure raises and exits nonzero:
    card's name and power limit as nvidia-smi reports them;
 2. build: compiles the three kernels of ``spec_tpu_torch/csrc/`` (K1
    ``lbs``, K3 ``bottleneck``, K2 ``projection``), one ``nvcc`` each,
-   all started together;
+   and the host rasterizer ``raster.cpp`` with ``g++``, all started
+   together;
 3. K3 against its plain version at every ResNet-50 stage's identity-block
    shape on 16 frames of 512x672 (one block each) and at an odd H and W
    (a chain of 3), in fp32 and bf16, timed beside the port's unfused
@@ -158,7 +159,28 @@ printing its own results; any failure raises and exits nonzero:
     train step with the HRNet HMR at the train phase's B = 64 (bf16):
     replay against eager from one state, K1 launches over three replays,
     ms per step, peak memory, the device profile;
-20. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
+20. render (the host renderer over meshes K1 computed on the card;
+    ``csrc/raster.cpp`` built with ``g++`` in phase 2, beside the
+    kernels): (a) phase 4's full-width predictor in bf16 on its four
+    720x1280 frames, then ``utils/renderer.render_mesh_overlay`` per
+    frame (the demos' overlay): every person's mesh covers pixels, K1's
+    launches on this path (the kernels line's ``launches``), ms per
+    frame (median of 10) with the OpenMP thread count and the raster
+    library's build seconds; the overlays from the card's fp32 outputs
+    and the CPU's (the same weights) differ in at most RENDER_PIXEL_SHARE
+    of each frame's mesh pixels; (b) phase 13's eval step at B = 128
+    (bf16) and ``eval_loop.render_val_group`` without a file (the
+    arrays ``save_images`` writes; the card machine has no cv2 to write
+    JPEGs): the (224, 672, 3) layout of tests/test_renderer.py, a mesh
+    in the overlay and side panels; (c) ``SpecTrainer.
+    _train_image_summary`` (the summary forward through K1, then
+    ``render_tb_grid``) into a stand-in writer: a (3, 4 x 224, 5 x 224)
+    grid with meshes; (d) one ``predict`` under ``utils/profiling.trace``
+    with ``annotate`` regions: the trace file holds the region names and
+    K1's kernel; then whether ``g++ -fopenmp`` links here and whether
+    ``jpeglib.h`` is found (the JPEG half of the host code is held on
+    the CPU by tests/test_torch_native_loader.py);
+21. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then, instead of
 the rest, profiles phase 4's predictor (wall medians per stage, device
@@ -166,6 +188,8 @@ busy time, idle share, device operations and host launch calls, and the
 top device operations, fp32 and bf16) and phase 5's pipeline with each
 stage-1 trunk, each replaying its graphs and, for comparison, with its
 eager stage bodies.
+``python3 chip_smoke.py --render`` runs phases 1-2 and then phase 20
+alone.
 ``python3 chip_smoke.py --k3-tiles`` runs phases 1-2 and then times K3
 in fp32 and bf16 at each stage shape with every candidate output tile
 forced, beside the tile the kernel picks.
@@ -197,6 +221,14 @@ FRAME_HW = (720, 1280)
 PERSONS_PER_FRAME = (1, 2, 3, 2)
 BATCH_SIZE = 32
 KERNELS = ('lbs', 'bottleneck', 'projection')
+HOST_LIBS = ('raster',)      # g++ (the JPEG engine is held on the CPU)
+# Render phase: the card's fp32 overlay against the CPU's may differ in
+# at most this share of a frame's mesh pixels (edge pixels whose centre
+# lies within the vertices' card-vs-CPU difference of a triangle edge).
+RENDER_PIXEL_SHARE = 5e-3
+RENDER_BACKBONE = 'resnet50'
+RENDER_TIMING_CALLS = 10
+RENDER_MIN_SIZE = 600
 # The pipeline's input: bench.py's default stage-1 bucket, 16 frames;
 # the bench's batch of frames.
 PIPE_FRAMES, PIPE_HW = 16, (512, 672)
@@ -409,17 +441,29 @@ def phase_device():
 
 
 def phase_build():
-    from spec_tpu_torch.ops.cuda_build import build_libraries
+    import concurrent.futures
+
+    from spec_tpu_torch.ops.cuda_build import (
+        build_host_library,
+        build_libraries,
+    )
 
     t0 = time.perf_counter()
-    built = build_libraries(KERNELS)
-    print(f'[build] {len(KERNELS)} kernels in parallel: '
-          f'{time.perf_counter() - t0:.2f} s wall')
+    with concurrent.futures.ThreadPoolExecutor(len(HOST_LIBS)) as ex:
+        host = dict(zip(HOST_LIBS, ex.map(build_host_library, HOST_LIBS)))
+        built = build_libraries(KERNELS)
+    print(f'[build] {len(KERNELS)} kernels (nvcc) and {len(HOST_LIBS)} '
+          f'host librar{"y" if len(HOST_LIBS) == 1 else "ies"} (g++) in '
+          f'parallel: {time.perf_counter() - t0:.2f} s wall')
+    for name, (path, _, seconds) in host.items():
+        print(f'[build] {path.name} (g++ -O3 -march=native -fopenmp) in '
+              f'{seconds:.2f} s')
     for name, (path, log, seconds) in built.items():
         print(f'[build] {path.name} in {seconds:.2f} s')
         for ln in log.splitlines():
             if 'registers' in ln or 'spill' in ln:
                 print(f'[build] {name}: {ln.strip()}')
+    return {name: seconds for name, (_, _, seconds) in host.items()}
 
 
 def _lbs_operands(packed, assets, B, seed):
@@ -3403,6 +3447,355 @@ def phase_hrnet(device='cuda'):
     return out
 
 
+def _ellipsoid_mesh(n_lon=84, n_rings=82, radii=(0.25, 0.85, 0.15)):
+    """A closed ellipsoid of a body's extent (metres) with SMPL's counts,
+    V = n_lon * n_rings + 2 = 6890 and F = 2 * n_lon * n_rings = 13776,
+    faces wound outward: small faces like a released SMPL mesh's, where
+    the synthetic test assets join random vertices."""
+    import numpy as np
+
+    theta = np.linspace(0, np.pi, n_rings + 2)[1:-1]
+    phi = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
+    t, p = np.meshgrid(theta, phi, indexing='ij')
+    ring = np.stack([np.sin(t) * np.cos(p), np.cos(t),
+                     np.sin(t) * np.sin(p)], -1).reshape(-1, 3)
+    verts = np.concatenate([[[0, 1, 0]], ring, [[0, -1, 0]]]) * radii
+    top, bottom = 0, len(verts) - 1
+
+    def idx(r, k):
+        return 1 + r * n_lon + k % n_lon
+
+    faces = []
+    for k in range(n_lon):
+        faces.append((top, idx(0, k + 1), idx(0, k)))
+        faces.append((bottom, idx(n_rings - 1, k), idx(n_rings - 1, k + 1)))
+        for r in range(n_rings - 1):
+            a, b = idx(r, k), idx(r, k + 1)
+            c, d = idx(r + 1, k), idx(r + 1, k + 1)
+            faces += [(a, b, d), (a, d, c)]
+    faces = np.asarray(faces, np.int32)
+    tri = verts[faces]
+    n = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    flip = (n * tri.mean(1)).sum(1) < 0
+    faces[flip] = faces[flip][:, ::-1]
+    return verts.astype(np.float32), faces
+
+
+def _mesh_pixels(overlay, base):
+    """Pixels where ``overlay`` differs from ``base`` (uint8 HxWx3)."""
+    return (overlay != base).any(-1)
+
+
+def _omp_threads():
+    """The OpenMP thread count the raster library runs with."""
+    import ctypes
+
+    from spec_tpu_torch.ops.cuda_build import build_host_library
+
+    lib = ctypes.CDLL(str(build_host_library('raster')[0]))
+    return int(lib.omp_get_max_threads())
+
+
+def _host_toolchain_facts():
+    """Print whether ``g++ -fopenmp`` builds and runs a program here and
+    whether ``jpeglib.h`` (and ``-ljpeg``) are found: the JPEG engine
+    (``csrc/jpegroi.cpp``) builds only where they are."""
+    import tempfile
+
+    def run(cmd, src):
+        try:
+            proc = subprocess.run(cmd, input=src, capture_output=True,
+                                  text=True, timeout=120)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            return False, str(e)
+        return proc.returncode == 0, proc.stderr.strip().splitlines()[:1]
+
+    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as tmp:
+        exe = os.path.join(tmp, 'omp')
+        ok, err = run(['g++', '-fopenmp', '-x', 'c++', '-', '-o', exe],
+                      '#include <omp.h>\nint main() { return '
+                      'omp_get_max_threads() > 0 ? 0 : 1; }\n')
+        if ok:
+            ok = subprocess.run([exe], timeout=60).returncode == 0
+        print(f'[host] g++ -fopenmp links and runs: {"yes" if ok else "no"}'
+              + ('' if ok else f' ({err})'), flush=True)
+        ok, err = run(['g++', '-E', '-x', 'c++', '-'],
+                      '#include <jpeglib.h>\n')
+        print(f'[host] jpeglib.h found (g++ -E): {"yes" if ok else "no"}'
+              + ('' if ok else f' ({err})'), flush=True)
+        ok, err = run(['g++', '-x', 'c++', '-', '-ljpeg', '-o',
+                       os.path.join(tmp, 'jpeg')],
+                      '#include <cstdio>\n#include <jpeglib.h>\n'
+                      'int main() { jpeg_error_mgr e; '
+                      'jpeg_std_error(&e); return 0; }\n')
+        print(f'[host] -ljpeg links: {"yes" if ok else "no"}'
+              + ('' if ok else f' ({err})'), flush=True)
+
+
+def _mean_head(model):
+    """Zero HMR's head decoders (as the bench's train setup does): the
+    random model then predicts its mean pose, shape and camera, a mesh
+    centred in its box, so an overlay has a mesh in view."""
+    import torch
+
+    with torch.no_grad():
+        for dec in (model.head.decpose, model.head.decshape,
+                    model.head.deccam):
+            dec.weight.zero_()
+            dec.bias.zero_()
+    return model
+
+
+class _Images:
+    """A TensorBoard writer stand-in that keeps the images."""
+
+    def __init__(self):
+        self.images = []
+
+    def add_image(self, tag, img, step):
+        self.images.append((tag, img, step))
+
+    def flush(self):
+        pass
+
+
+def phase_render(build_seconds, device='cuda'):
+    """Phase 20 (see the module docstring): the renderer's three paths
+    and profiling. Returns K1's launches per path. ``device='cpu'``
+    rehearses the logic on a machine without a card (shrink FRAME_HW,
+    RENDER_BACKBONE, EVAL_* and TRAINER_* first): both sides of the
+    comparison then run on the CPU and K1 counts no launch."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from spec_tpu_torch.core import smpl as S
+    from spec_tpu_torch.data.loader import DataLoader
+    from spec_tpu_torch.eval import eval_loop
+    from spec_tpu_torch.models.hmr import HMR
+    from spec_tpu_torch.ops import lbs as L
+    from spec_tpu_torch.serving import SpecPredictor
+    from spec_tpu_torch.train.trainer import SpecTrainer
+    from spec_tpu_torch.utils import profiling
+    from spec_tpu_torch.utils.renderer import render_mesh_overlay
+
+    card = device == 'cuda'
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    launches = {}
+    kw = dict(backbone=RENDER_BACKBONE, camcalib_backbone=RENDER_BACKBONE,
+              use_cam_feats=True, img_res=224, min_size=RENDER_MIN_SIZE,
+              batch_size=BATCH_SIZE)
+    frames, boxes = _frames_and_boxes(4, PERSONS_PER_FRAME, seed=0)
+    n_persons = sum(len(b) for b in boxes)
+
+    def overlays(results, cams, own=False):
+        """One overlay per frame and, with ``own``, each person's own
+        mesh pixels."""
+        outs, pixels = [], []
+        for frame, res, cam in zip(frames, results, cams):
+            verts = [p['smpl_vertices'] for p in res]
+            cam_t = [p['pred_cam_t'] for p in res]
+            outs.append(render_mesh_overlay(
+                frame, verts, cam_t, faces_np, cam['f_pix'], cam['pitch'],
+                cam['roll']))
+            if own:
+                pixels.append([int(_mesh_pixels(render_mesh_overlay(
+                    frame, [v], [t], faces_np, cam['f_pix'], cam['pitch'],
+                    cam['roll']), frame).sum())
+                    for v, t in zip(verts, cam_t)])
+        return outs, pixels
+
+    # (a) the demos' overlay at phase 4's input, bf16
+    pred = SpecPredictor(device=device, dtype=torch.bfloat16, **kw)
+    faces_np = pred.assets.faces.cpu().numpy()
+    pred.predict(frames, boxes)                  # captures
+    sync()
+    L.LAUNCHES = 0
+    results, cams = pred.predict(frames, boxes, return_cameras=True)
+    sync()
+    _, own = overlays(results, cams, own=True)
+    launches['render demo overlay'] = L.LAUNCHES
+    _check_results(results, n_persons)
+    if card and L.LAUNCHES < 1:
+        raise RuntimeError('the overlay path launched K1 no time')
+    empty = [(fi, pi) for fi, px in enumerate(own)
+             for pi, n in enumerate(px) if n == 0]
+    if empty:
+        raise RuntimeError(f'meshes cover no pixel: (frame, person) {empty}')
+    times = []
+    for _ in range(RENDER_TIMING_CALLS):
+        t0 = time.perf_counter()
+        for frame, res, cam in zip(frames, results, cams):
+            render_mesh_overlay(frame, [p['smpl_vertices'] for p in res],
+                                [p['pred_cam_t'] for p in res], faces_np,
+                                cam['f_pix'], cam['pitch'], cam['roll'])
+        times.append((time.perf_counter() - t0) * 1e3 / len(frames))
+    render_ms = statistics.median(times)
+    # the same frames and cameras with a small-faced mesh of SMPL's V, F
+    ell_v, ell_f = _ellipsoid_mesh()
+    ell_times = []
+    for _ in range(RENDER_TIMING_CALLS):
+        t0 = time.perf_counter()
+        for frame, res, cam in zip(frames, results, cams):
+            render_mesh_overlay(
+                frame, [ell_v + p['smpl_vertices'].mean(0) for p in res],
+                [p['pred_cam_t'] for p in res], ell_f, cam['f_pix'],
+                cam['pitch'], cam['roll'])
+        ell_times.append((time.perf_counter() - t0) * 1e3 / len(frames))
+    print(f'[render overlay bf16] {RENDER_BACKBONE} x2, 4 frames '
+          f'{FRAME_HW[0]}x{FRAME_HW[1]}, {n_persons} persons: K1 launches '
+          f'{launches["render demo overlay"]} in the predict call; mesh '
+          f'pixels per person {own}; render_mesh_overlay '
+          f'{render_ms:.3f} ms per frame (host, median of '
+          f'{RENDER_TIMING_CALLS}; min {min(times):.3f}, max '
+          f'{max(times):.3f}) with {_omp_threads()} OpenMP threads; '
+          f'raster library built in {build_seconds.get("raster", 0.0):.2f} '
+          f's; an ellipsoid of V = {len(ell_v)}, F = {len(ell_f)} (small '
+          f'faces) in its place: {statistics.median(ell_times):.3f} ms per '
+          f'frame (min {min(ell_times):.3f}, max {max(ell_times):.3f})',
+          flush=True)
+    del pred
+    if card:
+        _release()
+
+    # the same overlays from the card's fp32 outputs and the CPU's
+    got = SpecPredictor(device=device, **kw).predict(
+        frames, boxes, return_cameras=True)
+    want = SpecPredictor(device='cpu', **kw).predict(
+        frames, boxes, return_cameras=True)
+    got_img, _ = overlays(*got)
+    want_img, _ = overlays(*want)
+    worst = 0.0
+    for fi, (g, w) in enumerate(zip(got_img, want_img)):
+        mesh = int((_mesh_pixels(g, frames[fi])
+                    | _mesh_pixels(w, frames[fi])).sum())
+        diff = int(_mesh_pixels(g, w).sum())
+        worst = max(worst, diff / max(mesh, 1))
+        print(f'[render card vs cpu fp32] frame {fi}: {diff} of {mesh} '
+              f'mesh pixels differ', flush=True)
+    dv = max(float(np.abs(pg['smpl_vertices'] - pc['smpl_vertices']).max())
+             for rg, rc in zip(got[0], want[0]) for pg, pc in zip(rg, rc))
+    print(f'[render card vs cpu fp32] worst share {worst:.2e} (limit '
+          f'{RENDER_PIXEL_SHARE:.0e}); vertices {dv:.2e} m apart',
+          flush=True)
+    if worst > RENDER_PIXEL_SHARE:
+        raise RuntimeError('the card and CPU overlays differ in '
+                           f'{worst:.2e} of the mesh pixels')
+    del got, want
+    if card:
+        _release()
+
+    # (b) the eval step's save_images arrays
+    assets = {g: S.create_test_assets(seed=i)
+              for i, g in enumerate(('neutral', 'male', 'female'))}
+    jreg = assets['neutral'].j_regressor_h36m.numpy()
+    model = HMR(backbone=EVAL_BACKBONE, use_cam_feats=True,
+                img_res=EVAL_RES, dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = _mean_head(model).to(dev).eval()
+    step = eval_loop.make_eval_step(model, assets, jreg, use_gender=True)
+    items = _EvalItems(EVAL_BATCH, seed=3)
+    batch = next(iter(DataLoader(items, batch_size=EVAL_BATCH)))
+    cam_keys = ('pred_cam_rotmat', 'pred_cam_int')
+    src = dict(zip(eval_loop.BATCH_KEYS, eval_loop.BATCH_KEYS),
+               cam_rotmat=cam_keys[0], cam_intrinsics=cam_keys[1])
+    dev_batch = {k: torch.from_numpy(np.ascontiguousarray(batch[src[k]])).to(
+        dev) for k in eval_loop.BATCH_KEYS}
+    step(dev_batch)                              # capture
+    L.LAUNCHES = 0
+    res_out, *_ = step(dev_batch)
+    group = eval_loop.render_val_group(batch, res_out, assets['neutral'],
+                                       cam_keys)
+    launches['render eval save_images'] = L.LAUNCHES
+    r = EVAL_RES
+    ok = (group.shape == (r, 3 * r, 3) and group.dtype == np.float32
+          and 0.0 <= group.min() and group.max() <= 1.0 + 1e-6
+          and (group[:, r:2 * r] != group[:, :r]).any()
+          and (group[:, 2 * r:] > 0).any())
+    t0 = res_out['pred_cam_t'][0].float().cpu().numpy()
+    print(f'[render save_images] eval step B={EVAL_BATCH} bf16 (mean head) '
+          f'+ render_val_group: {group.shape} {group.dtype}, overlay pixels '
+          f'{int((group[:, r:2 * r] != group[:, :r]).any(-1).sum())}, side '
+          f'view pixels {int((group[:, 2 * r:] > 0).any(-1).sum())}, '
+          f'sample 0 pred_cam_t {np.round(t0, 3).tolist()}; K1 launches '
+          f'{launches["render eval save_images"]} (one replay)', flush=True)
+    if not ok or (card and L.LAUNCHES != EVAL_K1_PER_STEP):
+        raise RuntimeError('the save_images render is wrong')
+    del model, step, dev_batch, res_out
+    if card:
+        _release()
+
+    # (c) the trainer's TensorBoard grid, into a stand-in writer
+    work = ROOT / 'build' / 'spec_tpu_torch' / 'render_smoke'
+    cfg = _train_cfg(work, TRAINER_BACKBONE, TRAINER_BATCH, TRAIN_RES)
+    cfg.LOGDIR = ''
+    model = HMR(backbone=TRAINER_BACKBONE, use_cam_feats=True,
+                dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    trainer = SpecTrainer(cfg, _mean_head(model).to(dev).train(),
+                          {'neutral': assets['neutral']}, jreg,
+                          lambda epoch: None, lambda: {})
+    trainer.writer = _Images()
+    items = _TrainItems(TRAINER_BATCH, TRAIN_RES, seed=8)
+    batch = next(iter(DataLoader(items, batch_size=TRAINER_BATCH)))
+    L.LAUNCHES = 0
+    trainer._train_image_summary(batch, 1)
+    launches['render tb grid'] = L.LAUNCHES
+    if len(trainer.writer.images) != 1:
+        raise RuntimeError('the image summary wrote no grid')
+    tag, grid, _ = trainer.writer.images[0]
+    r = TRAIN_RES
+    print(f'[render tb grid] {tag}: {grid.shape}, mesh pixels '
+          f'{int((grid[:, :, r:2 * r] != grid[:, :, :r]).any(0).sum())}; '
+          f'K1 launches {launches["render tb grid"]}', flush=True)
+    if (grid.shape != (3, 4 * r, 5 * r) or not np.isfinite(grid).all()
+            or not (grid[:, :, r:2 * r] != grid[:, :, :r]).any()
+            or not (grid[:, :, 2 * r:] > 0).any()
+            or (card and L.LAUNCHES < 1)):
+        raise RuntimeError('the TensorBoard grid is wrong')
+    del trainer, model
+    if card:
+        _release()
+
+    # (d) profiling: one predict under trace with annotated regions
+    pred = SpecPredictor(device=device, dtype=torch.bfloat16, **kw)
+    pred.predict(frames, boxes)
+    trace_dir = ROOT / 'build' / 'spec_tpu_torch' / 'trace_smoke'
+    import shutil
+
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    L.LAUNCHES = 0
+    with profiling.trace(str(trace_dir)):
+        with profiling.annotate('smoke_predict'):
+            with profiling.annotate('smoke_predict_call'):
+                pred.predict(frames, boxes)
+            sync()
+    launches['render profiled predict'] = L.LAUNCHES
+    files = glob.glob(str(trace_dir / '*.pt.trace.json'))
+    if len(files) != 1:
+        raise RuntimeError(f'trace files: {files}')
+    with open(files[0]) as f:
+        events = json.load(f)['traceEvents']
+    names = {e.get('name', '') for e in events}
+    k1 = sum(1 for e in events if 'lbs_kernel' in e.get('name', '')
+             and e.get('cat') == 'kernel')
+    print(f'[profiling] trace {os.path.basename(files[0])}: '
+          f'{len(events)} events, regions '
+          f'{sorted(n for n in names if n.startswith("smoke_"))}, K1 kernel '
+          f'events {k1}, K1 launches {L.LAUNCHES}', flush=True)
+    if not {'smoke_predict', 'smoke_predict_call'} <= names or (
+            card and k1 < 1):
+        raise RuntimeError('the trace lacks the regions or K1')
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    del pred
+    if card:
+        _release()
+    _host_toolchain_facts()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3423,7 +3816,7 @@ def main() -> int:
                                        / 'no_assets')
 
     phase_device()
-    phase_build()
+    build_seconds = phase_build()
     if '--profile' in sys.argv[1:]:
         phase_profile()
         return 0
@@ -3432,6 +3825,9 @@ def main() -> int:
         return 0
     if '--k3-ab' in sys.argv[1:]:
         phase_k3_ab(sys.argv[sys.argv.index('--k3-ab') + 1])
+        return 0
+    if '--render' in sys.argv[1:]:
+        print(json.dumps(phase_render(build_seconds)))
         return 0
     from spec_tpu_torch.utils.batching import pad_pow2
 
@@ -3463,8 +3859,9 @@ def main() -> int:
     phase_camcalib_train()
     smplify = phase_smplify()
     phase_remat()
+    render = phase_render(build_seconds)
 
-    row = lbs_rows[det['batch']]       # K1's batch on this slice's path
+    row = lbs_rows[main_batch]         # K1's batch on this slice's path
 
     def k3_entry(tag):
         """K3 in ``tag`` (bf16, or fp32 as 3xTF32): layer1's block at
@@ -3492,12 +3889,13 @@ def main() -> int:
         'route': 'cuda',
         'source': 'spec_tpu_torch/csrc/lbs.cu',
         'replaces': 'spec_tpu/ops/pallas/lbs.py:97',
-        # this slice's path: one predict(frames) call without boxes, the
-        # detector's boxes through stage 2; the times below are phase
-        # 6's at that path's stage-2 batch
-        'launches': det['launches'],
-        'batch': det['batch'],
-        'launches_by_path': {'detector predict': det['launches'],
+        # this slice's path: one predict call at phase 4's input (bf16)
+        # whose meshes render_mesh_overlay draws; the times below are
+        # phase 6's at that path's stage-2 batch
+        'launches': render['render demo overlay'],
+        'batch': main_batch,
+        'launches_by_path': {**render,
+                             'detector predict': det['launches'],
                              'hrnet predict': hrnet['predict_launches'],
                              'hrnet train': hrnet['train_launches'],
                              'train': train_launches,

@@ -1,9 +1,9 @@
 """The port's benchmark: ``python -m spec_tpu_torch.bench``.
 
 The counterpart of ``bench.py``'s ``pipeline``, ``serving``,
-``latency``, ``eval``, ``train`` and ``detect`` modes (argument names
-and defaults from there; ``--stage1 flax`` is ``module`` here, and
-``--dtype`` picks the compute dtype):
+``latency``, ``eval``, ``train``, ``detect`` and ``input`` modes
+(argument names and defaults from there; ``--stage1 flax`` is ``module``
+here, and ``--dtype`` picks the compute dtype):
 
 * ``pipeline`` (default): ``pipeline.build_pipeline`` on B = 128 raw
   frames of 512x672 in device memory, one person per frame: img/s per
@@ -44,6 +44,27 @@ and defaults from there; ``--stage1 flax`` is ``module`` here, and
   step by the host clock (each window ends with a sync); ``--profile``
   adds K1's own device time per step.
 
+* ``input``: the host loader (``data/cam_dataset.CamDataset`` through
+  ``data/loader.DataLoader``, ``--workers`` threads) over a synthetic
+  3DPW-shaped set written once under ``--bench_data`` (``--frame_h`` x
+  ``--frame_w`` JPEG frames, 1080x1920 by default, four person samples
+  per frame): JPEG decode (the native region-of-interest engine unless
+  ``--no_native_decode``; ``--fast_decode``, ``--decode_cache``,
+  ``--group_by_frame``, ``--region_cache``), SPIN crop and, for
+  ``--input_step train``, the training augmentations. The value is the
+  loader's img/s, one window per whole epoch (at least 12 batches in
+  all); the e2e tail then feeds the same batches to the port's train
+  step (uint8 crops uploaded, normalized on the device) or, with
+  ``--input_step eval``, to the eval step, and reports the step's
+  ceiling on a batch already on the device and loader -> upload -> step
+  img/s. ``camcalib_input`` (``--input_step camcalib``): the CamCalib
+  pano loader's items per second on one thread (``--camcalib_jitter``,
+  ``--camcalib_split``, ``--decode_cache``, ``--fast_decode``), with
+  ``--camcalib_e2e`` the loader -> upload -> CamCalib train step on one
+  shape bucket. Writing the data needs cv2 (and joblib for the pano
+  splits); the machine with the card has neither, so these modes run
+  where they are, with ``--device cpu`` or a card.
+
 Every mode warms up first (the graph captures included) and times
 ``WINDOWS`` windows; the last line is one JSON object with ``metric``,
 ``value`` (the median window), ``unit``, ``spread`` (min and max over the
@@ -63,6 +84,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -76,7 +98,19 @@ WINDOWS = 10
 # pipeline's stage-1 bucket, and the serving and latency frames.
 FRAME_HW = {'pipeline': (512, 672), 'serving': (480, 640),
             'latency': (480, 640), 'eval': (224, 224), 'train': (224, 224),
-            'detect': (416, 416)}
+            'detect': (416, 416), 'input': (1080, 1920)}
+MODES = (*FRAME_HW, 'camcalib_input')
+# bench.py's synthetic sets: frames of the input set (at least three
+# batches of four samples per frame), and the images of the camcalib set
+# with the reference datagen's crop sizes (W, H) and the loader's
+# (min_size, max_size).
+INPUT_FRAMES = 96
+CAMCALIB_IMAGES = 96
+CAMCALIB_SIZES = ((640, 640), (750, 600), (800, 600), (900, 600),
+                  (992, 558), (558, 992))
+CAMCALIB_MIN_MAX = (600, 1000)
+BENCH_DATA = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), '.bench_data')
 # bench.py's batch per mode (128 unless named).
 BATCH = {'train': 64, 'detect': 32}
 # CUDA runtime calls that put work on the device, as the profiler names
@@ -90,22 +124,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         prog='python -m spec_tpu_torch.bench',
         description='spec_tpu_torch e2e bench (pipeline, serving, '
-                    'latency, eval, train, detect)')
-    parser.add_argument('--mode',
-                        choices=['pipeline', 'serving', 'latency', 'eval',
-                                 'train', 'detect'],
-                        default='pipeline')
+                    'latency, eval, train, detect, input, camcalib_input)')
+    parser.add_argument('--mode', choices=MODES, default='pipeline',
+                        help='camcalib_input is input with --input_step '
+                             'camcalib')
     parser.add_argument('--batch', type=int, default=None,
-                        help='[pipeline, eval, train, detect] frames or '
-                             'crops per call (default: 64 for train, 32 '
-                             'for detect, else 128)')
+                        help='[pipeline, eval, train, detect, input] frames '
+                             'or crops per call (default: 64 for train, '
+                             '32 for detect, else 128)')
     parser.add_argument('--frame_h', type=int, default=None,
                         help='default: 512 (pipeline) / 480 (serving, '
-                             'latency); eval, train: the crop side, 224; '
-                             'detect: the input side, 416')
+                             'latency) / 1080 (input); eval, train: the '
+                             'crop side, 224; detect: the input side, 416')
     parser.add_argument('--frame_w', type=int, default=None,
                         help='default: 672 (pipeline) / 640 (serving, '
-                             'latency)')
+                             'latency) / 1920 (input)')
     parser.add_argument('--stage1', choices=['module', 'fused'],
                         default='module',
                         help='[pipeline] stage-1 trunk: the CamCalib module '
@@ -142,7 +175,53 @@ def parse_args(argv=None) -> argparse.Namespace:
                              'operations per call (torch.profiler)')
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default) or 'cpu'")
+    parser.add_argument('--workers', type=int, default=8,
+                        help='[input] loader worker threads (the '
+                             "reference's NUM_WORKERS)")
+    parser.add_argument('--fast_decode', action='store_true',
+                        help='[input] reduced-scale JPEG decode in the '
+                             'loader (CamDataset fast_decode)')
+    parser.add_argument('--decode_cache', type=int, default=0,
+                        help='[input] decoded-frame LRU capacity (frames; '
+                             '0 = off)')
+    parser.add_argument('--group_by_frame', action='store_true',
+                        help='[input] frame-grouped shuffle, so samples of '
+                             'one frame share a batch')
+    parser.add_argument('--no_native_decode', action='store_true',
+                        help='[input] the cv2 decode and crop (the parity '
+                             'oracle) instead of the native engine')
+    parser.add_argument('--region_cache', action='store_true',
+                        help='[input] per-sample crop-region cache: the '
+                             'warm-up epoch fills it, measured epochs '
+                             'read it')
+    parser.add_argument('--region_cache_format', type=str, default='jpeg',
+                        choices=['jpeg', 'raw'],
+                        help='[input] region cache file format')
+    parser.add_argument('--input_step', choices=['train', 'eval', 'camcalib'],
+                        default='train',
+                        help='[input] the device step the loader feeds '
+                             '(camcalib: the pano loader, as --mode '
+                             'camcalib_input)')
+    parser.add_argument('--camcalib_jitter', choices=['fused', 'pil',
+                                                      'device'],
+                        default='fused',
+                        help='[camcalib_input] train jitter: one fused '
+                             'affine (default), four PIL passes, or on the '
+                             'device')
+    parser.add_argument('--camcalib_split', choices=['train', 'val'],
+                        default='train',
+                        help='[camcalib_input] split (val: no jitter)')
+    parser.add_argument('--camcalib_secs', type=float, default=8.0,
+                        help='[camcalib_input] shortest timed window (s)')
+    parser.add_argument('--camcalib_e2e', action='store_true',
+                        help='[camcalib_input] also loader -> upload -> '
+                             'CamCalib train step on one shape bucket')
+    parser.add_argument('--bench_data', default=BENCH_DATA,
+                        help='[input] where the synthetic data sets are '
+                             'written once and reused')
     args = parser.parse_args(argv)
+    if args.mode == 'camcalib_input':
+        args.mode, args.input_step = 'input', 'camcalib'
     default_hw = FRAME_HW[args.mode]
     args.frame_h = args.frame_h or default_hw[0]
     args.frame_w = args.frame_w or default_hw[1]
@@ -665,6 +744,374 @@ def detect_bench(args, device) -> dict:
                  ms_per_batch=statistics.median(ms))
 
 
+def make_input_bench_data(root, n_frames=96, samples_per_frame=4,
+                          hw=(1080, 1920)):
+    """``bench.py``'s synthetic 3DPW-shaped set on disk: ``n_frames``
+    JPEG frames of ``hw`` (smooth gradients and noise, which compress
+    like photos) and the npz annotation contract with
+    ``samples_per_frame`` person samples per frame. Written once per
+    (root, size) and reused while it holds enough samples. Returns
+    (npz path, image directory)."""
+    import cv2
+
+    npz = os.path.join(root, 'annots.npz')
+    if os.path.exists(npz) and len(np.load(npz)['imgname']) >= (
+            n_frames * samples_per_frame):
+        return npz, root
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(0)
+    H, W = hw
+    yy, xx = np.mgrid[0:H, 0:W]
+    names = []
+    for i in range(n_frames):
+        base = 128 + 80 * np.sin(xx / (47.0 + i)) * np.cos(yy / (39.0 + i))
+        img = np.clip(base[..., None] + rng.randn(H, W, 3) * 10, 0, 255)
+        nm = f'im{i:04d}.jpg'
+        cv2.imwrite(os.path.join(root, nm), img.astype('u1'))
+        names.append(nm)
+    n = n_frames * samples_per_frame
+    sy, sx = H / 1080.0, W / 1920.0      # bench.py's boxes, scaled
+    np.savez(
+        npz,
+        imgname=np.repeat(np.array(names), samples_per_frame),
+        scale=((rng.rand(n) * 1.2 + 1.0) * min(sy, sx)).astype('f4'),
+        center=np.stack([(rng.rand(n) * 1200 + 360) * sx,
+                         (rng.rand(n) * 500 + 290) * sy], 1).astype('f4'),
+        pose_0yaw_inverseyz=(rng.randn(n, 72) * 0.2).astype('f4'),
+        pose_cam=(rng.randn(n, 72) * 0.2).astype('f4'),
+        shape=(rng.randn(n, 10) * 0.5).astype('f4'),
+        S=rng.randn(n, 24, 4).astype('f4'),
+        part=np.concatenate([rng.rand(n, 24, 2) * 800 + 200,
+                             np.ones((n, 24, 1))], -1).astype('f4'),
+        cam_int=np.tile(np.array(
+            [[1000, 0, W / 2], [0, 1000, H / 2], [0, 0, 1]], 'f4'),
+            (n, 1, 1)),
+        camcalib_pitch=(rng.randn(n) * 0.1).astype('f4'),
+        camcalib_roll=(rng.randn(n) * 0.05).astype('f4'),
+        camcalib_vfov=(rng.rand(n) * 0.5 + 0.6).astype('f4'),
+        camcalib_f_pix=(rng.rand(n) * 200 + 900).astype('f4'),
+    )
+    return npz, root
+
+
+def make_camcalib_bench_data(root):
+    """``bench.py``'s synthetic Pano360-crop set in the pano_scalenet
+    layout (images/*.jpg, a JSON annotation beside each, the split
+    pickles): ``CAMCALIB_IMAGES`` images at ``CAMCALIB_SIZES``. Written
+    once per root. Returns the root."""
+    import cv2
+    import joblib
+
+    img_dir = os.path.join(root, 'images')
+    split_pkl = os.path.join(root, 'train_images.pkl')
+    if os.path.exists(split_pkl):
+        return root
+    os.makedirs(img_dir, exist_ok=True)
+    rng = np.random.RandomState(0)
+    n, sizes = CAMCALIB_IMAGES, CAMCALIB_SIZES
+    names = []
+    for i in range(n):
+        W, H = sizes[i % len(sizes)]
+        yy, xx = np.mgrid[0:H, 0:W]
+        base = (128 + 80 * np.sin(xx / (31.0 + i % 7))
+                * np.cos(yy / (27.0 + i % 5)))
+        img = np.clip(base[..., None] + rng.randn(H, W, 3) * 10, 0, 255)
+        nm = f'crop{i:04d}.jpg'
+        cv2.imwrite(os.path.join(img_dir, nm), img.astype('u1'))
+        with open(os.path.join(img_dir, nm[:-4] + '.json'), 'w') as f:
+            json.dump({'vfov': 1.05 + 0.3 * (i % 5) / 5.0,
+                       'pitch': 0.05 - 0.02 * (i % 3),
+                       'roll': -0.02 + 0.01 * (i % 4)}, f)
+        names.append(nm)
+    split = max(1, int(n * 0.85))
+    joblib.dump(names[:split], split_pkl)
+    joblib.dump(names[split:], os.path.join(root, 'val_images.pkl'))
+    return root
+
+
+def _emit_rates(args, device, metric, rates, unit, **extra) -> dict:
+    """Print and return the result line for rates measured per window
+    (the input modes: one window per whole epoch)."""
+    payload = {
+        'metric': metric,
+        'value': statistics.median(rates),
+        'unit': unit,
+        'spread': {'min': min(rates), 'max': max(rates),
+                   'windows': len(rates)},
+        'device': (torch.cuda.get_device_name(device)
+                   if device.type == 'cuda' else 'cpu'),
+        'card': _card() if device.type == 'cuda' else None,
+        **extra,
+    }
+    print(json.dumps(payload), flush=True)
+    return payload
+
+
+def _step_rates(step_fn, first, batches, B, device, min_steps):
+    """(ceiling img/s: ``step_fn`` on ``first()``, a batch already on the
+    device, ``min_steps`` times; e2e img/s: ``batches()`` (whole epochs
+    of (upload, valid rows)) uploaded and stepped until ``min_steps``
+    steps)."""
+    dev = first()
+    step_fn(dev)                      # the eager first call and capture
+    step_fn(dev)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(min_steps):
+        step_fn(dev)
+    _sync(device)
+    ceiling = B * min_steps / (time.perf_counter() - t0)
+    n = steps = 0
+    t0 = time.perf_counter()
+    while steps < min_steps:
+        for upload, valid in batches():
+            step_fn(upload())
+            n += valid
+            steps += 1
+    _sync(device)
+    return ceiling, n / (time.perf_counter() - t0)
+
+
+def input_bench(args, device) -> dict:
+    """The host loader at ``bench.py``'s ``input_bench`` setup, then the
+    train or eval step fed from it (see the module docstring)."""
+    from spec_tpu_torch.data.cam_dataset import CamDataset
+    from spec_tpu_torch.data.loader import DataLoader
+
+    if args.input_step == 'camcalib':
+        return camcalib_input_bench(args, device)
+    B, hw = args.batch, (args.frame_h, args.frame_w)
+    root = os.path.join(args.bench_data, f'input_{hw[0]}x{hw[1]}')
+    # (an existing set is reused while it holds enough samples)
+    npz, img_dir = make_input_bench_data(
+        root, n_frames=max(INPUT_FRAMES, (3 * B + 3) // 4), hw=hw)
+    rc_dir = (os.path.join(root, f'region_cache_{args.region_cache_format}')
+              if args.region_cache else '')
+    is_train = args.input_step == 'train'
+    ds = CamDataset(npz, img_dir, '3dpw-test-cam', is_train=is_train,
+                    fast_decode=args.fast_decode,
+                    decode_cache=args.decode_cache,
+                    native_decode=not args.no_native_decode,
+                    region_cache_dir=rc_dir,
+                    region_cache_format=args.region_cache_format)
+    loader = DataLoader(ds, batch_size=B, shuffle=is_train,
+                        num_workers=args.workers, drop_last=True,
+                        group_keys=ds.imgname if args.group_by_frame
+                        else None)
+    # Warm-up epoch, drained: an abandoned iterator would keep its
+    # threads decoding into the timed window.
+    warm = iter(loader)
+    first = next(warm)
+    for _ in warm:
+        pass
+    rates, batches = [], 0
+    while batches < 12:               # whole epochs
+        t0 = time.perf_counter()
+        n = 0
+        for batch in loader:
+            n += len(batch['scale'])
+            batches += 1
+        rates.append(n / (time.perf_counter() - t0))
+    desc = (f'{hw[0]}x{hw[1]} JPEG decode + SPIN crop'
+            + (' + aug' if is_train else '')
+            + (', cv2' if args.no_native_decode else ', native ROI')
+            + (', fast_decode' if args.fast_decode else '')
+            + (f', decode_cache {args.decode_cache}' if args.decode_cache
+               else '')
+            + (f', region_cache {args.region_cache_format}'
+               if args.region_cache else ''))
+    res = first['img'].shape[1]
+    # the tails' ceiling batch is the drained warm-up epoch's first
+    if args.input_step == 'eval':
+        ceiling, e2e = _input_eval_tail(args, device, loader, first, B)
+        upload = B * res * res * 3 * 4
+    else:
+        ceiling, e2e = _input_train_tail(args, device, loader, first, B,
+                                         res)
+        upload = B * res * res * 3
+    return _emit_rates(
+        args, device, f'host input pipeline ({desc}, {args.workers} '
+        f'workers) -> {args.input_step} step, B={B}', rates, 'img/s',
+        **{f'{args.input_step}_e2e_img_s': e2e,
+           'device_step_ceiling_img_s': ceiling,
+           'upload_mb_per_batch': upload / 1e6,
+           'native_decode': bool(ds._native_ok()),
+           'region_cache_hits': (ds._region_cache.hits
+                                 if ds._region_cache is not None else None)})
+
+
+def _input_train_tail(args, device, loader, first, B, res):
+    """The SPEC train step fed by the loader: crops uploaded as uint8
+    and normalized on the device, the other columns as float32."""
+    from spec_tpu_torch.core import constants as C
+    from spec_tpu_torch.train.steps import SPEC_BATCH_KEYS
+    from spec_tpu_torch.utils.graphs import device_constant
+
+    state, step, _ = train_setup(B, args.backbone, _dtype(args), device, res)
+    gen = torch.Generator(device=device).manual_seed(1)
+    mean = device_constant(C.IMG_NORM_MEAN, device)
+    std = device_constant(C.IMG_NORM_STD, device)
+
+    def upload(batch):
+        def put():
+            u8 = np.clip(batch['img'] * 255.0, 0, 255).astype(np.uint8)
+            dev = {k: torch.from_numpy(np.ascontiguousarray(
+                batch['cam_int' if k == 'cam_intrinsics' else k],
+                np.float32)).to(device, non_blocking=True)
+                for k in SPEC_BATCH_KEYS if k != 'img'}
+            img = torch.from_numpy(u8).to(device, non_blocking=True)
+            dev['img'] = (img.float() / 255.0 - mean) / std
+            return dev
+        return put, B
+
+    def step_fn(dev):
+        return step(state, dev, gen)
+
+    return _step_rates(step_fn, upload(first)[0],
+                       lambda: (upload(b) for b in loader), B, device,
+                       max(args.iters, 8))
+
+
+def _input_eval_tail(args, device, loader, first, B):
+    """The eval step fed by the loader: float32 [0, 1] crops (the step
+    normalizes them) and CamCalib's camera columns, as
+    ``evaluate_dataset`` uploads them."""
+    from spec_tpu_torch.eval.eval_loop import BATCH_KEYS, make_eval_step
+
+    assets = eval_assets()
+    model = eval_model(args.backbone, _dtype(args), device)
+    step = make_eval_step(model, assets,
+                          assets['neutral'].j_regressor_h36m.numpy())
+    src = dict(zip(BATCH_KEYS, BATCH_KEYS), cam_rotmat='pred_cam_rotmat',
+               cam_intrinsics='pred_cam_int')
+
+    def upload(batch):
+        def put():
+            return {k: torch.from_numpy(np.ascontiguousarray(
+                batch[src[k]])).to(device, non_blocking=True)
+                for k in BATCH_KEYS}
+        return put, B
+
+    def step_fn(dev):
+        out = step(dev)
+        return out[0]['pred_cam_t']
+
+    with torch.inference_mode():
+        return _step_rates(step_fn, upload(first)[0],
+                           lambda: (upload(b) for b in loader), B, device,
+                           max(args.iters, 8))
+
+
+def camcalib_input_bench(args, device) -> dict:
+    """The CamCalib pano loader's items on one thread (img/s per core),
+    and with ``--camcalib_e2e`` the loader -> upload -> CamCalib train
+    step on one bucket."""
+    from spec_tpu_torch.data.pano_dataset import (
+        CameraRegressorDataset,
+        color_jitter,
+        normalize_u8,
+    )
+
+    if args.camcalib_jitter == 'pil' and (args.decode_cache
+                                          or args.camcalib_split == 'val'
+                                          or args.camcalib_e2e):
+        raise SystemExit('--camcalib_jitter pil is the four-pass train item '
+                         'baseline: it bypasses the decode cache and always '
+                         'jitters; drop --decode_cache/--camcalib_split '
+                         'val/--camcalib_e2e')
+    root = make_camcalib_bench_data(
+        os.path.join(args.bench_data, 'camcalib_crops'))
+    is_train = args.camcalib_split == 'train'
+    min_size, max_size = CAMCALIB_MIN_MAX
+    ds = CameraRegressorDataset(
+        root, 'pano_scalenet', is_train=is_train, min_size=min_size,
+        max_size=max_size, loss_type='softargmax_biased_l2',
+        fast_decode=args.fast_decode, decode_cache=args.decode_cache,
+        device_jitter=args.camcalib_jitter == 'device')
+    if args.camcalib_jitter == 'pil':
+        from PIL import Image
+
+        rng = np.random.RandomState(0)
+
+        def item(i):
+            name = os.path.join(root, 'images', ds.image_filenames[i])
+            arr, _ = ds._decode_resized(name)
+            return normalize_u8(np.asarray(
+                color_jitter(Image.fromarray(arr), rng), np.uint8))
+    else:
+        item = ds.__getitem__
+    n_ds = len(ds)
+    for i in range(n_ds):             # warm-up epoch (fills the caches)
+        item(i)
+    rates = []
+    t_all = time.perf_counter()
+    while len(rates) < 3 or time.perf_counter() - t_all < args.camcalib_secs:
+        t0 = time.perf_counter()
+        for i in range(n_ds):
+            item(i)
+        rates.append(n_ds / (time.perf_counter() - t0))
+    desc = ('PIL 4-pass jitter' if args.camcalib_jitter == 'pil'
+            else 'device jitter (u8 + affine)'
+            if args.camcalib_jitter == 'device'
+            else 'fused-affine jitter' if is_train else 'no jitter (val)')
+    if args.decode_cache:
+        desc += f' + decode_cache {args.decode_cache}'
+    extra = {'n_images': n_ds}
+    if args.camcalib_e2e:
+        hw, ceiling, e2e = _camcalib_e2e_tail(args, device, ds)
+        extra.update(bucket=list(hw), device_step_ceiling_img_s=ceiling,
+                     train_e2e_img_s=e2e)
+    return _emit_rates(
+        args, device, f'camcalib {args.camcalib_split} loader item ({desc}), '
+        f'min {min_size}, one thread', rates, 'img/s/core', **extra)
+
+
+def _camcalib_e2e_tail(args, device, ds, B=8):
+    """The CamCalib train step (``--backbone``, random init, Adam 1e-4,
+    fp32) fed by the bucketed loader, on the bucket with the most
+    samples. Returns (bucket, ceiling img/s, e2e img/s)."""
+    from spec_tpu_torch.cli.camcalib_train import _bucketed_batches
+    from spec_tpu_torch.models.camcalib import CameraRegressorNetwork
+    from spec_tpu_torch.train import (
+        adam,
+        create_train_state,
+        make_camcalib_train_step,
+    )
+
+    model = CameraRegressorNetwork(backbone=args.backbone)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.to(device).train()
+    state = create_train_state(model, adam(1e-4))
+    step = make_camcalib_train_step(model, loss_type='softargmax_biased_l2')
+    buckets = ds.shape_buckets()
+    hw = max(buckets, key=lambda k: len(buckets[k]))
+    keys = ('img', 'vfov', 'pitch', 'roll', 'jitter_A', 'jitter_b',
+            'true_shape')
+
+    def batches():
+        for b in _bucketed_batches(ds, B, shuffle=True, seed=0,
+                                   num_workers=args.workers):
+            if tuple(b['img'].shape[1:3]) != tuple(hw):
+                continue
+
+            def put(b=b):
+                return {k: torch.from_numpy(np.ascontiguousarray(
+                    b[k] if k != 'true_shape'
+                    else b[k].astype(np.int32))).to(device,
+                                                    non_blocking=True)
+                    for k in keys if k in b}
+            yield put, int(b.get('valid_count', B))
+
+    def step_fn(dev):
+        return step(state, dev)
+
+    # the first batch of a whole (drained) epoch
+    first = [put for put, _ in batches()][0]
+    ceiling, e2e = _step_rates(step_fn, first, batches, B, device,
+                               max(args.iters, 6))
+    return hw, ceiling, e2e
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     device = torch.device(args.device)
@@ -680,9 +1127,12 @@ def main(argv=None) -> int:
         return 2
     bench = {'pipeline': pipeline_bench, 'serving': serving_bench,
              'latency': latency_bench, 'eval': eval_bench,
-             'train': train_bench, 'detect': detect_bench}[args.mode]
-    # Training needs autograd; every other mode runs in inference mode.
-    with (contextlib.nullcontext() if args.mode == 'train'
+             'train': train_bench, 'detect': detect_bench,
+             'input': input_bench}[args.mode]
+    # Training needs autograd (so do the input mode's train tails; its
+    # eval tail enters inference mode itself); every other mode runs in
+    # inference mode.
+    with (contextlib.nullcontext() if args.mode in ('train', 'input')
           else torch.inference_mode()):
         bench(args, device)
     return 0

@@ -12,8 +12,10 @@ or a live webcam/stream (port of ``spec_tpu/cli/spec_demo.py``).
   uploaded frame, and runs in padded batches of ``batch_size`` through
   one stage-2 function: HMR, SMPL through the fused LBS kernel and the
   camera (``serving._spec_forward``); on a GPU it replays a CUDA graph.
-* Overlays draw the horizon and the 2D joints. The mesh overlay waits
-  for the renderer (``ROADMAP.md`` §1 item 10, the next slice).
+* Overlays draw the horizon, the 2D joints and every person's mesh
+  (``utils/renderer.render_mesh_overlay``: the host z-buffer of
+  ``csrc/raster.cpp`` over the meshes K1 computed on the device). A
+  render error is printed once, not swallowed.
 
 Outputs per image: ``spec_results/<img>.pkl`` with the model outputs
 (smpl_vertices/joints3d/joints2d, pred_cam_t, pred_pose/shape/cam), and
@@ -57,11 +59,6 @@ _MODEL_CACHE: dict = {}
 # Uploaded frames kept by the crop loop (work items are grouped by
 # image, so a small window suffices).
 _IMAGE_CACHE_MAX = 32
-
-_NO_MESH = ('[spec] mesh overlay not drawn: the renderer is not ported '
-            'yet (ROADMAP.md §1 item 10, the next slice); overlays show '
-            'the horizon and the 2D joints')
-
 
 def _get_spec_model(smpl_model_dir: str, cfg_file: str, spec_ckpt: str,
                     img_res: int, device='cuda'):
@@ -301,7 +298,7 @@ def run_spec_on_folder(
                 np.save(os.path.join(mesh_dir, f'{pi:06d}.npy'),
                         merged['pred_cam_t'][pi])
         if render:
-            _render_overlays(name, merged, cam_out, img_out)
+            _render_overlays(name, merged, cam_out, img_out, faces)
 
     n_img = len(outputs_per_image)
     total = time.perf_counter() - t_start
@@ -336,6 +333,7 @@ def _smooth_video_tracks(output_folder, vid_file, names, per_frame, ids,
         folder_kwargs.get('cfg_file', ''), folder_kwargs.get('spec_ckpt', ''),
         img_res, folder_kwargs.get('device', 'cuda'))
     dev = assets.device
+    faces = assets.faces.cpu().numpy()
 
     # Per-frame results and cameras.
     results, cam_params, cam_raw = {}, {}, {}
@@ -434,7 +432,7 @@ def _smooth_video_tracks(output_folder, vid_file, names, per_frame, ids,
                                  fps, (fw, fh))
         if fi in results:
             rgb = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
-            vis = _render_overlay_img(rgb, results[fi], cam_raw[fi])
+            vis = _render_overlay_img(rgb, results[fi], cam_raw[fi], faces)
             frame = cv2.cvtColor(vis, cv2.COLOR_RGB2BGR)
         vw.write(frame)
         fi += 1
@@ -606,7 +604,8 @@ def run_spec_webcam(
     ``source`` is a camera index ('0', '1', ...) or any cv2-readable
     stream or file. Per frame: the detector's boxes (``detector='yolo'``)
     or a full-frame person box -> CamCalib (on
-    ``camcalib_every`` keyframes) -> SPEC -> horizon and joints overlay
+    ``camcalib_every`` keyframes) -> SPEC -> horizon, joints and mesh
+    overlay
     -> ``spec_webcam_output.mp4`` (and a ``cv2.imshow`` window with
     ``display``; ``q`` quits). Per-frame results go to
     ``webcam_results/{i:06d}.pkl``. Prints mean/p50/p90 end-to-end
@@ -641,6 +640,7 @@ def run_spec_webcam(
         yolo_weights=yolo_weights, yolo_img_size=yolo_img_size,
         cut_threshold=cut_threshold, device=device)
 
+    faces = pred.assets.faces.cpu().numpy()
     out_path = os.path.join(output_folder, 'spec_webcam_output.mp4')
     vw = None
     latencies: list = []
@@ -671,7 +671,7 @@ def run_spec_webcam(
         if persons:
             merged = {k: np.stack([p[k] for p in persons])
                       for k in persons[0] if k != 'camera'}
-            vis = _render_overlay_img(rgb, merged, cam)
+            vis = _render_overlay_img(rgb, merged, cam, faces)
         else:
             merged = None
             vis = draw_horizon_line(rgb, cam['vfov'], cam['pitch'],
@@ -731,33 +731,41 @@ def write_obj(path: str, vertices: np.ndarray, faces: np.ndarray):
 
 
 @functools.cache
-def _say_no_mesh() -> None:
-    print(_NO_MESH)
+def _say_render_error(message: str) -> None:
+    print(f'[spec] mesh overlay not drawn: {message}')
 
 
-def _render_overlay_img(img_rgb, merged, cam_data):
-    """Horizon and 2D joints over an RGB frame. The mesh overlay waits
-    for the renderer (ROADMAP.md §1 item 10, the next slice); the first
-    call says so."""
+def _render_overlay_img(img_rgb, merged, cam_data, faces):
+    """Horizon, 2D joints and every person's mesh over an RGB frame
+    (``merged['smpl_vertices']`` placed by ``merged['pred_cam_t']``,
+    CamCalib's f_pix, pitch and roll). A render error leaves the mesh out
+    and is printed once per message."""
+    from spec_tpu_torch.utils.renderer import render_mesh_overlay
     from spec_tpu_torch.utils.vis import draw_horizon_line, draw_skeleton
 
-    _say_no_mesh()
     vis = draw_horizon_line(img_rgb, float(cam_data['vfov']),
                             float(cam_data['pitch']),
                             float(cam_data['roll']), debug_text=False)
     for kp in merged['smpl_joints2d']:
         vis = draw_skeleton(vis, kp)
+    try:
+        vis = render_mesh_overlay(
+            vis, merged['smpl_vertices'], merged['pred_cam_t'], faces,
+            focal_length=float(cam_data['f_pix']),
+            pitch=float(cam_data['pitch']), roll=float(cam_data['roll']))
+    except Exception as e:   # noqa: BLE001 -- reported, not swallowed
+        _say_render_error(f'{type(e).__name__}: {e}')
     return vis
 
 
-def _render_overlays(imgname, merged, cam_out, img_out):
+def _render_overlays(imgname, merged, cam_out, img_out, faces):
     """File-based wrapper over :func:`_render_overlay_img`."""
     import cv2
     import joblib
 
     base = os.path.basename(imgname)
     data = joblib.load(os.path.join(cam_out, base + '.pkl'))
-    vis = _render_overlay_img(_read_rgb(imgname), merged, data)
+    vis = _render_overlay_img(_read_rgb(imgname), merged, data, faces)
     cv2.imwrite(os.path.join(img_out, base),
                 cv2.cvtColor(vis, cv2.COLOR_RGB2BGR))
 

@@ -17,9 +17,10 @@ without one unless ``--device cpu`` is given. Checkpoints are the
 reference's torch files or the port trainer's checkpoint directories
 (``spec_train``'s ``<logdir>/checkpoints``); a missing one gives a
 seeded random init with a warning, and a JAX package (orbax) checkpoint
-directory raises. Not ported yet: ``--data_parallel`` and multi-host
-``--coordinator_address`` (ROADMAP.md §1 item 12),
-``TESTING.SAVE_IMAGES`` (the renderer, item 10, the next slice).
+directory raises. ``TESTING.SAVE_IMAGES`` renders overlays to
+``<logdir>/val_images/`` (and runs the in-the-wild sets' qualitative
+pass). Not ported yet: ``--data_parallel`` and multi-host
+``--coordinator_address`` (ROADMAP.md §1 item 12).
 """
 
 from __future__ import annotations

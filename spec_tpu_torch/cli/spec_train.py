@@ -149,7 +149,9 @@ def main(argv=None):
             fast_decode=is_train and cfg.DATASET.get('FAST_DECODE', False),
             decode_cache=cfg.DATASET.get('DECODE_CACHE', 0),
             native_decode=cfg.DATASET.get('NATIVE_DECODE', True),
-            region_cache_dir=cfg.DATASET.get('REGION_CACHE_DIR', ''))
+            region_cache_dir=cfg.DATASET.get('REGION_CACHE_DIR', ''),
+            region_cache_format=cfg.DATASET.get('REGION_CACHE_FORMAT',
+                                                'jpeg'))
 
     stage_sched = parse_schedule(cfg.DATASET.STAGE_DATASETS)
     tf_sched = parse_schedule(cfg.DATASET.get('TEACHER_FORCE_SCHEDULE', ''))

@@ -17,18 +17,24 @@ joints); part (24 x 3) and openpose (25 x 3) 2D keypoints; gender
 cam_int (the GT camera); camcalib_{pitch,roll,vfov,f_pix} (CamCalib's
 predictions); pose_cam (camera-frame GT pose, for the offline metrics).
 
-Decoding is cv2's: the reference's ``native_decode=False`` path, which is
-its parity oracle. Its native JPEG region-of-interest engine
-(``spec_tpu/native``) has no counterpart in the port, so
-``native_decode`` selects this one path whatever its value.
-``fast_decode`` (the reduced-scale decode) and ``region_cache_dir`` (the
-per-sample region cache) are not ported yet (ROADMAP.md §1 item 9, with
-``data/region_cache.py``) and raise.
+Decode and crop, per item, in this order (the reference's):
+the per-sample region cache (``region_cache_dir``,
+``data/region_cache.py``), the decoded-frame LRU (``decode_cache``),
+the fused native JPEG region-of-interest decode (``csrc/jpegroi.cpp``:
+only the crop's window is decoded), then cv2's full decode. The native
+paths need the engine: ``native_decode`` 'auto' or True takes them
+where it built (resolved at the first item; when it cannot build, a line
+on stdout says so and why), False always takes cv2's path, the parity
+oracle. Non-JPEG bytes, EXIF-rotated and progressive JPEGs go to cv2
+per item. ``fast_decode`` decodes at 1/2, 1/4 or 1/8 scale where the
+box is large enough to stay a downsample (``transforms.pick_reduce``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
 import time
 from os.path import join
 from typing import Optional
@@ -40,8 +46,12 @@ from spec_tpu_torch.data import transforms as T
 from spec_tpu_torch.data.cache import FrameCache
 from spec_tpu_torch.data.occlusion import occlude_with_objects
 
-_ITEM9 = ('is not ported yet (ROADMAP.md §1 item 9: data/region_cache.py '
-          'and fast_decode)')
+
+
+@functools.cache
+def _say_cv2_path(reason: str) -> None:
+    print('[data] native JPEG engine unavailable (csrc/jpegroi.cpp did '
+          f'not build: {reason}); CamDataset decodes with cv2')
 
 
 @dataclasses.dataclass
@@ -84,7 +94,12 @@ class CamDataset:
     ``num_images`` (a seeded subsample without replacement),
     ``decode_cache`` (a decoded-frame LRU of that many frames),
     ``is_train`` (augment: ``aug``, ``occluders`` a list of RGBA
-    cutouts, ``seed`` the augmentation stream's).
+    cutouts, ``seed`` the augmentation stream's), ``fast_decode`` (the
+    reduced-scale decode), ``native_decode`` ('auto' / True: the native
+    JPEG engine where it built; False: cv2), ``region_cache_dir`` and
+    ``region_cache_format`` ('jpeg' or 'raw'; the region cache, scoped
+    to a ``<dataset>_<train|val>`` subdirectory, as files are keyed by
+    sample index).
     """
 
     def __init__(
@@ -112,10 +127,6 @@ class CamDataset:
         region_cache_dir: str = '',
         region_cache_format: str = 'jpeg',
     ):
-        for name, value in (('fast_decode', fast_decode),
-                            ('region_cache_dir', region_cache_dir)):
-            if value:
-                raise NotImplementedError(f'CamDataset {name} {_ITEM9}')
         self.dataset = dataset
         self.img_dir = img_dir
         self.is_train = is_train
@@ -129,9 +140,19 @@ class CamDataset:
         self.normalize = normalize
         self.render_res = render_res
         self.emit_disp_img = emit_disp_img
-        self.native_decode = native_decode
+        self.fast_decode = fast_decode
+        self.native_decode = bool(native_decode)
+        self._native = None        # resolved at the first item
         self._frame_cache = FrameCache(decode_cache) if decode_cache \
             else None
+        self._region_cache = None
+        if region_cache_dir:
+            from spec_tpu_torch.data.region_cache import RegionCache
+
+            self._region_cache = RegionCache(
+                os.path.join(region_cache_dir,
+                             f'{dataset}_{"train" if is_train else "val"}'),
+                fmt=region_cache_format)
         self.rng = np.random.RandomState(seed)
 
         data = np.load(annot_file, allow_pickle=True)
@@ -266,7 +287,7 @@ class CamDataset:
         imgname = join(self.img_dir, str(self.imgname[index]))
         want_disp = not self.is_train and self.emit_disp_img
         raw_crop, disp, orig_shape = self._crops(
-            imgname, center, sc * scale, rot, want_disp)
+            index, imgname, center, sc * scale, rot, want_disp)
         load_time = time.perf_counter() - t0
 
         pose = (self.pose[index].copy() if self.has_smpl[index]
@@ -380,24 +401,266 @@ class CamDataset:
 
     # -- decode and crop ------------------------------------------------
 
-    def _decode(self, imgname):
+    def _native_ok(self) -> bool:
+        """Whether the native JPEG engine serves this dataset, resolved
+        at the first item (constructing a dataset builds nothing)."""
+        if self._native is None:
+            if not self.native_decode:
+                self._native = False
+            else:
+                from spec_tpu_torch import native
+
+                self._native, reason = native.jpeg_engine()
+                if not self._native:
+                    _say_cv2_path(reason)
+        return self._native
+
+    def _reduce_for(self, scale) -> int:
+        """The ``fast_decode`` reduction: the largest that keeps the
+        img_res crop (and the eval path's render_res display crop) a
+        downsample; 1 without ``fast_decode``. Keypoints, K and
+        orig_shape stay in full-resolution coordinates."""
+        if not self.fast_decode:
+            return 1
+        need = self.img_res
+        if not self.is_train and self.emit_disp_img:
+            need = max(need, self.render_res)
+        return T.pick_reduce(T.BBOX_SIDE * scale, need)
+
+    def _decode(self, imgname, reduce):
+        if reduce > 1:
+            # the header's full-resolution dims; pixels decode reduced
+            return (T.read_img(imgname, reduce=reduce),
+                    T.image_dims(imgname))
         img = T.read_img(imgname)
         return img, np.array(img.shape[:2], np.float32)
 
-    def _crops(self, imgname, center, scale, rot, want_disp):
+    def _plans(self, center, scale, rot, want_disp, reduce):
+        """The native sampler's crop plans: the model crop and, with
+        ``want_disp``, the display crop. The SPIN clamp box applies where
+        the cv2 path is the slice and resize of ``transforms.crop``
+        (rot == 0 at full resolution); reduced or rotated crops are
+        zero-bordered affine warps (``transforms.crop_from_reduced``)."""
+        res = [self.img_res, self.img_res]
+        aff, box = T.crop_affine(center, scale, res, rot)
+        clamp = rot == 0 and reduce == 1
+        plans = [(res, aff, box if clamp else None)]
+        if want_disp:
+            dres = [self.render_res, self.render_res]
+            aff2, box2 = T.crop_affine(center, scale, dres, rot)
+            plans.append((dres, aff2, box2 if clamp else None))
+        return plans
+
+    def _crops(self, index, imgname, center, scale, rot, want_disp):
         """-> (model crop float32 [0, 255] HWC, render_res crop or None,
-        orig_shape (H, W) float32)."""
+        orig_shape (H, W) float32). Path priority: the region cache, the
+        decoded-frame LRU, the fused native ROI decode, cv2; each native
+        step falls back to cv2's per item (non-JPEG bytes, EXIF-rotated
+        or progressive files, decode errors)."""
+        native_ok = self._native_ok()
+
+        if self._region_cache is not None and native_ok:
+            out = self._region_crops(index, imgname, center, scale, rot,
+                                     want_disp)
+            if out is not None:
+                return out
+
+        reduce = self._reduce_for(scale)
+
         if self._frame_cache is not None:
             img, orig_shape = self._frame_cache.get_or_compute(
-                (imgname, 1), lambda: self._decode(imgname))
-        else:
-            img, orig_shape = self._decode(imgname)
-        crop = T.crop(img, center, scale, [self.img_res, self.img_res],
-                      rot=rot)
-        disp = (T.crop(img, center, scale,
-                       [self.render_res, self.render_res], rot=rot)
-                if want_disp else None)
+                (imgname, reduce), lambda: self._decode(imgname, reduce))
+            crop, disp = self._crops_from_frame(
+                img, center, scale, rot, want_disp, reduce, native_ok)
+            return crop, disp, orig_shape
+
+        if native_ok:
+            out = self._fused_crops(imgname, center, scale, rot, want_disp,
+                                    reduce)
+            if out is not None:
+                return out
+
+        img, orig_shape = self._decode(imgname, reduce)
+        crop, disp = self._crops_from_frame(
+            img, center, scale, rot, want_disp, reduce, native_ok)
         return crop, disp, orig_shape
+
+    def _crops_from_frame(self, img, center, scale, rot, want_disp, reduce,
+                          native_ok):
+        """Crop(s) from a decoded frame: the native sampler with the
+        engine (no full-frame float32 copy), cv2 otherwise."""
+        if native_ok and img.dtype == np.uint8:
+            from spec_tpu_torch import native
+
+            crops = [native.crop_affine_u8(img, aff, res, box=box,
+                                           reduce=reduce)
+                     for res, aff, box in self._plans(
+                         center, scale, rot, want_disp, reduce)]
+        else:
+            crops = [T.crop_from_reduced(
+                img, center, scale, [self.img_res, self.img_res], reduce,
+                rot=rot)]
+            if want_disp:
+                crops.append(T.crop_from_reduced(
+                    img, center, scale, [self.render_res, self.render_res],
+                    reduce, rot=rot))
+        return crops[0], (crops[1] if want_disp else None)
+
+    @staticmethod
+    def _jpeg_probe(data):
+        """(H, W) of a baseline JPEG without EXIF rotation, else None
+        (such files take the cv2 path)."""
+        from spec_tpu_torch import native
+
+        if data.size < 2 or data[0] != 0xFF or data[1] != 0xD8:
+            return None                       # not a JPEG
+        probe = native.jpeg_probe(data)
+        # EXIF-rotated (cv2 applies the rotation) or progressive (the
+        # partial decode rejects it only after a full entropy pass)
+        if probe is None or probe[2] != 1 or probe[3]:
+            return None
+        return probe[0], probe[1]
+
+    def _fused_crops(self, imgname, center, scale, rot, want_disp, reduce):
+        """Decode only the crop's window and sample the crop(s) natively,
+        no frame in Python. None: the caller takes the cv2 path."""
+        try:
+            data = np.fromfile(imgname, np.uint8)
+        except OSError:
+            raise FileNotFoundError(imgname)
+        hw = self._jpeg_probe(data)
+        if hw is None:
+            return None
+        plans = self._plans(center, scale, rot, want_disp, reduce)
+        crops = T.native_jpeg_crops(data, plans, hw, reduce=reduce)
+        if crops is None:
+            return None
+        return crops[0], (crops[1] if want_disp else None), \
+            np.array(hw, np.float32)
+
+    # -- region cache ---------------------------------------------------
+
+    def _region_window(self, index):
+        """The sample's decode window in full-resolution coordinates
+        (u0, v0, u1, v1) and its grid's reduction: it covers every crop
+        the sample can request under the augmentation bounds (the largest
+        scale jitter; random sub-crops stay inside the box; a rotated
+        box's bounding square, side * sqrt(2))."""
+        center = self.center[index]
+        scale = float(self.scale[index])
+        sf = self.aug.scale_factor if self.is_train else 0.0
+        need = self.img_res
+        if not self.is_train and self.emit_disp_img:
+            need = max(need, self.render_res)
+        r = 1
+        if self.fast_decode:
+            # the finest grid any draw needs: the smallest box, after the
+            # scale jitter and a random sub-crop, or a 224 crop would be
+            # upsampled from a too-coarse grid
+            cf = (self.aug.crop_factor
+                  if self.is_train and self.aug.crop_prob > 0 else 0.0)
+            r = T.pick_reduce(
+                T.BBOX_SIDE * max(scale * (1 - sf) * (1 - cf), 1e-3), need)
+        side = T.BBOX_SIDE * scale * (1 + sf)
+        if self.is_train and self.aug.rot_factor > 0:
+            side *= np.sqrt(2.0)
+        half = side / 2.0 + 4.0   # corner truncation and bilinear slack
+        return (float(center[0]) - half, float(center[1]) - half,
+                float(center[0]) + half, float(center[1]) + half), r
+
+    @staticmethod
+    def _clamped_window(u0, v0, u1, v1, r, rh, rw):
+        off = (r - 1) / 2.0
+        x0 = max(0, int(np.floor((u0 - off) / r)) - 2)
+        y0 = max(0, int(np.floor((v0 - off) / r)) - 2)
+        x1 = min(rw, int(np.ceil((u1 - off) / r)) + 3)
+        y1 = min(rh, int(np.ceil((v1 - off) / r)) + 3)
+        return x0, y0, x1, y1
+
+    def _fill_region(self, index, imgname):
+        """Decode the sample's window (natively for a baseline JPEG, by
+        cv2 otherwise) and store it; -> (region, meta) or None."""
+        from spec_tpu_torch import native
+
+        (u0, v0, u1, v1), r = self._region_window(index)
+        try:
+            data = np.fromfile(imgname, np.uint8)
+        except OSError:
+            raise FileNotFoundError(imgname)
+        hw = self._jpeg_probe(data)
+        if hw is not None:
+            H, W = hw
+            x0, y0, x1, y1 = self._clamped_window(
+                u0, v0, u1, v1, r, -(-H // r), -(-W // r))
+            if x1 <= x0 or y1 <= y0:
+                return None                    # the box is off the frame
+            got = native.jpeg_decode_roi(data, x0, y0, x1 - x0, y1 - y0,
+                                         reduce=r)
+            if got is None:
+                return None
+            region = got[0]
+        else:
+            img, dims = self._decode(imgname, r)
+            H, W = int(dims[0]), int(dims[1])
+            x0, y0, x1, y1 = self._clamped_window(
+                u0, v0, u1, v1, r, img.shape[0], img.shape[1])
+            if x1 <= x0 or y1 <= y0 or img.dtype != np.uint8:
+                return None
+            region = np.ascontiguousarray(img[y0:y1, x0:x1])
+        self._region_cache.put(index, region, x0, y0, r, (H, W))
+        return region, {'x0': x0, 'y0': y0, 'reduce': r, 'full_hw': (H, W)}
+
+    @staticmethod
+    def _region_covers(region, meta, plans, r):
+        """Whether the region holds every bilinear tap of every plan. A
+        region filled under smaller augmentation bounds does not; it
+        would zero-pad the crop's borders, so it is refilled instead."""
+        H, W = meta['full_hw']
+        for res, aff, box in plans:
+            win = T.sample_window(aff, box, res, (H, W), r)
+            if win is None:
+                continue    # the crop misses the frame: zeros either way
+            x0, y0, w, h = win
+            if (x0 < meta['x0'] or y0 < meta['y0']
+                    or x0 + w > meta['x0'] + region.shape[1]
+                    or y0 + h > meta['y0'] + region.shape[0]):
+                return False
+        return True
+
+    def _region_crops(self, index, imgname, center, scale, rot,
+                      want_disp):
+        from spec_tpu_torch import native
+
+        got = self._region_cache.get(index)
+        fresh = got is None
+        if fresh:
+            got = self._fill_region(index, imgname)
+        if got is None:
+            return None
+        region, meta = got
+        r = meta['reduce']
+        plans = self._plans(center, scale, rot, want_disp, r)
+        # A region written under older augmentation bounds is stale when
+        # it misses a tap, or when its grid is coarser than the current
+        # bounds need (the crop would be upsampled): refill it.
+        stale_grid = r > self._region_window(index)[1]
+        if stale_grid or not self._region_covers(region, meta, plans, r):
+            if fresh:
+                return None       # the window cannot cover it: cv2 path
+            got = self._fill_region(index, imgname)
+            if got is None:
+                return None
+            region, meta = got
+            r = meta['reduce']
+            plans = self._plans(center, scale, rot, want_disp, r)
+            if not self._region_covers(region, meta, plans, r):
+                return None
+        origin = (meta['x0'], meta['y0'])
+        crops = [native.crop_affine_u8(region, aff, res, box=box, reduce=r,
+                                       origin=origin)
+                 for res, aff, box in plans]
+        return crops[0], (crops[1] if want_disp else None), \
+            np.array(meta['full_hw'], np.float32)
 
     def _rgb(self, out, flip, pn, kp2d):
         """Flip, occluders, motion blur (training), pixel noise, then

@@ -9,9 +9,12 @@ intermediates move. The training augmentations are the reference's:
 rotation, flips of images, keypoints and poses, random sub-crops and
 motion blur.
 
-cv2 and PIL are imported inside the functions that decode or resample
-(the machine with the card has neither). The reduced-scale decode
-(``fast_decode``) is not ported yet (ROADMAP.md §1 item 9).
+The reduced-scale decode of ``fast_decode`` (:func:`read_img` with
+``reduce``, :func:`pick_reduce`, :func:`crop_from_reduced`) and the
+native JPEG region-of-interest path (:func:`sample_window`,
+:func:`native_jpeg_crops` over ``csrc/jpegroi.cpp``) are the
+reference's. cv2 and PIL are imported inside the functions that decode
+or resample (the machine with the card has neither).
 """
 
 from __future__ import annotations
@@ -116,13 +119,30 @@ def crop_affine(center, scale, res, rot=0):
     return aff, box
 
 
-def read_img(path):
+_REDUCED_FLAGS = {}  # filled at the first reduced read: cv2 is optional
+
+
+def read_img(path, reduce: int = 1):
     """RGB uint8 image (cv2 decode, BGR -> RGB). uint8 rather than the
     reference's float: :func:`crop` converts exactly, so crops are the
-    same bits."""
+    same bits.
+
+    ``reduce`` in {1, 2, 4, 8} decodes at 1/reduce scale
+    (``cv2.IMREAD_REDUCED_COLOR_N``: libjpeg's DCT-domain scaling for
+    JPEG; other formats decode full size and are downsampled). The
+    result is ceil(full / reduce) on each side: the ``fast_decode``
+    path."""
     import cv2
 
-    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    if reduce == 1:
+        flag = cv2.IMREAD_COLOR
+    else:
+        if not _REDUCED_FLAGS:
+            _REDUCED_FLAGS.update({2: cv2.IMREAD_REDUCED_COLOR_2,
+                                   4: cv2.IMREAD_REDUCED_COLOR_4,
+                                   8: cv2.IMREAD_REDUCED_COLOR_8})
+        flag = _REDUCED_FLAGS[reduce]
+    img = cv2.imread(path, flag)
     if img is None:
         raise FileNotFoundError(path)
     return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
@@ -143,6 +163,135 @@ def image_dims(path):
     if orientation in (5, 6, 7, 8):
         w, h = h, w
     return np.array([h, w], np.float32)
+
+
+def pick_reduce(box_px: float, out_res: int, margin: float = 1.15,
+                max_reduce: int = 8) -> int:
+    """The largest decode reduction in {1, 2, 4, 8} that keeps the crop
+    a downsample: box_px / reduce >= margin * out_res (the margin absorbs
+    the decoder's ceil rounding and the SPIN corners' truncation, so the
+    final bilinear resize never upsamples)."""
+    r = 1
+    while r * 2 <= max_reduce and box_px / (r * 2) >= margin * out_res:
+        r *= 2
+    return r
+
+
+def crop_from_reduced(img, center, scale, res, reduce: int, rot=0):
+    """SPIN crop sampled from a 1/reduce-decoded image, ``center`` and
+    ``scale`` in full-resolution coordinates. Reduced pixel i covers full
+    columns [i * r, (i + 1) * r), its center at i * r + (r - 1) / 2; the
+    full-resolution crop window is mapped into that grid and warped in
+    one pass, so it matches the full-resolution :func:`crop` to a
+    sub-pixel (rescaling (center, scale) by 1/reduce instead would put
+    the corner truncation on the coarser grid). rot == 0 replicates the
+    slice and resize sampling of :func:`crop` (the same truncated
+    corners, cv2.resize's center-aligned map); rot != 0 composes the
+    augmentation's affine with the grid map. ``reduce`` 1 is
+    :func:`crop`."""
+    import cv2
+
+    if reduce == 1:
+        return crop(img, center, scale, res, rot=rot)
+    off = (reduce - 1) / 2.0
+    if rot == 0:
+        ul = transform_point([1, 1], center, scale, res, invert=1) - 1
+        br = transform_point([res[0] + 1, res[1] + 1], center, scale, res,
+                             invert=1) - 1
+        ax = (br[0] - ul[0]) / res[1]
+        ay = (br[1] - ul[1]) / res[0]
+        # dst (jx, jy) -> reduced src ((ax * jx + bx - off) / reduce, ...)
+        M = np.array(
+            [[ax / reduce, 0, (0.5 * ax - 0.5 + ul[0] - off) / reduce],
+             [0, ay / reduce, (0.5 * ay - 0.5 + ul[1] - off) / reduce]],
+            dtype=np.float32)
+        return cv2.warpAffine(
+            img.astype(np.float32), M, (int(res[1]), int(res[0])),
+            flags=cv2.INTER_LINEAR | cv2.WARP_INVERSE_MAP,
+            borderMode=cv2.BORDER_CONSTANT, borderValue=0)
+    grid = np.array([[reduce, 0, off], [0, reduce, off], [0, 0, 1.0]])
+    t = get_transform(center, scale, res, rot=rot) @ grid
+    return cv2.warpAffine(
+        img.astype(np.float32), t[:2, :].astype(np.float32),
+        (int(res[1]), int(res[0])), flags=cv2.INTER_LINEAR,
+        borderMode=cv2.BORDER_CONSTANT, borderValue=0)
+
+
+def sample_window(aff, box, res, frame_hw, reduce: int = 1,
+                  margin: int = 2):
+    """The smallest window of the 1/reduce grid holding every bilinear
+    tap of the crop ``(aff, box)``: what the native ROI decode reads.
+    Returns ``(x0, y0, w, h)`` clamped to the scaled frame, or None when
+    the crop lies entirely outside the frame (the crop is all zeros)."""
+    if box is not None:
+        u0, v0, u1, v1 = (float(b) for b in box)
+    else:
+        res_h, res_w = int(res[0]), int(res[1])
+        cs = np.array([[0, res_w - 1, 0, res_w - 1],
+                       [0, 0, res_h - 1, res_h - 1],
+                       [1, 1, 1, 1]], np.float64)
+        uv = np.asarray(aff, np.float64) @ cs
+        u0, u1 = uv[0].min(), uv[0].max()
+        v0, v1 = uv[1].min(), uv[1].max()
+    off = (reduce - 1) / 2.0
+    x0 = int(np.floor((u0 - off) / reduce)) - margin
+    x1 = int(np.ceil((u1 - off) / reduce)) + margin + 1
+    y0 = int(np.floor((v0 - off) / reduce)) - margin
+    y1 = int(np.ceil((v1 - off) / reduce)) + margin + 1
+    rh = int(np.ceil(frame_hw[0] / reduce))
+    rw = int(np.ceil(frame_hw[1] / reduce))
+    x0, y0 = max(0, x0), max(0, y0)
+    x1, y1 = min(rw, x1), min(rh, y1)
+    if x1 <= x0 or y1 <= y0:
+        return None
+    return x0, y0, x1 - x0, y1 - y0
+
+
+def native_jpeg_crops(data, plans, frame_hw, reduce: int = 1):
+    """The fused native JPEG ROI decode and SPIN crop(s) of one frame
+    (``csrc/jpegroi.cpp``; the caller has checked that the engine
+    built). ``plans``: a list of ``(res, aff, box)``
+    (:func:`crop_affine`). One plan decodes and samples in one native
+    call; several (the eval path's display crop) decode the union window
+    once and sample each crop from it. Crops whose window misses the
+    frame are zeros (:func:`crop`'s zero padding). Returns a list of
+    float32 ``(res_h, res_w, 3)`` crops in [0, 255], or None when the
+    decode fails (the caller takes the cv2 path)."""
+    from spec_tpu_torch import native
+
+    wins = [sample_window(aff, box, res, frame_hw, reduce)
+            for res, aff, box in plans]
+    crops = [None] * len(plans)
+    live = [i for i, w in enumerate(wins) if w is not None]
+    for i, w in enumerate(wins):
+        if w is None:
+            res = plans[i][0]
+            crops[i] = np.zeros((int(res[0]), int(res[1]), 3), np.float32)
+    if not live:
+        return crops
+    if len(live) == 1:
+        i = live[0]
+        res, aff, box = plans[i]
+        out = native.jpeg_roi_crop(data, wins[i], aff, res, box=box,
+                                   reduce=reduce)
+        if out is None:
+            return None
+        crops[i] = out
+        return crops
+    x0 = min(wins[i][0] for i in live)
+    y0 = min(wins[i][1] for i in live)
+    x1 = max(wins[i][0] + wins[i][2] for i in live)
+    y1 = max(wins[i][1] + wins[i][3] for i in live)
+    got = native.jpeg_decode_roi(data, x0, y0, x1 - x0, y1 - y0,
+                                 reduce=reduce)
+    if got is None:
+        return None
+    strip, _ = got
+    for i in live:
+        res, aff, box = plans[i]
+        crops[i] = native.crop_affine_u8(strip, aff, res, box=box,
+                                         reduce=reduce, origin=(x0, y0))
+    return crops
 
 
 def flip_img(img):

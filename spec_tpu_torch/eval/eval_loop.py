@@ -15,9 +15,13 @@ so a graph cannot capture it, and the Procrustes alignments of PA-MPJPE
 run eagerly after each replay (:func:`_procrustes_tail`). That split is
 the design, not a fallback: a capture that fails raises.
 
-Not ported yet: ``save_images`` (the mesh renderer, ROADMAP.md §1 item
-10, the next slice) and ``mesh=`` (data-parallel eval, item 12) raise
-``NotImplementedError``.
+``save_images`` renders the first sample of every ``save_freq``-th batch
+(input | overlay | side view, ``utils/renderer.render_image_group`` on
+the host) to ``<logdir>/val_images/<dataset>_b<idx>.jpg``, with the
+camera the metrics used. The in-the-wild sets (mpii, coco) have no 3D
+GT: their pass is qualitative, its errors zero, and it needs
+``save_images``. Not ported yet: ``mesh=`` (data-parallel eval, ROADMAP.md
+§1 item 12) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -170,18 +174,16 @@ def evaluate_dataset(
     ``variables``: a state_dict loaded into ``model`` once before the
     pass (one upload), or None for the model's own weights.
     ``use_gt_cam``: the GT camera (``cam_rotmat``, ``cam_int``) or
-    CamCalib's (``pred_cam_rotmat``, ``pred_cam_int``)."""
+    CamCalib's (``pred_cam_rotmat``, ``pred_cam_int``). ``save_images``
+    with ``logdir``: render the first sample of every ``save_freq``-th
+    batch to ``val_images/`` (:func:`render_val_group`)."""
     protocol = 'j17' if dataset_name == 'mpi-inf-3dhp' else 'j14'
-    if dataset_name in ('mpii', 'coco') and not save_images:
+    qualitative = dataset_name in ('mpii', 'coco')
+    if qualitative and not save_images:
         raise SystemExit(
             f'{dataset_name} is an in-the-wild dataset (no 3D GT): set '
             'TESTING.SAVE_IMAGES True — its evaluation is qualitative '
             'only (reference spec/trainer.py:262-269)')
-    if save_images:
-        raise NotImplementedError(
-            'evaluate_dataset(save_images=True) needs the mesh renderer, '
-            'which is not ported yet (ROADMAP.md §1 item 10, the next '
-            'slice)')
     if mesh is not None:
         raise NotImplementedError(
             'evaluate_dataset(mesh=...): data-parallel eval is not ported '
@@ -208,14 +210,30 @@ def evaluate_dataset(
                 else ('pred_cam_rotmat', 'pred_cam_int'))
     keys = BATCH_KEYS[:-2] + cam_keys
     with torch.inference_mode():
-        for batch in device_prefetch(loader, device, tensor_keys=keys):
+        for batch_idx, batch in enumerate(
+                device_prefetch(loader, device, tensor_keys=keys)):
             dev = {k: batch[k] for k in BATCH_KEYS[:-2]}
             dev['cam_rotmat'] = batch[cam_keys[0]]
             dev['cam_intrinsics'] = batch[cam_keys[1]]
             out, j14, j24, v2v = step(dev)
+            if qualitative:
+                # no 3D GT: zero errors; the pass exists for its renders
+                B = len(batch['imgname'])
+                j14 = {k: np.zeros((B, 14)) for k in ('per_joint_mpjpe',
+                                                      'per_joint_pa')}
+                j24 = {k: np.zeros((B, 24)) for k in ('per_joint_mpjpe',
+                                                      'per_joint_pa')}
+                v2v = np.zeros((B,))
             acc.add_batch(batch['imgname'], batch['dataset_name'], j14, j24,
                           v2v, pred=out,
                           valid_count=batch.get('_valid_count'))
+            if save_images and logdir and batch_idx % save_freq == 0:
+                vis_dir = os.path.join(logdir, 'val_images')
+                os.makedirs(vis_dir, exist_ok=True)
+                render_val_group(
+                    batch, out, assets_by_gender['neutral'], cam_keys,
+                    save_filename=os.path.join(
+                        vis_dir, f'{dataset_name}_b{batch_idx:05d}.jpg'))
 
     summary = acc.summary()
     if logdir:
@@ -227,3 +245,38 @@ def evaluate_dataset(
                 acc.results_dict(),
                 os.path.join(logdir, f'evaluation_results_{dataset_name}.pkl'))
     return summary, acc
+
+
+def _host(x) -> np.ndarray:
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    if x.dtype in (torch.bfloat16, torch.float16):
+        x = x.float()
+    return x.cpu().numpy()
+
+
+def render_val_group(batch, out, assets, cam_keys, save_filename=None):
+    """Input | overlay | 270-degree side view of the batch's first sample
+    (float32 [0, 1], (res, 3 * res, 3)), rendered with the camera of the
+    metrics pass (``cam_keys``: the GT's or CamCalib's rotation and
+    intrinsics) over ``disp_img`` when the batch has it, else ``img``;
+    written as a JPEG to ``save_filename`` when given (cv2). The
+    full-image intrinsics are mapped through the SPIN crop, since the
+    rendered image is the box-centred crop (``crop_intrinsics``)."""
+    from spec_tpu_torch.utils.renderer import (
+        crop_intrinsics,
+        render_image_group,
+    )
+
+    img = _host(batch['disp_img'][0] if 'disp_img' in batch
+                else batch['img'][0])
+    focal, ctr = crop_intrinsics(
+        _host(batch[cam_keys[1]][0]), _host(batch['center'][0]),
+        _host(batch['scale'][0]), img.shape[0])
+    return render_image_group(
+        img,
+        camera_translation=_host(out['pred_cam_t'][0]),
+        vertices=_host(out['smpl_vertices'][0]),
+        camera_rotation=_host(batch[cam_keys[0]][0]),
+        focal_length=focal, camera_center=ctr,
+        faces=_host(assets.faces), save_filename=save_filename)

@@ -34,6 +34,7 @@ from spec_tpu_torch.losses import (
 )
 from spec_tpu_torch.ops.preprocess import device_jitter_normalize
 from spec_tpu_torch.train.state import TrainState
+from spec_tpu_torch.utils import profiling
 from spec_tpu_torch.utils.graphs import StageGraph
 from spec_tpu_torch.utils.precision import fp32_precision
 
@@ -88,6 +89,10 @@ class TrainStep:
         names = self.keys(batch)
         metrics = body(*[batch[k] for k in names], update=update,
                        generator=generator, names=names)
+        if profiling.NAN_GUARD and body is not self.graphs:
+            # (a StageGraph checks its own outputs)
+            profiling.check_finite(f'train step {self.graphs.name!r}',
+                                   metrics)
         opt.host_mini = 0 if update else opt.host_mini + 1
         state.step += 1
         return state, metrics

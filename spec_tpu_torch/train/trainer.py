@@ -6,7 +6,9 @@ teacher-force schedules live in ``make_train_dataset``) -> train steps
 on the device (``train/steps.py``; one CUDA graph replay each on a card)
 -> validation through ``eval/eval_loop.evaluate_dataset`` ->
 checkpoints ranked by ``val_mpjpe`` (top-k) -> TensorBoard scalars,
-when ``torch.utils.tensorboard`` imports.
+when ``torch.utils.tensorboard`` imports, and every
+``LOG_FREQ_TB_IMAGES`` steps a grid of meshes rendered over the batch's
+first crops (:meth:`SpecTrainer._train_image_summary`).
 
 NaN guard: the step's losses are read on the host every
 ``LOG_SAVE_INTERVAL`` steps and training stops on a non-finite loss.
@@ -20,10 +22,8 @@ in as supervision where the acceptance rule takes it. TRAINING.REMAT is
 the model's (``HMR(remat=True)``, which ``cli/spec_train`` builds from
 it).
 
-Not ported yet, each raising ``NotImplementedError``: TensorBoard image
-grids (``LOG_FREQ_TB_IMAGES > 0`` with a writer: the renderer, ROADMAP.md
-§1 item 10, the next slice), TRAINING.FSDP (item 12). One process drives
-one device.
+Not ported yet, raising ``NotImplementedError``: TRAINING.FSDP
+(ROADMAP.md §1 item 12). One process drives one device.
 """
 
 from __future__ import annotations
@@ -119,12 +119,6 @@ class SpecTrainer:
             except ImportError:
                 SummaryWriter = None
             if SummaryWriter is not None:
-                if cfg.LOG_FREQ_TB_IMAGES > 0:
-                    raise NotImplementedError(
-                        'TensorBoard image grids (LOG_FREQ_TB_IMAGES > 0) '
-                        'need the mesh renderer, which is not ported yet '
-                        '(ROADMAP.md §1 item 10, the next slice): set '
-                        'LOG_FREQ_TB_IMAGES 0')
                 self.writer = SummaryWriter(
                     os.path.join(cfg.LOGDIR, 'tb_logs'),
                     max_queue=100_000, flush_secs=600)
@@ -219,6 +213,64 @@ class SpecTrainer:
         dev['img'] = (dev['img'] - mean) / std
         return dev
 
+    def _fused_neutral(self):
+        """The neutral SMPL on the device with K1's operands attached
+        (SMPLify's and the image summary's model forward)."""
+        if self._fit_assets is None:
+            self._fit_assets = S.fused_on(self.assets['neutral'],
+                                          self.device)
+        return self._fit_assets
+
+    def _train_image_summary(self, batch, global_step: int,
+                             max_samples: int = 4):
+        """A TensorBoard grid of the model's meshes on the batch's first
+        ``max_samples`` crops: one row per sample, [crop | overlay | 90,
+        180 and 270-degree side views] (``utils/renderer.render_tb_grid``
+        on the host), written as ``train/mesh_grid``. The forward runs in
+        eval mode without grad, through K1. The crop is the box-centred
+        SPIN crop, so the full-image intrinsics are mapped through it
+        (``crop_intrinsics``). A failure is printed and training goes
+        on."""
+        from spec_tpu_torch.utils.renderer import (
+            crop_intrinsics,
+            render_tb_grid,
+        )
+
+        try:
+            n = min(max_samples, len(batch['img']))
+            img = np.asarray(batch['img'][:n], np.float32)
+            cols = {k: torch.as_tensor(np.asarray(batch[k][:n], np.float32),
+                                       device=self.device)
+                    for k in ('cam_rotmat', 'cam_int', 'scale', 'center',
+                              'orig_shape')}
+            mean = device_constant(C.IMG_NORM_MEAN, self.device)
+            std = device_constant(C.IMG_NORM_STD, self.device)
+            x = (torch.as_tensor(img, device=self.device) - mean) / std
+            self.model.eval()
+            try:
+                with torch.no_grad():
+                    out = self.model(
+                        self._fused_neutral(), x, cols['cam_rotmat'],
+                        cols['cam_int'], cols['scale'], cols['center'],
+                        cols['orig_shape'][:, 1], cols['orig_shape'][:, 0])
+                    verts = out['smpl_vertices'].float().cpu().numpy()
+                    cam_t = out['pred_cam_t'].float().cpu().numpy()
+            finally:
+                self.model.train()
+            focal, ctr = crop_intrinsics(batch['cam_int'][:n],
+                                         batch['center'][:n],
+                                         batch['scale'][:n], img.shape[1])
+            grid = render_tb_grid(
+                img, vertices=verts, camera_translation=cam_t,
+                camera_rotation=np.asarray(batch['cam_rotmat'][:n]),
+                focal_length=focal, camera_center=ctr,
+                faces=self.assets['neutral'].faces.cpu().numpy(),
+                max_samples=n)
+            self.writer.add_image('train/mesh_grid', grid.transpose(2, 0, 1),
+                                  global_step)
+        except Exception as e:  # noqa: BLE001 -- printed, training goes on
+            print(f'[train] image summary skipped: {type(e).__name__}: {e}')
+
     def _run_smplify(self, dev: dict) -> dict:
         """In-loop fitting (TRAINING.RUN_SMPLIFY): predict SMPL with the
         current model in eval mode (a StageGraph), fit it to the
@@ -232,10 +284,8 @@ class SpecTrainer:
             smplify_fit,
         )
 
-        if self._fit_assets is None:
-            self._fit_assets = S.fused_on(self.assets['neutral'],
-                                          self.device)
-            assets = self._fit_assets
+        if self._predict is None:
+            assets = self._fused_neutral()
 
             def predict(img, rotmat, K, scale, center, w, h):
                 out = self.model(assets, img, rotmat, K, scale, center, w,
@@ -352,6 +402,9 @@ class SpecTrainer:
                         for k, v in values.items():
                             self.writer.add_scalar(f'train/{k}', v,
                                                    global_step)
+                if (self.writer and cfg.LOG_FREQ_TB_IMAGES > 0
+                        and global_step % cfg.LOG_FREQ_TB_IMAGES == 0):
+                    self._train_image_summary(batch, global_step)
 
             val_every = max(int(cfg.TRAINING.CHECK_VAL_EVERY_N_EPOCH), 1)
             if (epoch + 1) % val_every == 0:

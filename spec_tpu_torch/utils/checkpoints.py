@@ -459,7 +459,7 @@ def _step_dir(directory: str, step: Optional[int]) -> str:
         if not os.path.isdir(path):
             raise FileNotFoundError(f'no checkpoint of step {step} in '
                                     f'{directory}')
-        raise NotImplementedError(
+        raise ValueError(
             f'{path} is not a spec_tpu_torch checkpoint (no {MODEL_FILE}): '
             'a JAX package (orbax) checkpoint directory cannot be read by '
             'the port; convert its weights with state_dict_from_flax')

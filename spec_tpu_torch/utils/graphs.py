@@ -58,6 +58,8 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from spec_tpu_torch.utils import profiling
+
 MAX_GRAPHS = 8     # signatures kept per stage (jit's cache has no cap)
 _CONSTANTS: dict = {}
 
@@ -137,6 +139,12 @@ class StageGraph:
         return list(self._graphs)
 
     def __call__(self, *args, **fixed):
+        out = self._call(*args, **fixed)
+        if profiling.NAN_GUARD:
+            profiling.check_finite(f'stage {self.name!r}', out)
+        return out
+
+    def _call(self, *args, **fixed):
         if not all(isinstance(a, torch.Tensor) for a in args):
             raise TypeError(f'stage {self.name!r} takes tensors only')
         if not any(a.is_cuda for a in args):

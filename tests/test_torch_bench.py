@@ -62,7 +62,8 @@ def test_arguments_and_defaults_follow_bench_py():
     assert 'rng.rand(480, 640, 3)' in (REPO / 'bench.py').read_text()
 
 
-@pytest.mark.parametrize('bad', [['--iters', '0'], ['--mode', 'input'],
+@pytest.mark.parametrize('bad', [['--iters', '0'],
+                                 ['--mode', 'input', '--input_step', 'pano'],
                                  ['--stage1', 'flax']])
 def test_bad_arguments_exit(bad):
     with pytest.raises(SystemExit):
@@ -178,3 +179,71 @@ def test_without_a_card_it_exits_nonzero_and_names_the_card(monkeypatch,
     out = capsys.readouterr()
     assert out.out == ''
     assert 'no CUDA card' in out.err and '--device cpu' in out.err
+
+
+def test_input_arguments_follow_bench_py():
+    """--mode input's flags and defaults are bench.py's; camcalib_input
+    is input with --input_step camcalib."""
+    ref = _reference_arguments()
+    args = TB.parse_args(['--mode', 'input'])
+    assert 'input' in ref['mode'][1]
+    for name in ('workers', 'fast_decode', 'decode_cache', 'group_by_frame',
+                 'no_native_decode', 'region_cache', 'region_cache_format',
+                 'input_step', 'camcalib_jitter', 'camcalib_split',
+                 'camcalib_secs', 'camcalib_e2e'):
+        assert getattr(args, name) == ref[name][0], name
+    for name, value in (('region_cache_format', 'raw'),
+                        ('camcalib_jitter', 'pil'),
+                        ('camcalib_split', 'val')):
+        assert value in ref[name][1]
+        assert getattr(TB.parse_args(['--mode', 'input', f'--{name}',
+                                      value]), name) == value
+    assert (args.frame_h, args.frame_w, args.batch) == (1080, 1920, 128)
+    cc = TB.parse_args(['--mode', 'camcalib_input'])
+    assert (cc.mode, cc.input_step) == ('input', 'camcalib')
+
+
+INPUT_TINY = {
+    'train native': ['--input_step', 'train'],
+    'eval cv2 fast_decode': ['--input_step', 'eval', '--no_native_decode',
+                             '--fast_decode', '--decode_cache', '4',
+                             '--group_by_frame'],
+    'train region_cache': ['--input_step', 'train', '--region_cache',
+                           '--region_cache_format', 'raw'],
+    'camcalib device e2e': ['--mode', 'camcalib_input', '--camcalib_jitter',
+                            'device', '--camcalib_e2e'],
+    'camcalib pil': ['--mode', 'camcalib_input', '--camcalib_jitter', 'pil'],
+}
+
+
+@pytest.mark.parametrize('case', sorted(INPUT_TINY))
+def test_input_modes_tiny_cpu_run(case, capsys, tmp_path, monkeypatch):
+    # bench.py's sets, cut to six frames or images a tenth of the size
+    monkeypatch.setattr(TB, 'INPUT_FRAMES', 6)
+    monkeypatch.setattr(TB, 'CAMCALIB_IMAGES', 6)
+    monkeypatch.setattr(TB, 'CAMCALIB_SIZES', tuple(
+        (round(w / 10), round(h / 10)) for w, h in TB.CAMCALIB_SIZES))
+    monkeypatch.setattr(TB, 'CAMCALIB_MIN_MAX', (60, 100))
+    argv = ['--mode', 'input', '--frame_h', '96', '--frame_w', '128',
+            '--batch', '2', '--workers', '2',
+            '--backbone', 'resnet18', '--camcalib_secs', '0.2',
+            '--iters', '1', '--device', 'cpu',
+            '--bench_data', str(tmp_path)] + INPUT_TINY[case]
+    assert TB.main(argv) == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result['device'] == 'cpu' and result['card'] is None
+    spread = result['spread']
+    assert spread['min'] <= result['value'] <= spread['max']
+    assert math.isfinite(result['value']) and result['value'] > 0
+    if case.startswith('camcalib'):
+        assert result['unit'] == 'img/s/core' and result['n_images'] == 5
+        if 'e2e' in case:
+            assert result['train_e2e_img_s'] > 0
+        return
+    step = case.split()[0]
+    assert result['unit'] == 'img/s'
+    assert result[f'{step}_e2e_img_s'] > 0
+    assert result['device_step_ceiling_img_s'] > 0
+    assert result['native_decode'] == ('cv2' not in case)
+    if 'region_cache' in case:
+        assert result['region_cache_hits'] > 0

@@ -237,7 +237,7 @@ def test_unported_flags_and_checkpoints_raise(data_root, tmp_path,
     monkeypatch.setenv('SPEC_DATA_ROOT', str(data_root))
     orbax_dir = tmp_path / 'checkpoints'
     (orbax_dir / 'step_00000010').mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match='orbax'):
+    with pytest.raises(ValueError, match='orbax'):
         TEval.main(['--cfg', _cfg(tmp_path), '--log_root',
                     str(tmp_path / 'logs'), '--ckpt', str(orbax_dir),
                     '--device', 'cpu'])

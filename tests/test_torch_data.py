@@ -147,7 +147,10 @@ def test_cam_dataset_items_match_reference(case, tmp_path):
     kw = CASES[case]
     want_ds = JaxCamDataset(annot, img_dir, dataset='3dpw-test-cam',
                             native_decode=False, **kw)
-    got_ds = CamDataset(annot, img_dir, dataset='3dpw-test-cam', **kw)
+    # both on the cv2 path, the reference's parity oracle (the native
+    # engine's items: tests/test_torch_native_loader.py)
+    got_ds = CamDataset(annot, img_dir, dataset='3dpw-test-cam',
+                        native_decode=False, **kw)
     assert len(got_ds) == len(want_ds)
     for name in ('pose', 'betas', 'has_smpl', 'gender', 'scale', 'center'):
         np.testing.assert_array_equal(getattr(got_ds, name),
@@ -163,7 +166,7 @@ def test_use_3d_conf_copies_keypoint_confidences(tmp_path):
     annot, img_dir = _fixture(tmp_path, 'gendered_gt_cam')
     want = JaxCamDataset(annot, img_dir, dataset='coco', native_decode=False,
                          aug=JAug(use_3d_conf=True))[1]
-    got = CamDataset(annot, img_dir, dataset='coco',
+    got = CamDataset(annot, img_dir, dataset='coco', native_decode=False,
                      aug=TAug(use_3d_conf=True))[1]
     _assert_items_equal(got, want)
     assert not np.all(got['pose_conf'] == 1.0)

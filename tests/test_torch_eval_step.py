@@ -3,13 +3,18 @@ CPU: ``make_eval_step`` (neutral and gendered GT with a mixed-gender
 batch; ResNet-18, V = 128, B = 4, fp32, the JAX PRNGKey(0) weights
 carried over by the bridge), ``compute_error`` for 3dpw-test-cam,
 spec-syn and spec-mtp on N = 300 samples (two chunks of 256, the last
-padded), the capturability of both graph bodies, and the options that
-are not ported yet.
+padded), the capturability of both graph bodies, the options that are
+not ported yet, and ``evaluate_dataset(save_images=True)``: the
+``val_images`` JPEG the port writes against the JAX package's (GT and
+CamCalib cameras, the render_res display crop, the qualitative coco
+pass), within ``RENDER_LEVELS``.
 
 Limits: vertices within 1e-5 m (fp32 on both sides; the port's SMPL goes
 through K1's plain version, the JAX step through plain LBS); metrics
 within 0.05 mm (5e-5 m per sample, and on the mm headlines).
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +36,10 @@ from spec_tpu_torch.utils.checkpoints import (
 )
 
 VERTS_M = 1e-5
+# The val_images JPEGs, decoded: the meshes agree within VERTS_M, so a
+# few edge pixels may flip; per 8-bit channel, the mean difference and
+# the share of values more than 16 levels apart (read: identical files).
+RENDER_LEVELS = dict(mean=0.5, far_share=2e-3)
 METRIC_M = 5e-5      # 0.05 mm
 METRIC_MM = 0.05
 V, B, RES = 128, 4, 64
@@ -193,8 +202,10 @@ def test_unported_options_raise_and_name_their_item(models, tmp_path):
     *_, port, tassets, jreg = models
     with pytest.raises(NotImplementedError, match='item 12'):
         TL.make_eval_step(port, tassets, jreg, mesh=object())
-    with pytest.raises(NotImplementedError, match='item 10'):
-        TL.evaluate_dataset(port, None, [], tassets, jreg, save_images=True)
+    # save_images is ported: it renders (test_save_images_matches_jax)
+    summary, _ = TL.evaluate_dataset(port, None, [], tassets, jreg,
+                                     save_images=True)
+    assert np.isnan(summary['val_mpjpe'])
     with pytest.raises(NotImplementedError, match='item 12'):
         TL.evaluate_dataset(port, None, [], tassets, jreg, mesh=object())
     with pytest.raises(SystemExit, match='in-the-wild'):
@@ -203,11 +214,81 @@ def test_unported_options_raise_and_name_their_item(models, tmp_path):
     npz = tmp_path / 'a.npz'
     np.savez(npz, imgname=np.array(['x.png']), scale=np.ones(1, 'f4'),
              center=np.zeros((1, 2), 'f4'))
+    # fast_decode and the region cache are ported
+    # (tests/test_torch_native_loader.py)
     for kw in ({'fast_decode': True}, {'region_cache_dir': str(tmp_path)}):
-        with pytest.raises(NotImplementedError, match='item 9'):
-            CamDataset(str(npz), str(tmp_path), 'x', **kw)
+        ds = CamDataset(str(npz), str(tmp_path), 'x', **kw)
+        assert ds.fast_decode or ds._region_cache is not None
     # training mode and occluders are ported (tests/test_torch_train_data.py)
     assert CamDataset(str(npz), str(tmp_path), 'x', is_train=True,
                       occluders=[]).is_train
     with pytest.raises(NotImplementedError, match='item 12'):
         DataLoader([1, 2], batch_size=2, process_id=1, process_count=2)
+
+
+def _eval_batches(seed, disp):
+    """Two loader batches as ``evaluate_dataset`` takes them (numpy)."""
+    out = []
+    for i in range(2):
+        b = _batch(seed + i)
+        rng = np.random.RandomState(seed + 10 + i)
+        b['cam_int'] = b.pop('cam_intrinsics')
+        b['pred_cam_rotmat'] = np.tile(
+            np.array([[1, 0, 0], [0, 0.995, -0.0998], [0, 0.0998, 0.995]],
+                     'f4'), (B, 1, 1))
+        b['pred_cam_int'] = (b['cam_int'] * np.array(
+            [[1.1], [1.1], [1]], 'f4')).astype('f4')
+        b['imgname'] = [f'im{i}_{k}.jpg' for k in range(B)]
+        b['dataset_name'] = ['x'] * B
+        if disp:
+            b['disp_img'] = rng.rand(B, 96, 96, 3).astype('f4')
+        out.append(b)
+    return out
+
+
+@pytest.mark.parametrize('case', ['gt_cam', 'camcalib_disp', 'coco'])
+def test_save_images_matches_jax(models, tmp_path, tmp_path_factory, case,
+                                 monkeypatch):
+    """``save_images`` writes ``val_images/<dataset>_b<idx>.jpg`` for the
+    first sample of every ``save_freq``-th batch, rendered with the
+    metrics pass's camera: the same files as the JAX package's, within
+    RENDER_LEVELS. The coco pass is qualitative: zero errors."""
+    import cv2
+
+    import spec_tpu.native as JN
+    from spec_tpu.eval.eval_loop import evaluate_dataset as jax_evaluate
+
+    monkeypatch.setattr(JN, '_SO', str(tmp_path_factory.mktemp('jn')
+                                       / '_native.so'))
+    monkeypatch.setattr(JN, '_lib', None)
+    monkeypatch.setattr(JN, '_failed', False)
+    jmodel, variables, jassets, port, tassets, jreg = models
+    name = 'coco' if case == 'coco' else '3dpw-test-cam'
+    use_gt_cam = case == 'gt_cam'
+    batches = _eval_batches(21, disp=case == 'camcalib_disp')
+    kw = dict(use_gt_cam=use_gt_cam, save_results=False, save_images=True,
+              save_freq=1, dataset_name=name)
+    got, _ = TL.evaluate_dataset(port, None, batches, tassets, jreg,
+                                 logdir=str(tmp_path / 'port'), **kw)
+    want, _ = jax_evaluate(jmodel, variables, batches, jassets, jreg,
+                           logdir=str(tmp_path / 'jax'), **kw)
+    files = sorted(os.listdir(tmp_path / 'port' / 'val_images'))
+    assert files == sorted(os.listdir(tmp_path / 'jax' / 'val_images')) \
+        == [f'{name}_b00000.jpg', f'{name}_b00001.jpg']
+    for f in files:
+        a = cv2.imread(str(tmp_path / 'port' / 'val_images' / f))
+        b = cv2.imread(str(tmp_path / 'jax' / 'val_images' / f))
+        res = 96 if case == 'camcalib_disp' else RES
+        assert a.shape == b.shape == (res, 3 * res, 3)
+        d = np.abs(a.astype(int) - b.astype(int))
+        assert d.mean() <= RENDER_LEVELS['mean'], d.mean()
+        assert (d > 16).mean() <= RENDER_LEVELS['far_share']
+        # the overlay and side panels hold a mesh
+        assert (a[:, res:] > 0).any()
+    if case == 'coco':
+        assert got['val_mpjpe'] == want['val_mpjpe'] == 0.0
+    else:
+        for k in want:
+            assert abs(got[k] - want[k]) <= METRIC_MM, (k, got[k], want[k])
+
+

@@ -195,12 +195,14 @@ def test_import_hygiene():
     """The port's serving path, the e2e pipeline, the bench, the CLIs and
     their host helpers, the detector and HRNet, the eval path (metrics,
     eval loop, evaluator, the eval dataset and loader), the training path
-    (the trainers, SMPLify, the pano datasets), the stage graphs and
-    every kernel wrapper
-    import no JAX, flax, PIL, cv2, PyYAML, joblib, matplotlib or triton
-    (none of them exist on the machine with the card) and nothing of the JAX
-    package spec_tpu, and importing them builds no kernel, captures no
-    graph and touches no CUDA device."""
+    (the trainers, SMPLify, the pano datasets), the stage graphs, every
+    kernel wrapper, the host-native bindings, the renderer, profiling and
+    the region cache
+    import no JAX, flax, PIL, cv2, PyYAML, joblib, matplotlib, tensorboard
+    or triton (none of them exist on the machine with the card) and
+    nothing of the JAX package spec_tpu, and importing them builds no
+    kernel or host library, captures no graph and touches no CUDA
+    device."""
     code = (
         'import sys\n'
         'import torch\n'
@@ -226,13 +228,20 @@ def test_import_hygiene():
         'from spec_tpu_torch.ops import bottleneck, cuda_build, lbs, '
         'projection\n'
         'from spec_tpu_torch.utils import graphs\n'
+        'import spec_tpu_torch.utils\n'
+        'from spec_tpu_torch import native\n'
+        'from spec_tpu_torch.utils import profiling, renderer\n'
+        'from spec_tpu_torch.data import region_cache\n'
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'yaml', 'joblib', "
-        "'matplotlib', 'triton') "
+        "'matplotlib', 'triton', 'tensorboard') "
         "or m == 'spec_tpu' or m.startswith('spec_tpu.')]\n"
         'assert not bad, bad\n'
         'assert cuda_build.build_library.cache_info().currsize == 0\n'
         'assert cuda_build.load_library.cache_info().currsize == 0\n'
+        'assert cuda_build.build_host_library.cache_info().currsize == 0\n'
+        'for fn in (native._raster, native._jpeg, native.jpeg_engine):\n'
+        '    assert fn.cache_info().currsize == 0, fn\n'
         'for mod in (bottleneck, lbs, projection):\n'
         '    assert mod._kernel.cache_info().currsize == 0, mod\n'
         '    assert mod.LAUNCHES == 0, mod\n'

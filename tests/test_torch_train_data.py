@@ -124,7 +124,8 @@ def test_train_items_match_reference(train_set, variant):
                             img_res=64, aug=JaxAug(**aug), seed=5,
                             native_decode=False, **kw)
     got_ds = CamDataset(annot, img_dir, dataset, is_train=True, img_res=64,
-                        aug=AugmentationConfig(**aug), seed=5, **kw)
+                        aug=AugmentationConfig(**aug), seed=5,
+                        native_decode=False, **kw)
     for _ in range(3):
         for i in range(N):
             _assert_items_equal(got_ds[i], want_ds[i])
@@ -145,7 +146,8 @@ def test_mixed_dataset_matches_reference(train_set, tmp_path):
 
     want = JaxMixed(members(JaxCamDataset, JaxAug,
                             {'native_decode': False}), [0.3, 0.7], seed=4)
-    got = MixedCamDataset(members(CamDataset, AugmentationConfig, {}),
+    got = MixedCamDataset(members(CamDataset, AugmentationConfig,
+                                  {'native_decode': False}),
                           [0.3, 0.7], seed=4)
     assert len(got) == len(want) == N
     np.testing.assert_array_equal(got.partition, want.partition)
@@ -169,7 +171,7 @@ def test_train_loader_matches_reference(train_set, kw):
     want_ds = JaxCamDataset(annot, img_dir, 'spec-syn', is_train=True,
                             img_res=48, seed=9, native_decode=False)
     got_ds = CamDataset(annot, img_dir, 'spec-syn', is_train=True,
-                        img_res=48, seed=9)
+                        img_res=48, seed=9, native_decode=False)
     want = list(JaxDataLoader(
         want_ds, batch_size=2, num_workers=0,
         group_keys=want_ds.imgname if group else None, **kw))

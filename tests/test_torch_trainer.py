@@ -27,7 +27,9 @@ starting weights (about 4/6) fails; each tensor's within 0.3
 entries with rounding-noise gradients Adam moves by +-lr either way),
 so a missing, halved or reversed update of any tensor fails.
 Separately: ranked pruning with keep = 2, NaN metrics skipped; the NaN
-guard; ``resume`` with ``wo_optimizer``; the fail-fast checks.
+guard; ``resume`` with ``wo_optimizer``; the fail-fast checks; the
+TensorBoard mesh grid (``LOG_FREQ_TB_IMAGES``) against the JAX
+trainer's on one batch (GRID_LEVELS), and written by ``fit``.
 """
 
 import json
@@ -64,6 +66,10 @@ from tests.test_torch_train_data import write_train_set
 VAL_RTOL = 1e-3
 UPDATE_RTOL, TENSOR_UPDATE_RTOL = 1e-3, 0.3
 V, RES, BATCH = 128, 64, 2
+# The mesh grid, [0, 1] floats: the models' vertices agree to ~1e-6 m,
+# so a few edge pixels may flip; mean difference and share of pixels
+# more than 0.05 apart.
+GRID_LEVELS = dict(mean=1e-3, far_share=2e-3)
 
 
 def _cfg(make, logdir, **over):
@@ -339,9 +345,9 @@ def test_resume_without_optimizer_and_fail_fast(world, tmp_path):
     with pytest.raises(ValueError, match='TRAINING.REMAT'):
         _port_trainer(world, _cfg(spec_default_config, tmp_path / 'c',
                                   **{'TRAINING.REMAT': True}))
-    with pytest.raises(NotImplementedError, match='item 10'):
-        _port_trainer(world, _cfg(spec_default_config, tmp_path / 'd',
-                                  LOG_FREQ_TB_IMAGES=500))
+    # TensorBoard image grids are ported (test_tb_image_grid_matches_jax)
+    assert _port_trainer(world, _cfg(spec_default_config, tmp_path / 'd',
+                                     LOG_FREQ_TB_IMAGES=500)).writer
     with pytest.raises(SystemExit, match='in-the-wild'):
         _port_trainer(world, _cfg(spec_default_config, tmp_path / 'e',
                                   **{'DATASET.VAL_DS': 'coco'}))
@@ -463,3 +469,60 @@ def test_preemption_and_profiling_helpers():
                        torch.rand(2, generator=torch.Generator()
                                   .manual_seed(3)))
     assert set_seed(-1).initial_seed() == 0
+
+
+class _Images:
+    """A SummaryWriter stand-in that keeps the images."""
+
+    def __init__(self):
+        self.images = []
+
+    def add_image(self, tag, img, step):
+        self.images.append((tag, np.asarray(img), step))
+
+
+def test_tb_image_grid_matches_jax(world, tmp_path, tmp_path_factory,
+                                   monkeypatch):
+    """``_train_image_summary`` on one loader batch from the same
+    weights: the port's grid against the JAX trainer's (crop-frame
+    intrinsics, 4 samples x [crop | overlay | 3 side views]); then ``fit``
+    with LOG_FREQ_TB_IMAGES = 2 writes ``train/mesh_grid`` to the event
+    file."""
+    import spec_tpu.native as JN
+
+    monkeypatch.setattr(JN, '_SO', str(tmp_path_factory.mktemp('jn')
+                                       / '_native.so'))
+    monkeypatch.setattr(JN, '_lib', None)
+    monkeypatch.setattr(JN, '_failed', False)
+    ds = CamDataset(world['annot'], world['img_dir'], 'spec-syn',
+                    is_train=True, img_res=RES, seed=0)
+    batch = next(iter(DataLoader(ds, batch_size=4)))
+    grids = {}
+    for side, make_cfg, make in (('jax', jax_config, _jax_trainer),
+                                 ('port', spec_default_config,
+                                  _port_trainer)):
+        trainer = make(world, _cfg(make_cfg, tmp_path / side))
+        trainer.writer = _Images()
+        trainer._train_image_summary(batch, 7)
+        (tag, img, step), = trainer.writer.images
+        assert (tag, step) == ('train/mesh_grid', 7)
+        grids[side] = img
+    got, want = grids['port'], grids['jax']
+    assert got.shape == want.shape == (3, 4 * RES, 5 * RES)
+    d = np.abs(got - want)
+    assert d.mean() <= GRID_LEVELS['mean'], d.mean()
+    assert (d > 0.05).any(0).mean() <= GRID_LEVELS['far_share']
+    assert (got[:, :, RES:] != 0).any()          # meshes drawn
+
+    from tensorboard.backend.event_processing.event_accumulator import (
+        EventAccumulator,
+    )
+
+    trainer = _port_trainer(world, _cfg(spec_default_config,
+                                        tmp_path / 'fit',
+                                        LOG_FREQ_TB_IMAGES=2))
+    trainer.fit(max_epochs=1)
+    acc = EventAccumulator(str(tmp_path / 'fit' / 'tb_logs'))
+    acc.Reload()
+    assert 'train/mesh_grid' in acc.Tags()['images']
+    assert [e.step for e in acc.Images('train/mesh_grid')] == [2]
