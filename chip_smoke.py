@@ -180,7 +180,29 @@ printing its own results; any failure raises and exits nonzero:
     K1's kernel; then whether ``g++ -fopenmp`` links here and whether
     ``jpeglib.h`` is found (the JPEG half of the host code is held on
     the CPU by tests/test_torch_native_loader.py);
-21. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
+21. export (``spec_tpu_torch/export.py``): phase 4's full-width predictor
+    in fp32 and bf16, exported with ``torch.export`` on the card and once
+    more on the CPU (the same seeds, so the same weights; the CPU's trace
+    carries K1's op, which runs its plain version there), both artifacts
+    loaded on the card with ``load_predictor`` (stages replaying CUDA
+    graphs) and held to the live predictor on phase 4's four 720x1280
+    frames within phase 8's limits (PREDICT_LIMITS, ANGLE_LIMIT); export
+    and load seconds, artifact MiB, the symbolic ranges torch.export
+    gave, ms per ``predict`` live and loaded (median of 10), K1's
+    launches in one call of each loaded predictor, which must be above
+    0 (the kernels line's ``launches`` is the CPU-exported fp32
+    artifact's);
+22. datagen: ``datagen/spec_synth.render_spec_synth_dataset`` at its
+    CLI's defaults (n = 256, 256x320, f_pix 400) with SMPL on the card
+    (one K1 launch over all 256 samples) and an in-memory frame writer,
+    held to the same call on the CPU: the npz columns within
+    SYNTH_LIMITS (the rest equal), the frames by the share of differing
+    mesh pixels (RENDER_PIXEL_SHARE); ms for SMPL and the projection,
+    ms per rendered frame, K1's launches (``launches_by_path
+    ['spec_synth']``), and whether cv2, joblib and requests import here:
+    where cv2 and joblib do, both Pano360 generators cut PANO_CROPS crops
+    from one panorama (ms per crop);
+23. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then, instead of
 the rest, profiles phase 4's predictor (wall medians per stage, device
@@ -189,7 +211,8 @@ top device operations, fp32 and bf16) and phase 5's pipeline with each
 stage-1 trunk, each replaying its graphs and, for comparison, with its
 eager stage bodies.
 ``python3 chip_smoke.py --render`` runs phases 1-2 and then phase 20
-alone.
+alone; ``python3 chip_smoke.py --export`` runs phases 1-2 and then
+phases 21 and 22.
 ``python3 chip_smoke.py --k3-tiles`` runs phases 1-2 and then times K3
 in fp32 and bf16 at each stage shape with every candidate output tile
 forced, beside the tile the kernel picks.
@@ -3796,6 +3819,231 @@ def phase_render(build_seconds, device='cuda'):
     return launches
 
 
+# Phase 21 (export): phase 4's predictor, exported on the card and on the
+# CPU, each artifact loaded on the card.
+EXPORT_BACKBONE = 'resnet50'
+EXPORT_MIN_SIZE = 600
+EXPORT_TIMING_CALLS = 10
+# Phase 22 (datagen): spec_synth at its CLI's defaults.
+SYNTH = dict(dataset='spec-syn', n=256, seed=0, hw=(256, 320), f_pix=400.0)
+PANO_CROPS = 12     # the generators' crops per panorama
+# card (K1) vs CPU (plain) npz columns: 3D joints in m (K1's budget),
+# 2D joints and bbox centers in px (1e-5 m at 4-5 m depth and f_pix 400
+# is 1e-3 px), bbox scales (max side / 200)
+SYNTH_LIMITS = dict(S=LBS_BUDGET, part=5e-3, openpose=5e-3, center=5e-3,
+                    scale=1e-4)
+
+
+def phase_export(device='cuda'):
+    """Phase 21 (see the module docstring): ``export.export_predictor``
+    on the card and on the CPU, ``load_predictor`` of both artifacts on
+    the card, each held to the live predictor. Returns K1's launches in
+    one ``predict`` of each loaded predictor. ``device='cpu'`` rehearses
+    the logic without a card (shrink FRAME_HW, EXPORT_BACKBONE and
+    EXPORT_MIN_SIZE first): every side then runs on the CPU."""
+    import torch
+
+    from spec_tpu_torch import export as EX
+    from spec_tpu_torch.ops import lbs as L
+    from spec_tpu_torch.serving import SpecPredictor
+
+    card = device == 'cuda'
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    out_dir = ROOT / 'build' / 'spec_tpu_torch' / 'export'
+    out_dir.mkdir(parents=True, exist_ok=True)
+    frames, boxes = _frames_and_boxes(4, PERSONS_PER_FRAME, seed=0)
+    n_persons = sum(len(b) for b in boxes)
+    kw = dict(backbone=EXPORT_BACKBONE, camcalib_backbone=EXPORT_BACKBONE,
+              use_cam_feats=True, img_res=224, min_size=EXPORT_MIN_SIZE,
+              batch_size=BATCH_SIZE)
+
+    def call_ms(pred):
+        times = []
+        for _ in range(EXPORT_TIMING_CALLS):
+            sync()
+            t0 = time.perf_counter()
+            pred.predict(frames, boxes)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    launches = {}
+    for tag, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
+        live = SpecPredictor(device=device, dtype=dtype, **kw)
+        live.predict(frames, boxes)                  # captures
+        want = live.predict(frames, boxes, return_cameras=True)
+        live_ms = call_ms(live)
+        exporters = {'card' if card else 'cpu': live}
+        if card:
+            # the same seeds give the same weights on the CPU
+            exporters['cpu'] = SpecPredictor(device='cpu', dtype=dtype, **kw)
+        for src, exporter in exporters.items():
+            path = out_dir / f'predictor_{tag}_{src}.specx'
+            t0 = time.perf_counter()
+            EX.export_predictor(exporter, str(path))
+            export_s = time.perf_counter() - t0
+            meta = EX.read_meta(str(path))
+            if meta['dtype'] != str(dtype).replace('torch.', ''):
+                raise RuntimeError(f'{tag}: the artifact records dtype '
+                                   f'{meta["dtype"]}')
+            t0 = time.perf_counter()
+            pred = EX.load_predictor(str(path), device=device)
+            sync()
+            load_s = time.perf_counter() - t0
+            pred.predict(frames, boxes)              # captures
+            sync()
+            L.LAUNCHES = 0
+            got = pred.predict(frames, boxes, return_cameras=True)
+            sync()
+            n_k1 = L.LAUNCHES
+            launches[f'{tag} {src}-exported'] = n_k1
+            _check_results(got[0], n_persons)
+            if card and n_k1 < 1:
+                raise RuntimeError(f'the {src}-exported {tag} artifact '
+                                   'launched K1 no time on the card')
+            same, errs, cam = _predict_diff(got, want)
+            limits = PREDICT_LIMITS[tag]
+            loaded_ms = call_ms(pred)
+            print(f'[export {tag} {src}] {EXPORT_BACKBONE} x2: exported on '
+                  f'the {src} in {export_s:.2f} s, '
+                  f'{path.stat().st_size / 2 ** 20:.1f} MiB, ranges '
+                  f'{meta["ranges"]}; loaded on the {device} in '
+                  f'{load_s:.2f} s; predict on 4 frames {FRAME_HW[0]}x'
+                  f'{FRAME_HW[1]}, {n_persons} persons: loaded '
+                  f'{loaded_ms:.2f} ms, live {live_ms:.2f} ms (median of '
+                  f'{EXPORT_TIMING_CALLS}); K1 launches {n_k1} in one call; '
+                  f'vs live: bit-identical {same}, camera angles '
+                  f'{cam:.2e} rad (limit {ANGLE_LIMIT[tag]}), '
+                  + ', '.join(f'{k} {errs[k]:.2e} (limit {lim})'
+                              for k, lim in limits.items()), flush=True)
+            bad = [k for k, lim in limits.items() if not errs[k] <= lim]
+            if cam > ANGLE_LIMIT[tag] or bad:
+                raise RuntimeError(f'the {src}-exported {tag} artifact '
+                                   f'disagrees with the live predictor '
+                                   f'in {bad or "cameras"}')
+            del pred
+        del live, exporters
+        if card:
+            _release()
+    return launches
+
+
+def _pano_crops(root):
+    """Both Pano360 generators over one structured 1024x2048 panorama
+    (PANO_CROPS crops each, one thread): ms per crop on this host."""
+    import cv2
+    import numpy as np
+
+    from spec_tpu_torch.datagen import pano_preprocessing, scalenet
+
+    pano_dir = root / 'panos'
+    pano_dir.mkdir(parents=True, exist_ok=True)
+    yy, xx = np.mgrid[:1024, :2048].astype(np.float32)
+    img = np.stack([xx / 8, yy / 4, 127 + 100 * np.sin(xx / 37)], -1)
+    img += np.random.RandomState(0).randn(1024, 2048, 3) * 10
+    pano = str(pano_dir / 'p0.jpg')
+    cv2.imwrite(pano, np.clip(img, 0, 255).astype(np.uint8))
+    for name, fn in (('pano_preprocessing',
+                      pano_preprocessing.preprocess_calib_data),
+                     ('scalenet', scalenet.generate_calibration_dataset)):
+        t0 = time.perf_counter()
+        splits = fn([pano], str(root / name), crops_per_pano=PANO_CROPS,
+                    seed=0, workers=1)
+        ms = (time.perf_counter() - t0) * 1e3 / PANO_CROPS
+        n = sum(len(v) for v in splits.values())
+        if n != PANO_CROPS:
+            raise RuntimeError(f'{name} wrote {n} of {PANO_CROPS} crops')
+        print(f'[datagen {name}] cv2 and joblib import here: {n} crops of '
+              f'a 1024x2048 panorama, {ms:.2f} ms per crop (host, one '
+              'thread, decode and JPEG writes included)', flush=True)
+
+
+def phase_datagen(device='cuda'):
+    """Phase 22 (see the module docstring): ``render_spec_synth_dataset``
+    at its CLI's defaults with SMPL on the card and frames kept in
+    memory, held to the same call on the CPU. Returns K1's launches in
+    the card's call. ``device='cpu'`` rehearses the logic without a card
+    (shrink SYNTH first)."""
+    import numpy as np
+    import torch
+
+    from spec_tpu_torch.datagen import spec_synth
+    from spec_tpu_torch.ops import lbs as L
+
+    card = device == 'cuda'
+    root = ROOT / 'build' / 'spec_tpu_torch' / 'datagen'
+    frames, npz, timings = {}, {}, {}
+
+    def run(tag, dev):
+        frames[tag] = {}
+        timings[tag] = {}
+        npz[tag] = dict(np.load(spec_synth.render_spec_synth_dataset(
+            str(root / tag), device=dev, timings=timings[tag],
+            writer=lambda img, path, q: frames[tag].update(
+                {os.path.basename(path): img}), **SYNTH)))
+
+    run('warm-up', device)                 # loads the libraries
+    L.LAUNCHES = 0
+    run(device, device)
+    launches = L.LAUNCHES
+    if card and launches < 1:
+        raise RuntimeError('spec_synth launched K1 no time on the card')
+    run('cpu ref', 'cpu')
+    n = SYNTH['n']
+    got, want = npz[device], npz['cpu ref']
+    errs = {}
+    for k in want:
+        if k in SYNTH_LIMITS:
+            errs[k] = float(np.abs(got[k] - want[k]).max())
+        elif not np.array_equal(got[k], want[k]):
+            raise RuntimeError(f'spec_synth column {k} differs between '
+                               f'the {device} and the CPU')
+    worst = 0.0
+    for name, w in frames['cpu ref'].items():
+        g = frames[device][name]
+        # the textured ground is gray (equal channels), the shaded mesh
+        # is not
+        mesh = (g[..., 0] != g[..., 1]) | (w[..., 0] != w[..., 1])
+        diff = (g != w).any(-1)
+        worst = max(worst, float(diff.sum()) / max(int(mesh.sum()), 1))
+    t = timings[device]
+    print(f'[datagen spec_synth] n = {n}, {SYNTH["hw"][0]}x'
+          f'{SYNTH["hw"][1]}, f_pix {SYNTH["f_pix"]}, SMPL on the {device}: '
+          f'K1 launches {launches} (one batch of {n}); SMPL and '
+          f'projection {t["smpl_s"] * 1e3:.2f} ms; render '
+          f'{t["render_s"] * 1e3 / n:.3f} ms per frame (host, raster.cpp, '
+          f'in-memory writer); vs the CPU: '
+          + ', '.join(f'{k} {errs[k]:.2e} (limit {SYNTH_LIMITS[k]})'
+                      for k in SYNTH_LIMITS)
+          + f'; frames differ in at most {worst:.2e} of their mesh '
+          f'pixels (limit {RENDER_PIXEL_SHARE:.0e})', flush=True)
+    bad = [k for k in SYNTH_LIMITS if not errs[k] <= SYNTH_LIMITS[k]]
+    if bad or worst > RENDER_PIXEL_SHARE:
+        raise RuntimeError(f'spec_synth on the {device} and the CPU '
+                           f'disagree: {bad or "frames"}')
+    missing = []
+    for mod in ('cv2', 'joblib'):
+        try:
+            __import__(mod)
+        except ImportError:
+            missing.append(mod)
+    if missing:
+        print(f'[datagen] not importable here: {", ".join(missing)}; the '
+              'Pano360 crop generators (pano_preprocessing, scalenet: '
+              'cv2.remap, joblib split lists) cannot run on this machine; '
+              'spec_synth wrote its frames in memory above', flush=True)
+    else:
+        _pano_crops(root)
+    try:
+        import requests  # noqa: F401
+        print('[datagen] requests imports here (the Flickr downloader '
+              'needs it and a network)', flush=True)
+    except ImportError:
+        print('[datagen] requests does not import here: the Flickr '
+              'downloader cannot run', flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3829,6 +4077,10 @@ def main() -> int:
     if '--render' in sys.argv[1:]:
         print(json.dumps(phase_render(build_seconds)))
         return 0
+    if '--export' in sys.argv[1:]:
+        print(json.dumps({**phase_export(),
+                          'spec_synth': phase_datagen()}))
+        return 0
     from spec_tpu_torch.utils.batching import pad_pow2
 
     k3_rows = phase_bottleneck()
@@ -3844,7 +4096,7 @@ def main() -> int:
     pipe_batch = pipe['bf16']['fused']['outs'][0].shape[0]
     lbs_rows = phase_lbs(sorted(set(LBS_BATCHES)
                                 | {main_batch, pipe_batch, TRAIN_BATCH,
-                                   det['batch']}))
+                                   det['batch'], SYNTH['n']}))
     verts, _, cam_t, vfov, pitch, roll = pipe['fp32']['fused']['outs']
     k2 = phase_projection(_projection_operands(verts, cam_t, vfov, pitch,
                                                roll))
@@ -3860,6 +4112,8 @@ def main() -> int:
     smplify = phase_smplify()
     phase_remat()
     render = phase_render(build_seconds)
+    exported = phase_export()
+    synth_launches = phase_datagen()
 
     row = lbs_rows[main_batch]         # K1's batch on this slice's path
 
@@ -3889,12 +4143,20 @@ def main() -> int:
         'route': 'cuda',
         'source': 'spec_tpu_torch/csrc/lbs.cu',
         'replaces': 'spec_tpu/ops/pallas/lbs.py:97',
-        # this slice's path: one predict call at phase 4's input (bf16)
-        # whose meshes render_mesh_overlay draws; the times below are
-        # phase 6's at that path's stage-2 batch
-        'launches': render['render demo overlay'],
+        # this slice's path: one predict call at phase 4's input (fp32)
+        # of the artifact exported on the CPU and loaded on the card;
+        # the times below are phase 6's at that path's stage-2 batch
+        'launches': exported['fp32 cpu-exported'],
         'batch': main_batch,
         'launches_by_path': {**render,
+                             # this slice's paths: one predict of the
+                             # artifact exported on the CPU, loaded on
+                             # the card (fp32), and spec_synth
+                             'exported predict':
+                                 exported['fp32 cpu-exported'],
+                             **{f'exported predict ({k})': v
+                                for k, v in exported.items()},
+                             'spec_synth': synth_launches,
                              'detector predict': det['launches'],
                              'hrnet predict': hrnet['predict_launches'],
                              'hrnet train': hrnet['train_launches'],
@@ -3915,6 +4177,9 @@ def main() -> int:
         'backward_ms': smplify['k1_bwd_ms'],
         'backward_bound_ms': _bound(*_k1_backward_work(TRAIN_BATCH),
                                     PEAK_FLOPS['fp32'])[0],
+        # phase 6's kernel time at the batch each listed path gives K1
+        'ms_by_path': {'exported predict': row['ms'],
+                       'spec_synth': lbs_rows[SYNTH['n']]['ms']},
         'library_ms': None,        # no single PyTorch call computes it
     }, k3_entry('bf16'), k3_entry('fp32'), {
         'name': 'project_points',

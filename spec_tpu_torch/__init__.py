@@ -16,13 +16,16 @@ the JAX package have CUDA counterparts: ``ops/lbs.py``,
 ``ops/bottleneck.py`` and ``ops/projection.py``. The command-line entry
 points ``python -m spec_tpu_torch.cli.serve`` (the HTTP server),
 ``camcalib_demo`` and ``spec_demo`` (folder, video and webcam) run on
-the card unless ``--device cpu`` is given.
+the card unless ``--device cpu`` is given. :mod:`spec_tpu_torch.export`
+writes and loads ``.specx`` deployment artifacts (``torch.export``
+programs; ``cli.export_model``, ``cli.serve --exported``), and
+``datagen/`` generates the offline datasets.
 
 The package imports ``torch`` and ``numpy`` only and nothing of
 ``spec_tpu``: the joint and normalization tables it needs are its own
 copy in ``core/constants.py``. scipy (a chumpy SMPL pickle, the SORT
-tracker), PIL, cv2, joblib, PyYAML and matplotlib are imported only
-inside the functions that read or write images, pickles and yamls.
+tracker, a written SMPL pickle), PIL, cv2, joblib, PyYAML, matplotlib
+and requests are imported only inside the functions that need them.
 CUDA kernels under ``csrc/`` are built with ``nvcc`` on first use; the
 bottleneck kernel's bf16 variant runs its products on the tensor cores.
 """

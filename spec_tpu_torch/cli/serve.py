@@ -40,7 +40,9 @@ Protocol (numpy .npz over POST):
                  pred_cam) plus f{frame}_camera = [vfov, pitch, roll,
                  f_pix] and f{frame}_n_persons.
 
-Run: ``python -m spec_tpu_torch.cli.serve --port 8080 [--device cpu]``.
+Run: ``python -m spec_tpu_torch.cli.serve --port 8080 [--device cpu]``,
+or ``... --exported model.specx`` to serve an artifact of
+``spec_tpu_torch.cli.export_model``.
 
 Example client:
     buf = io.BytesIO()
@@ -507,6 +509,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help='official darknet yolov3.weights path')
     parser.add_argument('--yolo_img_size', type=int, default=416,
                         help='detector letterbox size (multiple of 32)')
+    parser.add_argument('--exported', type=str, default='',
+                        help='serve from a .specx artifact (export_model; '
+                             'ignores the ckpt, cfg, SMPL, min_size and '
+                             'detector flags: the artifact is the model)')
     add_device_flag(parser)
     g = parser.add_argument_group(
         'reference flags not ported yet (each raises NotImplementedError)')
@@ -514,23 +520,30 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help='ROADMAP.md §1 item 12')
     g.add_argument('--spatial_parallel', action='store_true',
                    help='ROADMAP.md §1 item 12')
-    g.add_argument('--exported', type=str, default='',
-                   help='.specx artifacts: ROADMAP.md §1 item 11')
     return parser.parse_args(argv)
 
 
 def _unported(args) -> None:
-    for flag, item in (('data_parallel', 12), ('spatial_parallel', 12),
-                       ('exported', 11)):
+    for flag in ('data_parallel', 'spatial_parallel'):
         if getattr(args, flag):
             raise NotImplementedError(
-                f'--{flag} is not ported yet (ROADMAP.md §1 item {item})')
+                f'--{flag} is not ported yet (ROADMAP.md §1 item 12)')
 
 
 def build_predictor(args, device):
-    """The predictor ``main`` serves, from parsed flags."""
+    """The predictor ``main`` serves, from parsed flags: the artifact of
+    ``--exported``, or a live predictor."""
     from spec_tpu_torch.serving import SpecPredictor
 
+    if args.exported:
+        from spec_tpu_torch.export import load_predictor
+
+        pred = load_predictor(args.exported, batch_size=args.batch_size,
+                              device=device)
+        # Stream amortization is a serving knob, not part of the model.
+        pred.camcalib_every = max(1, args.camcalib_every)
+        pred.cut_threshold = args.cut_threshold
+        return pred
     return SpecPredictor(
         spec_ckpt=args.spec_ckpt, camcalib_ckpt=args.camcalib_ckpt,
         smpl_model_dir=args.smpl_model_dir, cfg_file=args.cfg,

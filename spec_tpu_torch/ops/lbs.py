@@ -15,11 +15,14 @@ Then per call ``posed_c = coeffs @ dirs[c]`` with ``coeffs = [betas |
 transform rows ``t_k = A_k @ weights_t``, and ``out_i = t_{i0} px +
 t_{i1} py + t_{i2} pz + t_{i3}``, all in exact fp32.
 
-:func:`fused_lbs_vertices` launches the kernel for CUDA tensors and runs
+:func:`fused_lbs_vertices` runs the custom op ``spec_tpu_torch::fused_lbs``
+(:func:`fused_lbs`), which launches the kernel for CUDA tensors and runs
 :func:`fused_lbs_vertices_plain` for CPU tensors; nothing falls back from
-one to the other. Both are differentiable: the kernel's backward is the
-reference's closed form (:func:`fused_lbs_backward`). ``LAUNCHES``
-counts kernel launches.
+one to the other. The op has a fake implementation, so ``torch.export``
+carries it into a program as one node, and the program runs the kernel or
+the plain version by the device it is loaded on. Its backward, on both
+devices, is the reference's closed form (:func:`fused_lbs_backward`).
+``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -133,10 +136,8 @@ def _check_operands(packed: PackedLBSOperands, coeffs: torch.Tensor,
     if Vp % 4:
         raise ValueError(f'fused_lbs_vertices: dirs rows must hold a '
                          f'multiple of 4 vertices, got Vp = {Vp}')
-    for name in ('dirs', 'rel_tf'):
-        if named[name].data_ptr() % 16:
-            raise ValueError(f'fused_lbs_vertices: {name} must start on a '
-                             '16-byte boundary')
+    if not torch.compiler.is_exporting():   # fake tensors have no data
+        _check_aligned(packed.dirs, rel_tf)
     if tuple(packed.weights_t.shape) != (NUM_JOINTS, Vp):
         raise ValueError(f'fused_lbs_vertices: weights_t must be '
                          f'({NUM_JOINTS}, {Vp}), got '
@@ -154,15 +155,28 @@ def _check_operands(packed: PackedLBSOperands, coeffs: torch.Tensor,
                          f'{tuple(rel_tf.shape)}')
 
 
+def _check_aligned(dirs: torch.Tensor, rel_tf: torch.Tensor) -> None:
+    """The kernel copies dirs rows and rel_tf in 16-byte vectors."""
+    for name, t in (('dirs', dirs), ('rel_tf', rel_tf)):
+        if t.data_ptr() % 16:
+            raise ValueError(f'fused_lbs_vertices: {name} must start on a '
+                             '16-byte boundary')
+
+
 def fused_lbs_vertices_plain(packed: PackedLBSOperands, coeffs: torch.Tensor,
                              rel_tf: torch.Tensor) -> torch.Tensor:
     """The kernel's math in plain PyTorch (einsums, fp32, TF32 off)."""
+    return _plain(packed.dirs, packed.weights_t, coeffs, rel_tf,
+                  packed.num_vertices)
+
+
+def _plain(dirs, weights_t, coeffs, rel_tf, num_vertices: int):
     B = coeffs.shape[0]
-    V = packed.num_vertices
+    V = num_vertices
     with fp32_precision():
-        posed = torch.einsum('bm,cmv->bvc', coeffs, packed.dirs[:, :, :V])
+        posed = torch.einsum('bm,cmv->bvc', coeffs, dirs[:, :, :V])
         t = torch.einsum('bjk,jv->bvk', rel_tf.reshape(B, NUM_JOINTS, 12),
-                         packed.weights_t[:, :V]).reshape(B, V, 3, 4)
+                         weights_t[:, :V]).reshape(B, V, 3, 4)
     return (t[..., 0] * posed[..., None, 0] + t[..., 1] * posed[..., None, 1]
             + t[..., 2] * posed[..., None, 2] + t[..., 3])
 
@@ -242,22 +256,45 @@ def fused_lbs_backward(dirs: torch.Tensor, weights_t: torch.Tensor,
     return ddirs, dwt, dcoeffs, da
 
 
-class _FusedLBS(torch.autograd.Function):
-    """Forward = the CUDA kernel; backward = :func:`fused_lbs_backward`,
-    which recomputes the intermediates from the saved operands."""
+# One op with an implementation per device, so that a program traced by
+# ``torch.export`` on any device carries the op itself: it runs the plain
+# version on the CPU and the kernel on a card.
+@torch.library.custom_op('spec_tpu_torch::fused_lbs', mutates_args=(),
+                         device_types='cpu')
+def fused_lbs(dirs: torch.Tensor, weights_t: torch.Tensor,
+              coeffs: torch.Tensor, rel_tf: torch.Tensor,
+              num_vertices: int) -> torch.Tensor:
+    """The packed operands' vertices (B, V, 3): the plain version on the
+    CPU, the kernel (:func:`_launch`) on a CUDA device. Contiguous on
+    both, as the fake implementation says."""
+    out = _plain(dirs, weights_t, coeffs, rel_tf, num_vertices)
+    return out.contiguous()
 
-    @staticmethod
-    def forward(ctx, dirs, weights_t, coeffs, rel_tf, num_vertices):
-        ctx.save_for_backward(dirs, weights_t, coeffs, rel_tf)
-        ctx.num_vertices = num_vertices
-        return _launch(dirs, weights_t, coeffs, rel_tf, num_vertices)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        dirs, weights_t, coeffs, rel_tf = ctx.saved_tensors
-        return (*fused_lbs_backward(dirs, weights_t, coeffs, rel_tf,
-                                    ctx.num_vertices, grad_out,
-                                    ctx.needs_input_grad[:4]), None)
+fused_lbs.register_kernel('cuda')(_launch)
+
+
+@fused_lbs.register_fake
+def _fake(dirs, weights_t, coeffs, rel_tf, num_vertices):
+    return coeffs.new_empty((coeffs.shape[0], num_vertices, 3))
+
+
+def _setup_context(ctx, inputs, output):
+    dirs, weights_t, coeffs, rel_tf, num_vertices = inputs
+    ctx.save_for_backward(dirs, weights_t, coeffs, rel_tf)
+    ctx.num_vertices = num_vertices
+
+
+def _backward(ctx, grad_out):
+    """:func:`fused_lbs_backward` from the saved operands; no cotangent
+    for ``num_vertices``."""
+    dirs, weights_t, coeffs, rel_tf = ctx.saved_tensors
+    return (*fused_lbs_backward(dirs, weights_t, coeffs, rel_tf,
+                                ctx.num_vertices, grad_out,
+                                ctx.needs_input_grad[:4]), None)
+
+
+fused_lbs.register_autograd(_backward, setup_context=_setup_context)
 
 
 def fused_lbs_vertices(packed: PackedLBSOperands, coeffs: torch.Tensor,
@@ -265,14 +302,13 @@ def fused_lbs_vertices(packed: PackedLBSOperands, coeffs: torch.Tensor,
     """-> vertices (B, V, 3).
 
     coeffs (B, 218) from :func:`lbs_coeffs`; rel_tf (B, 24, 3, 4) the
-    rest-corrected joint transforms. CUDA tensors launch the kernel;
-    CPU tensors run the plain version; any other device raises.
+    rest-corrected joint transforms. Runs the op
+    ``spec_tpu_torch::fused_lbs``: CUDA tensors launch the kernel, CPU
+    tensors run the plain version; any other device raises.
     """
     _check_operands(packed, coeffs, rel_tf)
-    if coeffs.device.type == 'cpu':
-        return fused_lbs_vertices_plain(packed, coeffs, rel_tf)
-    if coeffs.device.type != 'cuda':
+    if coeffs.device.type not in ('cpu', 'cuda'):
         raise ValueError('fused_lbs_vertices runs on CUDA (kernel) or CPU '
                          f'(plain version), not {coeffs.device}')
-    return _FusedLBS.apply(packed.dirs, packed.weights_t, coeffs, rel_tf,
-                           packed.num_vertices)
+    return fused_lbs(packed.dirs, packed.weights_t, coeffs, rel_tf,
+                     packed.num_vertices)

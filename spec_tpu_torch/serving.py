@@ -23,13 +23,14 @@ Example:
 
 from __future__ import annotations
 
-import functools
+import dataclasses
 import os
 from collections import OrderedDict, defaultdict
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from spec_tpu_torch.core import bins
 from spec_tpu_torch.core import geometry as G
@@ -123,6 +124,61 @@ def _spec_forward(spec, assets, crops, rotmat, K, bbox_scale, bbox_center,
                 img_h)
 
 
+class CamStage(nn.Module):
+    """Stage 1 as a module: :func:`_cam_forward` over ``camcalib``. The
+    live predictor's stage-1 graph runs it, and ``export.py`` exports
+    this same module, so the two bodies cannot drift apart."""
+
+    def __init__(self, camcalib: nn.Module, loss_type: str):
+        super().__init__()
+        self.camcalib = camcalib
+        self.loss_type = loss_type
+
+    def forward(self, batch_u8: torch.Tensor):
+        return _cam_forward(self.camcalib, self.loss_type, batch_u8)
+
+
+class SpecStage(nn.Module):
+    """Stage 2 as a module: :func:`_spec_forward` over ``spec``.
+
+    The SMPL tensors that the fused forward reads (K1's packed operands
+    and the extra-joint regressor) are buffers of this module, so
+    ``torch.export`` stores them with the weights and a loaded program
+    moves them to its device; the assets' other fields (the kinematic
+    tree, the extra vertex ids) are Python values traced as constants.
+    Like :class:`CamStage`, the live predictor and ``export.py`` share
+    it."""
+
+    def __init__(self, spec: nn.Module, assets: S.SMPLAssets):
+        super().__init__()
+        if assets.packed_lbs is None:
+            raise ValueError('SpecStage needs assets with packed LBS '
+                             'operands (core.smpl.with_packed_lbs)')
+        self.spec = spec
+        self._assets = assets
+        packed = assets.packed_lbs
+        self.register_buffer('lbs_dirs', packed.dirs)
+        self.register_buffer('lbs_weights_t', packed.weights_t)
+        self.register_buffer('lbs_joints_template', packed.joints_template)
+        self.register_buffer('lbs_shapedirs_j', packed.shapedirs_j)
+        self.register_buffer('j_regressor_extra', assets.j_regressor_extra)
+
+    def assets(self) -> S.SMPLAssets:
+        """The assets with this module's buffers in place of theirs."""
+        packed = dataclasses.replace(
+            self._assets.packed_lbs, dirs=self.lbs_dirs,
+            weights_t=self.lbs_weights_t,
+            joints_template=self.lbs_joints_template,
+            shapedirs_j=self.lbs_shapedirs_j)
+        return dataclasses.replace(self._assets, packed_lbs=packed,
+                                   j_regressor_extra=self.j_regressor_extra)
+
+    def forward(self, crops, rotmat, K, bbox_scale, bbox_center, img_w,
+                img_h) -> dict:
+        return _spec_forward(self.spec, self.assets(), crops, rotmat, K,
+                             bbox_scale, bbox_center, img_w, img_h)
+
+
 def build_camcalib(ckpt: str, backbone: str, device, dtype=None,
                    seed: int = 0, tag: str = 'serving'):
     """Stage 1's CameraRegressorNetwork (one FC layer) with ``ckpt``'s
@@ -197,6 +253,17 @@ class SpecPredictor:
     named stream.
     """
 
+    # Class-level defaults of the knobs that predict, estimate_cameras and
+    # the stream helpers read: export.load_predictor builds a predictor
+    # with __new__ and skips __init__, so each such knob must resolve
+    # through the class. A new knob gets a default here, not only in
+    # __init__.
+    detector = None
+    camcalib_every = 1      # stage-1 stream amortization (1 = every frame)
+    cut_threshold = 0.5     # shot-cut re-anchor (L1 histogram delta; 0 off)
+    # camcalib_every state per stream name, made on first use (a mutable
+    # class default would be shared by every instance)
+    _cam_streams: Optional[OrderedDict] = None
     max_streams = 256  # LRU cap on retained named camcalib_every streams
 
     def __init__(
@@ -253,7 +320,6 @@ class SpecPredictor:
         self.loss_type = loss_type
         self.camcalib_every = max(1, int(camcalib_every))
         self.cut_threshold = float(cut_threshold)
-        self._cam_streams: Optional[OrderedDict] = None
 
         self.assets = S.with_packed_lbs(
             S.load_assets_or_test(smpl_model_dir, tag='serving').to(
@@ -268,12 +334,11 @@ class SpecPredictor:
         # One graph memory pool for both stages (none on the CPU).
         pool = (torch.cuda.graph_pool_handle()
                 if self.device.type == 'cuda' else None)
-        self._stage1 = StageGraph('stage1', functools.partial(
-            _cam_forward, self.camcalib, self.loss_type), pool)
-        self._stage2 = StageGraph('stage2', functools.partial(
-            _spec_forward, self.spec, self.assets), pool)
+        self._stage1 = StageGraph(
+            'stage1', CamStage(self.camcalib, self.loss_type), pool)
+        self._stage2 = StageGraph(
+            'stage2', SpecStage(self.spec, self.assets), pool)
 
-        self.detector = None
         if detector == 'yolo':
             from spec_tpu_torch.models.detector import YoloDetector
 

@@ -67,11 +67,16 @@ _CONSTANTS: dict = {}
 def device_constant(values, device, dtype=torch.float32) -> torch.Tensor:
     """``values`` (a list, tuple or numpy array) as a tensor on
     ``device``, built once per (values, dtype, device) and shared: callers
-    must not write to it. Inside a captured stage the constant must
+    must not write to it. While ``torch.export`` traces, it builds the
+    constant afresh and does not cache it. Inside a captured stage it must
     already exist, from the warm-up run before the capture; building one
     during a capture raises. It is a normal tensor even when first built
     in inference mode, so a later train step can save it for backward."""
     arr = np.asarray(values)
+    if torch.compiler.is_exporting():
+        # a constant of the traced program, on its fake device: never
+        # cached for later live calls
+        return torch.as_tensor(arr, dtype=dtype, device=device)
     key = (arr.tobytes(), arr.shape, arr.dtype.str, dtype, str(device))
     t = _CONSTANTS.get(key)
     if t is None:

@@ -1,5 +1,5 @@
 """Asset path registry (the subset of ``spec_tpu/utils/paths.py`` that
-serving and the demos read). Everything is rooted at ``SPEC_DATA_ROOT`` (default
+the port reads). Everything is rooted at ``SPEC_DATA_ROOT`` (default
 ``./data``), so the reference's ``prepare_data.sh`` layout works as is."""
 
 from __future__ import annotations
@@ -14,6 +14,10 @@ def data_root() -> str:
 
 def smpl_model_dir() -> str:
     return join(data_root(), 'body_models', 'smpl')
+
+
+def smpl_mean_params_path() -> str:
+    return join(data_root(), 'smpl_mean_params.npz')
 
 
 def j_regressor_h36m_path() -> str:

@@ -630,14 +630,16 @@ def test_serve_help_documents_streams_and_unported_flags(capsys,
     assert e.value.code == 0
     helptext = capsys.readouterr().out
     for phrase in ('X-Spec-Stream', 'PER STREAM', '--device',
-                   'box-less requests', 'item 11', 'item 12'):
+                   'box-less requests', '.specx artifact', 'item 12'):
         assert phrase in helptext, phrase
+    assert 'item 11' not in helptext      # --exported is ported
 
 
 @pytest.mark.parametrize('flags,item', [
     (['--detector', 'yolo', '--data_parallel'], 12),
     (['--data_parallel'], 12),
-    (['--spatial_parallel'], 12), (['--exported', 'art.specx'], 11)])
+    (['--spatial_parallel'], 12),
+    (['--exported', 'art.specx', '--spatial_parallel'], 12)])
 def test_serve_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f'item {item}'):
         TServe.main(flags + ['--device', 'cpu'])

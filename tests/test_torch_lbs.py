@@ -171,9 +171,9 @@ GRAD_NAMES = ('dirs', 'weights_t', 'coeffs', 'rel_tf')
 
 
 def test_plain_version_is_differentiable_kernel_backward_raises(rng):
-    """The plain (CPU) path keeps autograd, and the kernel's autograd
-    Function's backward is the closed form: called on the operands the
-    forward saves, it gives the plain version's four cotangents (1e-4
+    """The op's CPU path is differentiable, and the backward registered
+    with the op (both devices) is the closed form: called on the operands
+    the forward saves, it gives the plain version's four cotangents (1e-4
     relative, the TPU_CHECKS_r05.json budget), zero on the Vp padding;
     a cotangent of the wrong shape raises."""
     import types
@@ -189,7 +189,7 @@ def test_plain_version_is_differentiable_kernel_backward_raises(rng):
     ctx = types.SimpleNamespace(
         saved_tensors=(packed.dirs, packed.weights_t, coeffs, rel_tf),
         num_vertices=V, needs_input_grad=(True,) * 5)
-    got = TL._FusedLBS.backward(ctx, grad)
+    got = TL._backward(ctx, grad)
     assert len(got) == 5 and got[4] is None
     for name, g, w in zip(GRAD_NAMES, got, _plain_grads(packed, coeffs,
                                                          rel_tf, grad)):
@@ -199,12 +199,12 @@ def test_plain_version_is_differentiable_kernel_backward_raises(rng):
     # a train step differentiates coeffs and rel_tf only: the packed
     # operands' cotangents are skipped, the other two unchanged
     ctx.needs_input_grad = (False, False, True, True, False)
-    part = TL._FusedLBS.backward(ctx, grad)
+    part = TL._backward(ctx, grad)
     assert part[0] is None and part[1] is None
     for g, w in zip(part[2:4], got[2:4]):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     with pytest.raises(RuntimeError):
-        TL._FusedLBS.backward(ctx, grad[:, :-1])
+        TL._backward(ctx, grad[:, :-1])
 
 
 @pytest.mark.parametrize('B,V', [(1, 333), (8, 640), (3, 6890)])

@@ -31,9 +31,10 @@ BOXES = [
 ]
 
 
-@pytest.fixture(scope='module')
-def predictors(tmp_path_factory):
-    root = tmp_path_factory.mktemp('spec_data')
+def write_predictor_data(root):
+    """The SMPL files, J_regressor_extra.npy and both checkpoints under
+    ``root`` -> the predictors' keyword arguments (build them with
+    SPEC_DATA_ROOT set to ``root``, where J_regressor_extra.npy lies)."""
     smpl_dir = root / 'body_models' / 'smpl'
     smpl_dir.mkdir(parents=True)
     write_synthetic_smpl_pkl(smpl_dir / 'SMPL_NEUTRAL.pkl',
@@ -51,14 +52,19 @@ def predictors(tmp_path_factory):
         torch.save({'state_dict': {'model.' + k: v
                                    for k, v in model.state_dict().items()},
                     'epoch': 1}, ckpts[name])
+    return dict(spec_ckpt=ckpts['spec'], camcalib_ckpt=ckpts['camcalib'],
+                smpl_model_dir=str(smpl_dir), backbone='resnet18',
+                use_cam_feats=True, camcalib_backbone='resnet18',
+                min_size=96, batch_size=8)
 
+
+@pytest.fixture(scope='module')
+def predictors(tmp_path_factory):
     from spec_tpu.serving import SpecPredictor as JaxPredictor
     from spec_tpu_torch.serving import SpecPredictor as TorchPredictor
 
-    kwargs = dict(spec_ckpt=ckpts['spec'], camcalib_ckpt=ckpts['camcalib'],
-                  smpl_model_dir=str(smpl_dir), backbone='resnet18',
-                  use_cam_feats=True, camcalib_backbone='resnet18',
-                  min_size=96, batch_size=8)
+    root = tmp_path_factory.mktemp('spec_data')
+    kwargs = write_predictor_data(root)
     mp = pytest.MonkeyPatch()
     mp.setenv('SPEC_DATA_ROOT', str(root))   # J_regressor_extra.npy
     try:
@@ -197,9 +203,11 @@ def test_import_hygiene():
     eval loop, evaluator, the eval dataset and loader), the training path
     (the trainers, SMPLify, the pano datasets), the stage graphs, every
     kernel wrapper, the host-native bindings, the renderer, profiling and
-    the region cache
+    the region cache, the artifact export and loader, export_model,
+    prepare_data and the offline data generators (datagen/)
     import no JAX, flax, PIL, cv2, PyYAML, joblib, matplotlib, tensorboard
-    or triton (none of them exist on the machine with the card) and
+    or triton (none of them exist on the machine with the card), no
+    requests (the Flickr downloader imports it when it runs) and
     nothing of the JAX package spec_tpu, and importing them builds no
     kernel or host library, captures no graph and touches no CUDA
     device."""
@@ -232,9 +240,13 @@ def test_import_hygiene():
         'from spec_tpu_torch import native\n'
         'from spec_tpu_torch.utils import profiling, renderer\n'
         'from spec_tpu_torch.data import region_cache\n'
+        'from spec_tpu_torch import export\n'
+        'from spec_tpu_torch.cli import export_model, prepare_data\n'
+        'import spec_tpu_torch.datagen\n'
+        'from spec_tpu_torch.datagen import flickr, synthetic\n'
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'yaml', 'joblib', "
-        "'matplotlib', 'triton', 'tensorboard') "
+        "'matplotlib', 'triton', 'tensorboard', 'requests') "
         "or m == 'spec_tpu' or m.startswith('spec_tpu.')]\n"
         'assert not bad, bad\n'
         'assert cuda_build.build_library.cache_info().currsize == 0\n'
