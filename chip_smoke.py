@@ -202,7 +202,28 @@ printing its own results; any failure raises and exits nonzero:
     ['spec_synth']``), and whether cv2, joblib and requests import here:
     where cv2 and joblib do, both Pano360 generators cut PANO_CROPS crops
     from one panorama (ms per crop);
-23. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
+23. parallel (``spec_tpu_torch/parallel``, data parallelism over
+    ``torch.distributed``): (a) two ranks over gloo on the one card (two
+    processes of this script, ``--parallel-rank``), each the SPEC train
+    step at full width (ResNet-50 HMR, bf16, V = 6890) on its half of a
+    global batch of PAR_BATCH crops whose halves hold different
+    has_smpl and has_pose_3d counts, PAR_STEPS SGD steps: the losses and
+    parameters held to one process stepping the global batch
+    (PAR_LOSS_RTOL, PAR_UPDATE_RTOL), the ranks equal to each other,
+    ms per step, K1's launches per rank and the gradient all-reduce's
+    ms alone; (b) one rank over NCCL: the step is one graph replay with
+    its all-reduces captured and equals the step without a process
+    group bit for bit, its replay ms beside the plain step's, the NCCL
+    kernels a replay's profile names; (c) ``SpecPredictor(data_parallel=
+    True)`` at full width on phase 4's input, the card's own device list
+    (one replica) bit for bit against the plain predictor, then the
+    device-list seam giving two replicas on the one card (the split and
+    the gather on it) within phase 8's fp32 limits, K1 launching once
+    per replica (``launches_by_path``); (d) ``spec_eval
+    --data_parallel``, ``serve --data_parallel`` (one request, SIGTERM)
+    and ``spec_train`` with two ranks over gloo for one step, each its
+    own process on tiny inputs (cv2 writes the frames), each exiting 0;
+24. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then, instead of
 the rest, profiles phase 4's predictor (wall medians per stage, device
@@ -212,7 +233,8 @@ stage-1 trunk, each replaying its graphs and, for comparison, with its
 eager stage bodies.
 ``python3 chip_smoke.py --render`` runs phases 1-2 and then phase 20
 alone; ``python3 chip_smoke.py --export`` runs phases 1-2 and then
-phases 21 and 22.
+phases 21 and 22; ``python3 chip_smoke.py --parallel`` runs phases 1-2
+and then phase 23.
 ``python3 chip_smoke.py --k3-tiles`` runs phases 1-2 and then times K3
 in fp32 and bf16 at each stage shape with every candidate output tile
 forced, beside the tile the kernel picks.
@@ -368,7 +390,10 @@ def _kernel_ms(fn, kernel, n=50, warmup=5, flush=None):
     median duration (ms) of the device kernels whose name contains
     ``kernel``: the wrapper's host work lies outside every such interval.
     A second, unflushed profile of ``n`` calls gives the device
-    operations per call. Returns (ms, device ops per call)."""
+    operations per call. Returns (ms, device ops per call). A profile
+    that names fewer launches than calls (the tracer dropped an event:
+    the wrapper counts every launch it makes) is taken once more; a
+    second short one raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -385,11 +410,19 @@ def _kernel_ms(fn, kernel, n=50, warmup=5, flush=None):
             torch.cuda.synchronize()
         return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
-    durs = [(e.time_range.end - e.time_range.start) / 1e3
-            for e in device_events(flush is not None) if kernel in e.name]
-    if len(durs) != n:
+    for attempt in range(2):
+        durs = [(e.time_range.end - e.time_range.start) / 1e3
+                for e in device_events(flush is not None)
+                if kernel in e.name]
+        if len(durs) == n:
+            break
+        print(f'[profile] the profiler saw {len(durs)} launches of '
+              f'{kernel!r} in {n} calls' + ('; profiling again'
+                                            if attempt == 0 else ''),
+              flush=True)
+    else:
         raise RuntimeError(f'the profiler saw {len(durs)} launches of '
-                           f'{kernel!r} in {n} calls')
+                           f'{kernel!r} in {n} calls, twice')
     ops = len(device_events(False)) / n
     return statistics.median(durs), ops
 
@@ -4044,9 +4077,621 @@ def phase_datagen(device='cuda'):
     return launches
 
 
+# Phase 23 (parallel): the SPEC train step at full width (ResNet-50 HMR
+# with camera features, bf16, V = 6890) on a global batch of PAR_BATCH
+# 224² crops whose halves hold different numbers of has_smpl and
+# has_pose_3d rows (PAR_HAS_SMPL, PAR_HAS_3D of each half), dropout off.
+# SGD with the global-norm clip at 1: each update is the gradient over
+# its norm times the rate, linear in the gradient up to that one scale
+# (Adam turns the float noise of a near-zero gradient into a whole +-lr
+# step), so the update holds the gradient to its limit.
+PAR_BATCH, PAR_STEPS, PAR_RES = 64, 3, 224
+PAR_BACKBONE, PAR_VERTICES = 'resnet50', 6890
+PAR_HAS_SMPL, PAR_HAS_3D = (0.75, 0.25), (0.5, 1.0)
+PAR_LR = 1e-2
+PAR_TIMEOUT = 600            # s, each subprocess of the phase
+PAR_REPLAYS = 10             # timed replays of the one-rank NCCL step
+# Two ranks over gloo on one card against one process over the same
+# global batches (bf16 autocast, so the convolutions of 32 and of 64 rows
+# round differently): each loss within PAR_LOSS_RTOL relative; the
+# update of the whole model (got - start against want - start, L2 over
+# every tensor) within PAR_UPDATE_RTOL relative; the largest parameter
+# difference within PAR_UPDATE_RTOL of the largest update entry.
+PAR_LOSS_RTOL, PAR_UPDATE_RTOL = 1e-2, 5e-2
+# the CLIs' tiny inputs: frames, crops, the backbone
+PAR_CLI_HW, PAR_CLI_RES, PAR_CLI_BACKBONE = (120, 160), 64, 'resnet18'
+
+
+def _par_setup(B, device, backbone, res, vertices):
+    """The phase's model, SGD state, step and global batch (numpy) on
+    ``device``: ``bench.train_setup``'s HMR (seed 0, zeroed decoders),
+    bf16, dropout off."""
+    import numpy as np
+    import torch
+
+    from spec_tpu_torch import bench
+    from spec_tpu_torch.core import smpl as S
+    from spec_tpu_torch.models.hmr import HMR
+    from spec_tpu_torch.train import create_train_state, make_spec_train_step
+    from spec_tpu_torch.train.state import Transform
+
+    model = HMR(backbone=backbone, use_cam=True, use_cam_feats=True,
+                dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for dec in (model.head.decpose, model.head.decshape,
+                    model.head.deccam):
+            dec.weight.zero_()
+            dec.bias.zero_()
+    model.head.dropout_rate = 0.0
+    model = model.to(device).train()
+    state = create_train_state(model, Transform('sgd', PAR_LR,
+                                                clip_norm=1.0))
+    step = make_spec_train_step(model, S.create_test_assets(vertices))
+    batch = bench.train_inputs(B, res)
+    half = B // 2
+    for key, shares in (('has_smpl', PAR_HAS_SMPL),
+                        ('has_pose_3d', PAR_HAS_3D)):
+        col = np.zeros(B, 'f4')
+        for h, share in enumerate(shares):
+            col[h * half:h * half + int(share * half)] = 1.0
+        batch[key] = col
+    return state, step, batch
+
+
+def _par_steps(state, step, batch, n, device):
+    """``n`` steps on ``batch`` (tensors on ``device``): the losses of
+    each and the ms of each (host clock around a synchronized call)."""
+    import torch
+
+    losses, ms = [], []
+    for _ in range(n):
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        losses.append({k: float(v) for k, v in metrics.items()})
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def _par_rank(argv):
+    """One rank of phase 23(a): ``chip_smoke.py --parallel-rank RANK
+    WORLD PORT DIR DEVICE SIZES`` (SIZES: batch,res,vertices,backbone).
+    Joins a gloo group, steps on its slice of the global batch and writes
+    ``DIR/rank{RANK}.pt``."""
+    import torch
+
+    from spec_tpu_torch import parallel as par
+    from spec_tpu_torch.ops import lbs as L
+
+    rank, world, port, d, device, sizes = argv[:6]
+    rank, world = int(rank), int(world)
+    B, res, vertices, backbone = sizes.split(',')
+    par.initialize_multihost(f'127.0.0.1:{port}', world, rank,
+                             backend='gloo', device=device)
+    dev = par.local_device(device)
+    state, step, batch = _par_setup(int(B), dev, backbone, int(res),
+                                    int(vertices))
+    local = par.shard_batch({k: torch.from_numpy(v)
+                             for k, v in batch.items()}, [dev])[0]
+    # the gradient all-reduce alone, on a buffer of the model's size
+    flat = torch.ones(sum(p.numel() for p in state.optimizer.params),
+                      device=dev)
+    ar_ms = []
+    for _ in range(4):
+        if dev.type == 'cuda':
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        torch.distributed.all_reduce(flat)
+        if dev.type == 'cuda':
+            torch.cuda.synchronize(dev)
+        ar_ms.append((time.perf_counter() - t0) * 1e3)
+    L.LAUNCHES = 0
+    losses, ms = _par_steps(state, step, local, PAR_STEPS, dev)
+    out = {'rows': len(local['img']), 'mode': step.mode,
+           'backend': par.backend(), 'device': str(dev),
+           'launches': L.LAUNCHES, 'losses': losses, 'ms': ms,
+           'allreduce_ms': statistics.median(ar_ms[1:]),
+           'allreduce_bytes': flat.numel() * 4,
+           'state': {k: v.detach().cpu()
+                     for k, v in state.model.state_dict().items()}}
+    torch.save(out, os.path.join(d, f'rank{rank}.pt'))
+    par.barrier()
+    return 0
+
+
+def _spawn(args, label, env=None, timeout=PAR_TIMEOUT):
+    """Start ``args`` (a list) as processes of their own, wait for each
+    within ``timeout`` s and return their outputs; a nonzero exit
+    raises. Every process is killed on the way out."""
+    procs = [subprocess.Popen(a, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              env=env, cwd=str(ROOT)) for a in args]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f'{label} process {i} exited '
+                               f'{p.returncode}:\n{log[-4000:]}')
+    return logs
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(('127.0.0.1', 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _update_errors(got, want, start):
+    """(relative L2 of the update difference over the whole model, the
+    largest |parameter difference|, the largest |update| entry) of two
+    state_dicts from one start."""
+    import torch
+
+    num = den = 0.0
+    worst = biggest = 0.0
+    for k, w in want.items():
+        if k.endswith('num_batches_tracked'):
+            continue
+        g, w, s = (t.double().cpu() for t in (got[k], w, start[k]))
+        num += float(((g - w) ** 2).sum())
+        den += float(((w - s) ** 2).sum())
+        worst = max(worst, float((g - w).abs().max()))
+        biggest = max(biggest, float((w - s).abs().max()))
+    return (num / max(den, 1e-300)) ** 0.5, worst, biggest
+
+
+def _par_two_ranks(device, sizes, d):
+    """23(a): two gloo ranks on the one card against one process."""
+    import torch
+
+    B, res, vertices, backbone = sizes
+    port = _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS='1')
+    spec = ','.join(str(x) for x in sizes)
+    logs = _spawn([[sys.executable, str(ROOT / 'chip_smoke.py'),
+                    '--parallel-rank', str(r), '2', str(port), str(d),
+                    device, spec] for r in range(2)], 'parallel rank',
+                  env=env)
+    ranks = [torch.load(os.path.join(d, f'rank{r}.pt'), weights_only=False)
+             for r in range(2)]
+    for r, log in enumerate(logs):
+        for line in log.strip().splitlines()[-3:]:
+            print(f'[parallel rank {r}] {line}')
+    dev = torch.device(device)
+    state, step, batch = _par_setup(B, dev, backbone, res, vertices)
+    start = {k: v.detach().cpu().clone()
+             for k, v in state.model.state_dict().items()}
+    full = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    losses, ms = _par_steps(state, step, full, PAR_STEPS, dev)
+    want = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    del state, step, full
+    _release_if(device)
+    r0, r1 = ranks
+    if r0['losses'] != r1['losses'] or any(
+            not torch.equal(r0['state'][k], r1['state'][k])
+            for k in r0['state']):
+        raise RuntimeError('the two ranks disagree on the losses or the '
+                           'parameters')
+    worst_loss = 0.0
+    for i, (got, ref) in enumerate(zip(r0['losses'], losses)):
+        for k, v in ref.items():
+            worst_loss = max(worst_loss, abs(got[k] - v) / max(abs(v),
+                                                               1e-6))
+        print(f'[parallel 2 ranks] step {i + 1}: total loss '
+              f'{got["loss/total_loss"]:.6f} (two ranks) against '
+              f'{ref["loss/total_loss"]:.6f} (one process)')
+    upd, worst, biggest = _update_errors(r0['state'], want, start)
+    print(f'[parallel 2 ranks] {backbone} bf16, global B={B} '
+          f'({r0["rows"]} a rank, has_smpl {PAR_HAS_SMPL}, has_pose_3d '
+          f'{PAR_HAS_3D} of each half), {PAR_STEPS} SGD steps, {r0["backend"]}'
+          f' on {r0["device"]} and {r1["device"]}, the step '
+          f'{r0["mode"]}: losses within {worst_loss:.3e} relative of one '
+          f'process (limit {PAR_LOSS_RTOL:.0e}); the model update '
+          f'{upd:.3e} relative (limit {PAR_UPDATE_RTOL:.0e}); the largest '
+          f'parameter difference {worst:.3e} against the largest update '
+          f'entry {biggest:.3e} (limit {PAR_UPDATE_RTOL:.0e} of it)',
+          flush=True)
+    print(f'[parallel 2 ranks] ms per step (rank 0): '
+          + ' '.join(f'{t:.1f}' for t in r0['ms'])
+          + f'; one process over the global batch: '
+          + ' '.join(f'{t:.1f}' for t in ms)
+          + f'; K1 forward launches per rank {r0["launches"]} and '
+          f'{r1["launches"]} over {PAR_STEPS} steps (2 a step; its '
+          'closed-form backward is torch operations, once a step); the '
+          f'gradient all-reduce alone ({r0["allreduce_bytes"] / 1e6:.1f} MB'
+          f' fp32, gloo through the host) {r0["allreduce_ms"]:.1f} ms',
+          flush=True)
+    if not (worst_loss <= PAR_LOSS_RTOL and upd <= PAR_UPDATE_RTOL
+            and worst <= PAR_UPDATE_RTOL * biggest):
+        raise RuntimeError('two ranks differ from one process beyond the '
+                           'limits')
+    if r0['mode'] != 'eager' or r0['backend'] != 'gloo':
+        raise RuntimeError('the gloo step did not run its eager body')
+    if device == 'cuda' and r0['launches'] != 2 * PAR_STEPS:
+        raise RuntimeError(f'rank 0 launched K1 {r0["launches"]} times')
+    return {'rank 0': r0['launches'], 'rank 1': r1['launches']}
+
+
+def _release_if(device):
+    if device == 'cuda':
+        _release()
+
+
+def _par_nccl(device, sizes):
+    """23(b): one rank over NCCL (gloo in a CPU rehearsal) against the
+    step without a process group: bit for bit, one graph each, and the
+    all-reduce inside the graph."""
+    import torch
+
+    from spec_tpu_torch import parallel as par
+    from spec_tpu_torch.ops import lbs as L
+
+    B, res, vertices, backbone = sizes
+    card = device == 'cuda'
+    dev = torch.device(device)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = _par_setup(B, dev, backbone, res, vertices)
+        full = {k: torch.from_numpy(v).to(dev) for k, v in plain[2].items()}
+        want, _ = _par_steps(plain[0], plain[1], full, PAR_STEPS, dev)
+        par.initialize_multihost(f'127.0.0.1:{_free_port()}', 1, 0,
+                                 backend='nccl' if card else 'gloo',
+                                 device=device)
+        try:
+            grouped = _par_setup(B, dev, backbone, res, vertices)
+            # count the all-reduces the step's body calls (its first call
+            # runs it eagerly, the second captures it)
+            calls = []
+            all_reduce = torch.distributed.all_reduce
+
+            def counted(*a, **k):
+                calls.append(torch.cuda.is_current_stream_capturing()
+                             if card else False)
+                return all_reduce(*a, **k)
+
+            torch.distributed.all_reduce = counted
+            try:
+                L.LAUNCHES = 0
+                got, _ = _par_steps(grouped[0], grouped[1], full,
+                                    PAR_STEPS, dev)
+            finally:
+                torch.distributed.all_reduce = all_reduce
+            launches = L.LAUNCHES
+            sd_got = grouped[0].model.state_dict()
+            same = got == want and all(
+                torch.equal(v, sd_got[k])
+                for k, v in plain[0].model.state_dict().items())
+            graphs = len(grouped[1].graphs.signatures())
+            print(f'[parallel nccl 1 rank] {par.backend()}, the step '
+                  f'{grouped[1].mode}, {graphs} graph(s) captured; the '
+                  f'body called all_reduce {len(calls)} times, '
+                  f'{sum(calls)} of them inside the capture; '
+                  f'{PAR_STEPS} steps equal the step without a process '
+                  f'group bit for bit: {same}; K1 launches {launches}',
+                  flush=True)
+            if not same:
+                raise RuntimeError('the one-rank step differs from the '
+                                   'step without a process group')
+            if not card:
+                return {'nccl 1 rank': launches}
+            if graphs != 1 or grouped[1].mode != 'graph' or not any(calls):
+                raise RuntimeError('the NCCL step is not one graph with '
+                                   'its all-reduce')
+            wall = {}
+            for label, (state, step, _) in (('plain', plain),
+                                            ('nccl', grouped),
+                                            ('plain', plain),
+                                            ('nccl', grouped)):
+                wall.setdefault(label, []).append(_wall_ms(
+                    lambda: step(state, full), PAR_REPLAYS))
+            prof = _device_profile('parallel nccl 1 rank replay',
+                                   lambda: grouped[1](grouped[0], full),
+                                   min(wall['nccl']), 3)
+            nccl = sum(n for name, n in prof['count_by_name'].items()
+                       if 'nccl' in name.lower())
+            print(f'[parallel nccl 1 rank] ms per step replay (median of '
+                  f'{PAR_REPLAYS}, two turns): '
+                  + ', '.join(f'{k} ' + ' '.join(f'{t:.3f}' for t in v)
+                              for k, v in wall.items())
+                  + f'; NCCL kernels the profiler names per replay '
+                  f'{nccl:g} (one rank: NCCL may reduce in place without '
+                  'one)', flush=True)
+            return {'nccl 1 rank': launches}
+        finally:
+            torch.distributed.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        _release_if(device)
+
+
+def _par_predict(device, make_predictor, frames, boxes):
+    """23(c): ``SpecPredictor(data_parallel=True)`` with the card's own
+    device list (count 1) against the plain predictor, bit for bit; then
+    with the device-list seam giving two replicas on the one card (the
+    split and the gather run on it), within phase 8's limits."""
+    import numpy as np
+    import torch
+
+    from spec_tpu_torch import parallel as par
+    from spec_tpu_torch.ops import lbs as L
+
+    plain = make_predictor(False)
+    want = plain.predict(frames, boxes)
+    if device == 'cuda':
+        print(f'[parallel predict] the plain predictor: '
+              f'{_wall_ms(lambda: plain.predict(frames, boxes), 5):.3f} ms '
+              'per call (median of 5)', flush=True)
+    del plain
+    _release_if(device)
+    launches = {}
+    create_mesh = par.create_mesh
+    two = [torch.device('cuda', 0) if device == 'cuda'
+           else torch.device('cpu')] * 2
+    for label, mesh in (('1 device', None), ('2 replicas', two)):
+        if mesh is not None:
+            par.create_mesh = lambda devices=None, device=None: list(mesh)
+        try:
+            pred = make_predictor(True)
+        finally:
+            par.create_mesh = create_mesh
+        n_dev = len(pred.mesh)
+        pred.predict(frames, boxes)                 # capture
+        L.LAUNCHES = 0
+        got = pred.predict(frames, boxes)
+        n_k1 = launches[f'data_parallel predict ({label})'] = L.LAUNCHES
+        diff = max(float(np.abs(np.asarray(g[k], np.float64)
+                                - np.asarray(w[k], np.float64)).max())
+                   for rg, rw in zip(got, want) for g, w in zip(rg, rw)
+                   for k in w if k != 'camera')
+        same = diff == 0.0 and all(
+            g['camera'] == w['camera']
+            for rg, rw in zip(got, want) for g, w in zip(rg, rw))
+        print(f'[parallel predict] data_parallel with {n_dev} '
+              f'replica(s) of each stage ({label}), {PAR_BACKBONE} fp32, '
+              f'phase 4\'s input: against the plain predictor '
+              + ('bit for bit' if same else f'max |diff| {diff:.3e}')
+              + f'; K1 launches in one call {n_k1} (one per replica\'s '
+              'stage-2 chunk)', flush=True)
+        if device == 'cuda':
+            print(f'[parallel predict] data_parallel ({label}): '
+                  f'{_wall_ms(lambda: pred.predict(frames, boxes), 5):.3f}'
+                  ' ms per call (median of 5)', flush=True)
+        if mesh is None and not same:
+            raise RuntimeError('data_parallel over one device differs from '
+                               'the plain predictor')
+        if mesh is not None:
+            _within_predict_limits(got, want)
+            if device == 'cuda' and n_k1 != n_dev:
+                raise RuntimeError(f'{n_k1} K1 launches for {n_dev} '
+                                   'replicas')
+        del pred
+        _release_if(device)
+    return launches
+
+
+def _within_predict_limits(got, want):
+    """Phase 8's fp32 limits (PREDICT_LIMITS) on every person's outputs."""
+    import numpy as np
+
+    for rg, rw in zip(got, want):
+        if len(rg) != len(rw):
+            raise RuntimeError('person counts differ')
+        for g, w in zip(rg, rw):
+            for k, lim in PREDICT_LIMITS['fp32'].items():
+                d = float(np.abs(np.asarray(g[k]) - np.asarray(w[k])).max())
+                if not d <= lim:
+                    raise RuntimeError(f'data_parallel {k} differs by {d} '
+                                       f'(limit {lim})')
+
+
+def _par_write_data(root, n_train=2, n_val=4):
+    """A tiny data root: ``n_train`` spec-syn training samples and
+    ``n_val`` 3dpw-test-cam samples (PNG frames with cv2 and their npz
+    annotations, the registry's layout)."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.RandomState(11)
+    h, w = PAR_CLI_HW
+    extras = os.path.join(root, 'dataset_extras')
+    os.makedirs(extras, exist_ok=True)
+    for name, folder, npz, n in (
+            ('spec-syn', 'spec-syn', 'spec-syn_camcalib.npz', n_train),
+            ('3dpw-test-cam', '3dpw', '3dpw_test_cam_camcalib.npz', n_val)):
+        img_dir = os.path.join(root, 'dataset_folders', folder)
+        os.makedirs(img_dir, exist_ok=True)
+        names = []
+        for i in range(n):
+            names.append(f'f{i}.png')
+            cv2.imwrite(os.path.join(img_dir, names[-1]),
+                        (rng.rand(h, w, 3) * 255).astype('u1'))
+        cols = dict(
+            imgname=np.array(names),
+            scale=(rng.rand(n) * 0.3 + 0.4).astype('f4'),
+            center=np.stack([rng.rand(n) * 60 + 50, rng.rand(n) * 40 + 40],
+                            1).astype('f4'),
+            shape=(rng.randn(n, 10) * 0.5).astype('f4'),
+            S=rng.randn(n, 24, 4).astype('f4'),
+            part=np.concatenate([rng.rand(n, 24, 2) * 100,
+                                 np.ones((n, 24, 1))], -1).astype('f4'))
+        if name == 'spec-syn':
+            # the columns of the trainer tests' synthetic set
+            cols.update(
+                pose=(rng.randn(n, 72) * 0.2).astype('f4'),
+                has_smpl=np.ones(n, 'f4'),
+                openpose=np.concatenate([rng.rand(n, 25, 2) * 100,
+                                         rng.rand(n, 25, 1)],
+                                        -1).astype('f4'),
+                gender=np.array(['m', 'f'] * (n // 2)),
+                cam_rotmat=np.tile(np.eye(3, dtype='f4'), (n, 1, 1)),
+                cam_pitch=(rng.randn(n) * 0.1).astype('f4'),
+                cam_roll=(rng.randn(n) * 0.1).astype('f4'),
+                focal_length=(rng.rand(n) * 300 + 400).astype('f4'))
+        else:
+            # the columns of the eval golden's fixture
+            cols.update(
+                cam_int=np.tile(np.array([[500, 0, 80], [0, 500, 60],
+                                          [0, 0, 1]], 'f4'), (n, 1, 1)),
+                pose_0yaw_inverseyz=(rng.randn(n, 72) * 0.2).astype('f4'),
+                pose_cam=(rng.randn(n, 72) * 0.2).astype('f4'),
+                camcalib_pitch=(rng.randn(n) * 0.1).astype('f4'),
+                camcalib_roll=(rng.randn(n) * 0.05).astype('f4'),
+                camcalib_vfov=(rng.rand(n) * 0.5 + 0.6).astype('f4'),
+                camcalib_f_pix=(rng.rand(n) * 200 + 400).astype('f4'))
+        np.savez(os.path.join(extras, npz), **cols)
+
+
+def _par_clis(device, d):
+    """23(d): ``spec_eval --data_parallel``, ``serve --data_parallel``
+    and ``spec_train`` with two ranks for one step, each its own process
+    on tiny inputs, each exiting 0."""
+    import json
+    import urllib.request
+
+    import numpy as np
+
+    root = os.path.join(d, 'data')
+    _par_write_data(root)
+    env = dict(os.environ, SPEC_DATA_ROOT=root, OMP_NUM_THREADS='1')
+    opts = ['HMR.BACKBONE', PAR_CLI_BACKBONE, 'DATASET.IMG_RES',
+            str(PAR_CLI_RES), 'DATASET.NUM_WORKERS', '1',
+            'DATASET.VAL_DS', '3dpw-test-cam', 'DATASET.BATCH_SIZE', '2',
+            'LOG_FREQ_TB_IMAGES', '0']
+    py = [sys.executable, '-m']
+    t0 = time.perf_counter()
+    log, = _spawn([py + ['spec_tpu_torch.cli.spec_eval', '--data_parallel',
+                         '--device', device, '--log_root',
+                         os.path.join(d, 'eval'), '--opts', *opts,
+                         # no results pickle: joblib is not on every host
+                         'TESTING.USE_GT_CAM', 'True',
+                         'TESTING.SAVE_RESULTS', 'False']],
+                  'spec_eval --data_parallel', env=env)
+    if 'data_parallel over' not in log or '"3dpw-test-cam"' not in log:
+        raise RuntimeError(f'spec_eval --data_parallel:\n{log[-3000:]}')
+    print(f'[parallel cli] spec_eval --data_parallel: exit 0 in '
+          f'{time.perf_counter() - t0:.1f} s; '
+          + next(line for line in log.splitlines()
+                 if 'data_parallel over' in line), flush=True)
+
+    t0 = time.perf_counter()
+    port = _free_port()
+    train = [py + ['spec_tpu_torch.cli.spec_train', '--device', device,
+                   '--fdr', '--coordinator_address', f'127.0.0.1:{port}',
+                   '--num_processes', '2', '--process_id', str(r),
+                   '--dist_backend', 'gloo', '--log_root',
+                   os.path.join(d, 'train'), '--opts', *opts,
+                   'DATASET.TRAIN_DS', 'spec-syn',
+                   'TRAINING.LOG_SAVE_INTERVAL', '1'] for r in range(2)]
+    logs = _spawn(train, 'spec_train (2 ranks)', env=env)
+    steps = [line for line in logs[0].splitlines() if ' step 1 ' in line]
+    if not steps or 'its eager body' not in logs[0]:
+        raise RuntimeError(f'spec_train (2 ranks):\n{logs[0][-3000:]}')
+    print(f'[parallel cli] spec_train, 2 ranks over gloo, --fdr: exit 0 in '
+          f'{time.perf_counter() - t0:.1f} s; {steps[0].strip()}',
+          flush=True)
+
+    t0 = time.perf_counter()
+    cfg = os.path.join(d, 'serve.yaml')
+    with open(cfg, 'w') as f:
+        f.write(f'HMR:\n  BACKBONE: {PAR_CLI_BACKBONE}\n')
+    proc = subprocess.Popen(
+        py + ['spec_tpu_torch.cli.serve', '--data_parallel', '--device',
+              device, '--host', '127.0.0.1', '--port', '0', '--cfg', cfg,
+              '--min_size', '96', '--batch_size', '4'],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=str(ROOT))
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line)
+            if 'listening on' in line:
+                break
+        else:
+            raise RuntimeError('serve --data_parallel:\n' + ''.join(lines))
+        base = 'http://' + line.split('listening on ')[1].split()[0]
+        frames = _synthetic_frames(2, PAR_CLI_HW, 5)
+        boxes = [np.array([[80., 60., 60., 90.]], 'f4')] * 2
+        req = urllib.request.Request(base + '/predict',
+                                     data=_npz_body(frames, boxes))
+        with urllib.request.urlopen(req, timeout=PAR_TIMEOUT) as r:
+            status, body = r.status, r.read()
+        with urllib.request.urlopen(base + '/stats', timeout=60) as r:
+            stats = json.loads(r.read())
+        proc.terminate()
+        rest = proc.communicate(timeout=120)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if status != 200 or proc.returncode != 0:
+        raise RuntimeError(f'serve --data_parallel: status {status}, exit '
+                           f'{proc.returncode}:\n{"".join(lines)}{rest}')
+    print(f'[parallel cli] serve --data_parallel: one request of 2 frames '
+          f'answered (status {status}, {len(body)} bytes; /stats '
+          f'{stats}), SIGTERM, exit 0 in {time.perf_counter() - t0:.1f} s',
+          flush=True)
+
+
+def phase_parallel(device='cuda'):
+    """Phase 23 (see the module docstring). Returns K1's launches per
+    path for the kernels line. ``device='cpu'`` rehearses its logic on a
+    machine without a card (shrink PAR_BATCH, PAR_RES, PAR_BACKBONE,
+    PAR_VERTICES and FRAME_HW first); the NCCL rank is then a gloo one
+    and the kernel counts are 0."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    d = tempfile.mkdtemp(prefix='parallel_', dir=str(ROOT / 'build'))
+    sizes = (PAR_BATCH, PAR_RES, PAR_VERTICES, PAR_BACKBONE)
+    try:
+        print(f'[parallel] torch {torch.__version__}; NCCL '
+              f'{torch.distributed.is_nccl_available()}, gloo '
+              f'{torch.distributed.is_gloo_available()}; cards '
+              f'{torch.cuda.device_count()}', flush=True)
+        _release_if(device)
+        launches = {f'parallel train {k} (gloo)': v for k, v in
+                    _par_two_ranks(device, sizes, d).items()}
+        launches.update(_par_nccl(device, sizes))
+        frames, boxes = _frames_and_boxes(4, PERSONS_PER_FRAME, seed=0)
+
+        def make(data_parallel):
+            from spec_tpu_torch.serving import SpecPredictor
+
+            return SpecPredictor(
+                device=device, backbone=PAR_BACKBONE,
+                camcalib_backbone=PAR_BACKBONE, use_cam_feats=True,
+                img_res=224, min_size=600 if device == 'cuda' else 96,
+                batch_size=BATCH_SIZE, data_parallel=data_parallel)
+
+        launches.update(_par_predict(device, make, frames, boxes))
+        _par_clis(device, d)
+        return launches
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
+    if '--parallel-rank' in sys.argv[1:]:      # one rank of phase 23(a)
+        sys.path.insert(0, str(ROOT))
+        return _par_rank(sys.argv[sys.argv.index('--parallel-rank') + 1:])
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this check '
               'runs only on an NVIDIA GPU', file=sys.stderr)
@@ -4081,6 +4726,9 @@ def main() -> int:
         print(json.dumps({**phase_export(),
                           'spec_synth': phase_datagen()}))
         return 0
+    if '--parallel' in sys.argv[1:]:
+        print(json.dumps(phase_parallel()))
+        return 0
     from spec_tpu_torch.utils.batching import pad_pow2
 
     k3_rows = phase_bottleneck()
@@ -4094,9 +4742,12 @@ def main() -> int:
     main_batch = pad_pow2(min(sum(PERSONS_PER_FRAME), BATCH_SIZE),
                           BATCH_SIZE)
     pipe_batch = pipe['bf16']['fused']['outs'][0].shape[0]
+    # (phase 23's paths: a rank's half of the train batch, a replica's
+    # half of the predictor's chunk)
     lbs_rows = phase_lbs(sorted(set(LBS_BATCHES)
                                 | {main_batch, pipe_batch, TRAIN_BATCH,
-                                   det['batch'], SYNTH['n']}))
+                                   det['batch'], SYNTH['n'],
+                                   PAR_BATCH // 2, main_batch // 2}))
     verts, _, cam_t, vfov, pitch, roll = pipe['fp32']['fused']['outs']
     k2 = phase_projection(_projection_operands(verts, cam_t, vfov, pitch,
                                                roll))
@@ -4114,6 +4765,7 @@ def main() -> int:
     render = phase_render(build_seconds)
     exported = phase_export()
     synth_launches = phase_datagen()
+    parallel = phase_parallel()
 
     row = lbs_rows[main_batch]         # K1's batch on this slice's path
 
@@ -4149,6 +4801,8 @@ def main() -> int:
         'launches': exported['fp32 cpu-exported'],
         'batch': main_batch,
         'launches_by_path': {**render,
+                             # phase 23: the data-parallel paths
+                             **parallel,
                              # this slice's paths: one predict of the
                              # artifact exported on the CPU, loaded on
                              # the card (fp32), and spec_synth
@@ -4179,7 +4833,10 @@ def main() -> int:
                                     PEAK_FLOPS['fp32'])[0],
         # phase 6's kernel time at the batch each listed path gives K1
         'ms_by_path': {'exported predict': row['ms'],
-                       'spec_synth': lbs_rows[SYNTH['n']]['ms']},
+                       'spec_synth': lbs_rows[SYNTH['n']]['ms'],
+                       'parallel train rank': lbs_rows[PAR_BATCH // 2]['ms'],
+                       'data_parallel predict (2 replicas)':
+                           lbs_rows[main_batch // 2]['ms']},
         'library_ms': None,        # no single PyTorch call computes it
     }, k3_entry('bf16'), k3_entry('fp32'), {
         'name': 'project_points',

@@ -19,9 +19,14 @@ skipping the batches it already trained (the bucketed order is seeded
 by the epoch). SIGTERM saves the in-flight state. The error CDFs and
 the horizon images of the first validation batch are optional
 artifacts: they are skipped, with a line saying why, when matplotlib,
-cv2 or PIL is missing. Not ported yet: multi-host training
-(``--coordinator_address``, ``--num_processes``, ``--process_id``;
-ROADMAP.md §1 item 12).
+cv2 or PIL is missing.
+
+Multi-process training (``--coordinator_address``, ``--num_processes``,
+``--process_id``, ``--dist_backend``, or a launcher's environment; one
+process per GPU, as ``spec_train``): each rank loads its contiguous
+slice of every bucketed global batch, the ranks agree on a SIGTERM
+before the save, every rank validates on the whole val set on its own
+and rank 0 alone writes checkpoints and images.
 
 :func:`train` is the loop without the command line: it takes any
 dataset with ``__getitem__``, ``__len__`` and ``shape_buckets()``.
@@ -35,7 +40,12 @@ import os
 import numpy as np
 
 from spec_tpu_torch.cli._compat import add_cluster_flags
-from spec_tpu_torch.cli._device import add_device_flag, resolve_device
+from spec_tpu_torch.cli._device import (
+    add_device_flag,
+    add_process_flags,
+    join_processes,
+    resolve_device,
+)
 
 PROG = 'spec_tpu_torch.cli.camcalib_train'
 
@@ -50,13 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help='resume from the latest checkpoint')
     parser.add_argument('--fdr', action='store_true',
                         help='fast dev run: two steps, one val batch')
-    parser.add_argument('--coordinator_address', type=str, default='',
-                        help='multi-host training: not ported yet '
-                             '(ROADMAP.md §1 item 12)')
-    parser.add_argument('--num_processes', type=int, default=None,
-                        help='multi-host: not ported yet (item 12)')
-    parser.add_argument('--process_id', type=int, default=None,
-                        help='multi-host: not ported yet (item 12)')
+    add_process_flags(parser)
     add_cluster_flags(parser, num_gpus=True)
     add_device_flag(parser)
     return parser
@@ -129,12 +133,7 @@ def build_model(cfg, device, resume: bool = False):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.coordinator_address or args.num_processes or \
-            args.process_id is not None:
-        raise NotImplementedError(
-            'multi-host training (--coordinator_address, --num_processes, '
-            '--process_id) is not ported yet (ROADMAP.md §1 item 12)')
-    device = resolve_device(args.device, PROG)
+    device = join_processes(args, resolve_device(args.device, PROG))
 
     from spec_tpu_torch.utils.config import (
         camcalib_default_config,
@@ -145,6 +144,10 @@ def main(argv=None):
     cfg = run_grid_search_experiments(
         args.cfg, camcalib_default_config(), script='camcalib_train.py',
         cfg_id=args.cfg_id, opts=args.opts, log_root=args.log_root)
+    from spec_tpu_torch import parallel as par
+    if par.process_count() > 1:
+        cfg.LOGDIR = par.broadcast_string(cfg.LOGDIR)
+        os.makedirs(cfg.LOGDIR, exist_ok=True)
     train_ds, val_ds = build_datasets(cfg, resolve_camcalib_loss(cfg))
     return train(cfg, train_ds, val_ds, device, resume=args.resume,
                  fdr=args.fdr)
@@ -229,6 +232,7 @@ def _train_epochs(cfg, stop, state, step, train_ds, val_ds, loss_type,
                   skip_first=0, fdr=False):
     import torch
 
+    from spec_tpu_torch import parallel as par
     from spec_tpu_torch.core import bins as B
     from spec_tpu_torch.utils.checkpoints import save_checkpoint
     from spec_tpu_torch.utils.graphs import StageGraph
@@ -241,16 +245,28 @@ def _train_epochs(cfg, stop, state, step, train_ds, val_ds, loss_type,
 
     # one graph per bucket on the card; the model runs in eval mode
     val_graph = StageGraph('camcalib_val', val_infer)
+    is_main = par.process_index() == 0
+    if par.process_count() > 1:
+        print(f'[camcalib-train] rank {par.process_index()} of '
+              f'{par.process_count()} ({par.backend()}): the step runs '
+              + ('as one graph replay' if step.mode == 'graph'
+                 else 'its eager body (gloo collectives cannot be '
+                      'captured)'))
 
     for epoch in range(start_epoch, max_epochs):
         for batch in _bucketed_batches(
                 train_ds, cfg.DATASET.BATCH_SIZE, shuffle=True, seed=epoch,
                 num_workers=cfg.DATASET.NUM_WORKERS,
-                skip=(skip_first if epoch == start_epoch else 0)):
-            if stop.requested:
+                skip=(skip_first if epoch == start_epoch else 0),
+                process_id=par.process_index(),
+                process_count=par.process_count()):
+            # agree before the save's barrier (see parallel.
+            # all_processes_any)
+            if par.all_processes_any(stop.requested):
                 save_checkpoint(ckpt_dir, state, global_step)
-                print(f'[camcalib-train] preempted at step {global_step}; '
-                      f'checkpoint saved to {ckpt_dir}')
+                if is_main:
+                    print(f'[camcalib-train] preempted at step '
+                          f'{global_step}; checkpoint saved to {ckpt_dir}')
                 return state
             # DEVICE_JITTER batches: u8 frames, per-image affines and the
             # true shapes (the pad mask is rebuilt on the device).
@@ -278,6 +294,8 @@ def _train_epochs(cfg, stop, state, step, train_ds, val_ds, loss_type,
         if not fdr and (epoch + 1) % val_every != 0:
             save_checkpoint(ckpt_dir, state, global_step)
             continue
+        # every rank validates the whole val set on its own (the weights
+        # are replicated; no collectives) and gets the same MAE
         errs = {'vfov': [], 'pitch': [], 'roll': []}
         first_val_batch = first_val_pred = None
         model.eval()
@@ -303,27 +321,35 @@ def _train_epochs(cfg, stop, state, step, train_ds, val_ds, loss_type,
             model.train()
         mae = {k: float(np.mean(v)) for k, v in errs.items() if v}
         print(f'[camcalib-val] epoch {epoch} MAE(deg): {mae}')
-        vis_dir = os.path.join(cfg.LOGDIR, 'val_images')
-        try:
-            from spec_tpu_torch.utils.vis import plot_error_cdf
-            os.makedirs(vis_dir, exist_ok=True)
-            for k, v in errs.items():
-                if v:
-                    plot_error_cdf(
-                        v, os.path.join(vis_dir, f'cdf_{k}_epoch{epoch}.png'),
-                        label=k)
-        except Exception as e:
-            print(f'[camcalib-val] cdf plots skipped: {e}')
-        if first_val_batch is not None:
-            try:
-                _save_horizon_dumps(first_val_batch, first_val_pred, vis_dir,
-                                    epoch)
-            except Exception as e:
-                print(f'[camcalib-val] horizon dumps skipped: {e}')
+        if is_main:
+            _save_val_images(errs, first_val_batch, first_val_pred,
+                             os.path.join(cfg.LOGDIR, 'val_images'), epoch)
         save_checkpoint(ckpt_dir, state, global_step)
         if fdr:
             break
     return state
+
+
+def _save_val_images(errs, first_val_batch, first_val_pred, vis_dir,
+                     epoch) -> None:
+    """The error CDFs and the first val batch's horizons, each skipped
+    with a line when its libraries are missing."""
+    try:
+        from spec_tpu_torch.utils.vis import plot_error_cdf
+        os.makedirs(vis_dir, exist_ok=True)
+        for k, v in errs.items():
+            if v:
+                plot_error_cdf(
+                    v, os.path.join(vis_dir, f'cdf_{k}_epoch{epoch}.png'),
+                    label=k)
+    except Exception as e:
+        print(f'[camcalib-val] cdf plots skipped: {e}')
+    if first_val_batch is not None:
+        try:
+            _save_horizon_dumps(first_val_batch, first_val_pred, vis_dir,
+                                epoch)
+        except Exception as e:
+            print(f'[camcalib-val] horizon dumps skipped: {e}')
 
 
 def _save_horizon_dumps(batch, pred_angles, vis_dir, epoch, max_n=4):
@@ -355,15 +381,19 @@ def _save_horizon_dumps(batch, pred_angles, vis_dir, epoch, max_n=4):
 
 
 def _bucketed_batches(dataset, batch_size, shuffle, seed, num_workers,
-                      skip=0):
+                      skip=0, process_id=0, process_count=1):
     """Batches within padded-shape buckets, so each bucket has one input
     signature. The bucket order and each bucket's indices are shuffled
     by ``RandomState(seed)``; ``skip`` drops the first chunks at the
     index level (a mid-epoch resume reads none of them). A tail chunk
     repeats its last item up to ``batch_size``; ``valid_count`` says how
-    many are real."""
+    many are real. ``process_id`` / ``process_count``: each process
+    fetches its contiguous slice of every global chunk
+    (``data/loader.shard_index_chunk``), and ``valid_count`` is the
+    slice's real rows."""
     import concurrent.futures as cf
 
+    from spec_tpu_torch.data.loader import shard_index_chunk
     from spec_tpu_torch.data.pano_dataset import pad_collate
 
     buckets = dataset.shape_buckets()
@@ -380,10 +410,14 @@ def _bucketed_batches(dataset, batch_size, shuffle, seed, num_workers,
                 if skip > 0:
                     skip -= 1
                     continue
-                chunk = idxs[s:s + batch_size]
-                items = list(pool.map(dataset.__getitem__, chunk))
-                n_valid = len(items)
-                while len(items) < batch_size:
+                local, n_valid = shard_index_chunk(
+                    idxs[s:s + batch_size], batch_size, process_id,
+                    process_count)
+                # fetch the real entries (one when the slice has none);
+                # pad rows repeat the last item
+                real = local[:n_valid] if n_valid else local[:1]
+                items = list(pool.map(dataset.__getitem__, real))
+                while len(items) < len(local):
                     items.append(items[-1])
                 batch = pad_collate(items, fixed_hw=bucket_hw)
                 batch['valid_count'] = n_valid

@@ -513,21 +513,23 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help='serve from a .specx artifact (export_model; '
                              'ignores the ckpt, cfg, SMPL, min_size and '
                              'detector flags: the artifact is the model)')
+    parser.add_argument('--data_parallel', action='store_true',
+                        help='replicate the predictor on every card of '
+                             'this process and split each batch over '
+                             'them (--batch_size a multiple of the count)')
     add_device_flag(parser)
     g = parser.add_argument_group(
         'reference flags not ported yet (each raises NotImplementedError)')
-    g.add_argument('--data_parallel', action='store_true',
-                   help='ROADMAP.md §1 item 12')
     g.add_argument('--spatial_parallel', action='store_true',
-                   help='ROADMAP.md §1 item 12')
+                   help='ROADMAP.md §1 item 12b')
     return parser.parse_args(argv)
 
 
 def _unported(args) -> None:
-    for flag in ('data_parallel', 'spatial_parallel'):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f'--{flag} is not ported yet (ROADMAP.md §1 item 12)')
+    if args.spatial_parallel:
+        from spec_tpu_torch.parallel import SPATIAL_NOT_PORTED
+
+        raise NotImplementedError(SPATIAL_NOT_PORTED)
 
 
 def build_predictor(args, device):
@@ -543,6 +545,9 @@ def build_predictor(args, device):
         # Stream amortization is a serving knob, not part of the model.
         pred.camcalib_every = max(1, args.camcalib_every)
         pred.cut_threshold = args.cut_threshold
+        if args.data_parallel:
+            print('[serve] --data_parallel does not apply to --exported: '
+                  'the artifact runs on one device', flush=True)
         return pred
     return SpecPredictor(
         spec_ckpt=args.spec_ckpt, camcalib_ckpt=args.camcalib_ckpt,
@@ -551,7 +556,8 @@ def build_predictor(args, device):
         detector=args.detector, yolo_weights=args.yolo_weights,
         yolo_img_size=args.yolo_img_size,
         camcalib_every=args.camcalib_every,
-        cut_threshold=args.cut_threshold, device=device)
+        cut_threshold=args.cut_threshold, device=device,
+        data_parallel=args.data_parallel)
 
 
 def main(argv=None):

@@ -19,8 +19,12 @@ reference's torch files or the port trainer's checkpoint directories
 seeded random init with a warning, and a JAX package (orbax) checkpoint
 directory raises. ``TESTING.SAVE_IMAGES`` renders overlays to
 ``<logdir>/val_images/`` (and runs the in-the-wild sets' qualitative
-pass). Not ported yet: ``--data_parallel`` and multi-host
-``--coordinator_address`` (ROADMAP.md §1 item 12).
+pass). ``--data_parallel`` splits every batch over all the cards of
+this process (``parallel.create_mesh``; DATASET.BATCH_SIZE must divide
+over them). Under several processes (``--coordinator_address``,
+``--num_processes``, ``--process_id``, or a launcher's environment) every
+rank evaluates the whole val set on its own, and rank 0 alone writes
+into rank 0's LOGDIR.
 """
 
 from __future__ import annotations
@@ -33,7 +37,12 @@ import time
 import numpy as np
 
 from spec_tpu_torch.cli._compat import add_cluster_flags
-from spec_tpu_torch.cli._device import add_device_flag, resolve_device
+from spec_tpu_torch.cli._device import (
+    add_device_flag,
+    add_process_flags,
+    join_processes,
+    resolve_device,
+)
 
 PROG = 'spec_tpu_torch.cli.spec_eval'
 
@@ -53,14 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--fdr', action='store_true',
                         help='fast dev run: one batch per dataset')
     parser.add_argument('--data_parallel', action='store_true',
-                        help='not ported yet (ROADMAP.md §1 item 12)')
-    parser.add_argument('--coordinator_address', type=str, default='',
-                        help='multi-host eval: not ported yet (ROADMAP.md '
-                             '§1 item 12)')
-    parser.add_argument('--num_processes', type=int, default=None,
-                        help='multi-host: total process count')
-    parser.add_argument('--process_id', type=int, default=None,
-                        help='multi-host: this process\'s rank')
+                        help='split every batch over all the cards of '
+                             'this process (one replica each)')
+    add_process_flags(parser)
     add_cluster_flags(parser)
     add_device_flag(parser)
     return parser
@@ -122,11 +126,9 @@ def build_model(cfg, ckpt: str, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.data_parallel or args.coordinator_address:
-        raise NotImplementedError(
-            '--data_parallel and multi-host eval (--coordinator_address) '
-            'are not ported yet (ROADMAP.md §1 item 12)')
-    device = resolve_device(args.device, PROG)
+    device = join_processes(args, resolve_device(args.device, PROG))
+
+    from spec_tpu_torch import parallel as par
 
     from spec_tpu_torch.data.cam_dataset import CamDataset
     from spec_tpu_torch.data.loader import DataLoader
@@ -143,6 +145,29 @@ def main(argv=None):
         args.cfg, spec_default_config(), script='spec_eval.py',
         cfg_id=args.cfg_id, opts=args.opts, log_root=args.log_root)
     cfg.RUN_TEST = True
+
+    is_main = par.process_index() == 0
+    if par.process_count() > 1:
+        # one artifact dir: rank 0's (each rank minted its own)
+        cfg.LOGDIR = par.broadcast_string(cfg.LOGDIR)
+        if is_main:
+            os.makedirs(cfg.LOGDIR, exist_ok=True)
+        if args.data_parallel:
+            raise SystemExit(
+                '--data_parallel splits batches over the cards of one '
+                'process; under several processes each rank evaluates '
+                'the whole val set on its own instead (the same metrics '
+                'everywhere, files from rank 0): drop the flag')
+    mesh = None
+    if args.data_parallel:
+        mesh = par.create_mesh(device=device)
+        if int(cfg.DATASET.BATCH_SIZE) % len(mesh):
+            raise SystemExit(
+                f'--data_parallel: DATASET.BATCH_SIZE '
+                f'{cfg.DATASET.BATCH_SIZE} must be a multiple of the '
+                f'{len(mesh)}-device mesh')
+        device = mesh[0]
+        print(f'[eval] data_parallel over {len(mesh)} devices')
 
     assets_by_gender = load_assets_by_gender()
     jreg = h36m_regressor(assets_by_gender['neutral'])
@@ -183,8 +208,8 @@ def main(argv=None):
             use_gender=cfg.DATASET.USE_GENDER,
             save_results=cfg.TESTING.SAVE_RESULTS,
             save_images=cfg.TESTING.SAVE_IMAGES,
-            save_freq=cfg.TESTING.SAVE_FREQ,
-            logdir=cfg.LOGDIR, dataset_name=ds_name)
+            save_freq=cfg.TESTING.SAVE_FREQ, mesh=mesh,
+            logdir=cfg.LOGDIR if is_main else None, dataset_name=ds_name)
         dt = time.perf_counter() - t0
         print(f'[eval] {ds_name}: {summary} '
               f'({len(ds) / max(dt, 1e-6):.1f} img/s)')
@@ -207,7 +232,8 @@ def main(argv=None):
             summary.update({f'headline_{k}': v
                             for k, v in headline.items() if k != 'protocol'})
         all_results[ds_name] = summary
-        _save_best_results(cfg.LOGDIR, ds_name, summary)
+        if is_main:
+            _save_best_results(cfg.LOGDIR, ds_name, summary)
 
     print(json.dumps(all_results, indent=2, default=float))
     return all_results

@@ -15,9 +15,17 @@ forwards of the step run the fused LBS kernel (K1) and its backward.
 ``--ckpt`` (or TRAINING.PRETRAINED_LIT) is a reference torch checkpoint
 or a trainer checkpoint directory; without one the model starts from a
 seeded random init with a warning (the reference always starts from
-pretrained weights). Not ported yet: multi-host training
-(``--coordinator_address``, ``--num_processes``, ``--process_id``;
-ROADMAP.md §1 item 12).
+pretrained weights).
+
+Multi-process training runs one process per GPU (the JAX package runs
+one per host): give each process ``--coordinator_address host:port``
+(rank 0's), ``--num_processes`` and its ``--process_id``, or start it
+under a launcher that sets ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
+``MASTER_PORT`` (``torchrun``). Rank r trains on ``cuda:{local rank %
+cards}`` over NCCL (the step one graph replay), or over gloo with
+``--dist_backend gloo`` (the CPU's backend, and the one for two ranks
+that share a card; the step then runs eagerly). DATASET.BATCH_SIZE is
+the global batch; the ranks agree on rank 0's LOGDIR.
 """
 
 from __future__ import annotations
@@ -26,7 +34,12 @@ import argparse
 import os
 
 from spec_tpu_torch.cli._compat import add_cluster_flags
-from spec_tpu_torch.cli._device import add_device_flag, resolve_device
+from spec_tpu_torch.cli._device import (
+    add_device_flag,
+    add_process_flags,
+    join_processes,
+    resolve_device,
+)
 
 PROG = 'spec_tpu_torch.cli.spec_train'
 
@@ -46,13 +59,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--log_root', type=str, default='logs')
     parser.add_argument('--fdr', action='store_true',
                         help='fast dev run: 1 epoch')
-    parser.add_argument('--coordinator_address', type=str, default='',
-                        help='multi-host training: not ported yet '
-                             '(ROADMAP.md §1 item 12)')
-    parser.add_argument('--num_processes', type=int, default=None,
-                        help='multi-host: not ported yet (item 12)')
-    parser.add_argument('--process_id', type=int, default=None,
-                        help='multi-host: not ported yet (item 12)')
+    add_process_flags(parser)
     add_cluster_flags(parser)
     add_device_flag(parser)
     return parser
@@ -99,12 +106,7 @@ def build_model(cfg, ckpt: str, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.coordinator_address or args.num_processes or \
-            args.process_id is not None:
-        raise NotImplementedError(
-            'multi-host training (--coordinator_address, --num_processes, '
-            '--process_id) is not ported yet (ROADMAP.md §1 item 12)')
-    device = resolve_device(args.device, PROG)
+    device = join_processes(args, resolve_device(args.device, PROG))
 
     from spec_tpu_torch.cli.spec_eval import (
         h36m_regressor,
@@ -127,6 +129,11 @@ def main(argv=None):
     cfg = run_grid_search_experiments(
         args.cfg, spec_default_config(), script='spec_train.py',
         cfg_id=args.cfg_id, opts=args.opts, log_root=args.log_root)
+    from spec_tpu_torch import parallel as par
+    if par.process_count() > 1:
+        # each rank minted its own timestamped LOGDIR: take rank 0's
+        cfg.LOGDIR = par.broadcast_string(cfg.LOGDIR)
+        os.makedirs(cfg.LOGDIR, exist_ok=True)
 
     # The train and eval steps move the assets to the device and attach
     # the fused LBS kernel's operands (bench.py's train setup attaches

@@ -5,7 +5,9 @@ Decode and crop are cv2 calls that release the GIL, so a thread pool
 fetches in parallel without worker processes. Batches have a static
 size: the last partial one is padded by repeating its last sample, and
 ``batch['_valid_count']`` says how many rows are real. The batches,
-their order and their padding are the reference's.
+their order and their padding are the reference's. Under several
+processes each loads its contiguous slice of every global batch
+(:func:`shard_index_chunk`).
 """
 
 from __future__ import annotations
@@ -33,15 +35,32 @@ def collate(items) -> dict:
     return out
 
 
-def _pad_chunk(chunk, batch_size: int):
-    """A chunk of indices padded to ``batch_size`` by repeating its last
-    index, and how many of its entries are real."""
+def check_process_divisibility(batch_size: int, process_count: int) -> int:
+    """-> the rows of each process's slice; raises unless ``batch_size``
+    divides over the processes."""
+    process_count = max(int(process_count), 1)
+    if batch_size % process_count:
+        raise ValueError(
+            f'batch_size {batch_size} must divide evenly over '
+            f'{process_count} processes')
+    return batch_size // process_count
+
+
+def shard_index_chunk(chunk, batch_size: int, process_id: int = 0,
+                      process_count: int = 1):
+    """The multi-process chunk contract (``DataLoader`` and CamCalib's
+    bucketed batches): a global chunk of indices padded to
+    ``batch_size`` by repeating its last index, then this process's
+    contiguous slice of it and how many of the slice's entries are real
+    samples."""
+    per = check_process_divisibility(batch_size, process_count)
+    lo = int(process_id) * per
     valid = len(chunk)
     chunk = np.asarray(chunk)
     if valid < batch_size:
         chunk = np.concatenate(
             [chunk, np.full(batch_size - valid, chunk[-1], chunk.dtype)])
-    return chunk, valid
+    return chunk[lo:lo + per], int(np.clip(valid - lo, 0, per))
 
 
 class DataLoader:
@@ -62,8 +81,12 @@ class DataLoader:
         samples, so the samples of one frame share a batch and one
         decode (``decode_cache``); sequential epochs also iterate group
         by group.
-      process_id / process_count: multi-host data parallelism is not
-        ported yet (ROADMAP.md §1 item 12): anything but 0 / 1 raises.
+      process_id / process_count: multi-process data parallelism. The
+        global epoch order (shuffle, chunking, skip) depends on the seed
+        only, so it is the same in every process, and each process
+        fetches only its contiguous slice of every global chunk
+        (``batch_size / process_count`` rows; ``_valid_count`` is the
+        slice's real rows).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
@@ -72,10 +95,9 @@ class DataLoader:
                  skip_batches: int = 0,
                  process_id: int = 0, process_count: int = 1,
                  group_keys=None):
-        if int(process_id) != 0 or int(process_count) != 1:
-            raise NotImplementedError(
-                'multi-process data loading (process_id/process_count) is '
-                'not ported yet (ROADMAP.md §1 item 12)')
+        check_process_divisibility(batch_size, process_count)
+        self.process_id = int(process_id)
+        self.process_count = max(int(process_count), 1)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -124,7 +146,8 @@ class DataLoader:
             if skip > 0:
                 skip -= 1
                 continue
-            yield _pad_chunk(chunk, self.batch_size)
+            yield shard_index_chunk(chunk, self.batch_size,
+                                    self.process_id, self.process_count)
 
     def __iter__(self) -> Iterator[dict]:
         self._epoch += 1
@@ -149,10 +172,11 @@ class DataLoader:
                     for chunk, valid in self._index_batches():
                         if stop.is_set():
                             return
-                        # fetch the real entries only; padding rows
-                        # repeat the last fetched item
+                        # fetch the real entries only (one when the slice
+                        # has none); padding rows repeat the last item
+                        real = chunk[:valid] if valid else chunk[:1]
                         items = list(pool.map(self.dataset.__getitem__,
-                                              chunk[:valid]))
+                                              real))
                         while len(items) < len(chunk):
                             items.append(items[-1])
                         batch = collate(items)

@@ -20,8 +20,14 @@ the design, not a fallback: a capture that fails raises.
 the host) to ``<logdir>/val_images/<dataset>_b<idx>.jpg``, with the
 camera the metrics used. The in-the-wild sets (mpii, coco) have no 3D
 GT: their pass is qualitative, its errors zero, and it needs
-``save_images``. Not ported yet: ``mesh=`` (data-parallel eval, ROADMAP.md
-§1 item 12) raises ``NotImplementedError``.
+``save_images``.
+
+``mesh`` (a list of local devices, ``parallel.create_mesh``): data-
+parallel eval in one process. Each device holds a replica of the model
+and the assets with a step graph of its own, every batch splits into one
+equal part per device, and the outputs are gathered on the first device
+before the Procrustes tail (``parallel.ReplicatedStage``). Under a
+process group each rank evaluates on its own instead, without a mesh.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spec_tpu_torch import parallel as par
 from spec_tpu_torch.core import constants as C
 from spec_tpu_torch.core import smpl as S
 from spec_tpu_torch.data.loader import device_prefetch
@@ -104,11 +111,13 @@ class EvalStep:
     """``step(batch) -> (out, j14, j24, v2v)`` over a dict of tensors on
     the model's device holding ``BATCH_KEYS``, in inference mode.
     ``head`` is the captured
-    part (a :class:`StageGraph`); :meth:`eager` runs its body directly,
-    for holding replays to it."""
+    part (a :class:`StageGraph`, or a ``parallel.ReplicatedStage`` of
+    them over ``replicas``, the models it runs, one per device);
+    :meth:`eager` runs its body directly, for holding replays to it."""
 
-    def __init__(self, head: StageGraph):
+    def __init__(self, head, replicas=()):
         self.head = head
+        self.replicas = list(replicas)
 
     def __call__(self, batch: dict):
         with torch.inference_mode():
@@ -129,20 +138,27 @@ def make_eval_step(model, assets_by_gender: dict, j_regressor_h36m,
     ``protocol``: 'j14' (default) or 'j17' (mpi-inf-3dhp's 17 H36M
     joints). ``assets_by_gender``: 'neutral', and 'male' / 'female' for
     ``use_gender``; each is moved to the model's device with the fused
-    kernel's operands attached."""
-    if mesh is not None:
-        raise NotImplementedError(
-            'make_eval_step(mesh=...): data-parallel eval is not ported yet '
-            '(ROADMAP.md §1 item 12)')
-    device = next(model.parameters()).device
+    kernel's operands attached. ``mesh``: a list of devices, the first
+    the model's; the step's head then runs as one replica per device
+    (the model copied with ``parallel.replicate``; ``evaluate_dataset``
+    refreshes the copies from the model, ``parallel.sync_replicas``)."""
     model.eval()
     genders = ('neutral', 'male', 'female') if use_gender else ('neutral',)
-    dev_assets = {g: S.fused_on(assets_by_gender[g], device)
-                  for g in genders if g in assets_by_gender}
-    jreg = torch.as_tensor(np.asarray(j_regressor_h36m), dtype=torch.float32,
-                           device=device)
-    return EvalStep(StageGraph('eval_step', functools.partial(
-        _step_head, model, dev_assets, jreg, use_gender, protocol)))
+    if mesh is None:
+        mesh, replicas = [next(model.parameters()).device], [model]
+    else:
+        mesh = list(mesh)
+        replicas = par.replicate(model, mesh)
+    heads = []
+    for replica, device in zip(replicas, mesh):
+        dev_assets = {g: S.fused_on(assets_by_gender[g], device)
+                      for g in genders if g in assets_by_gender}
+        jreg = torch.as_tensor(np.asarray(j_regressor_h36m),
+                               dtype=torch.float32, device=device)
+        heads.append(StageGraph('eval_step', functools.partial(
+            _step_head, replica, dev_assets, jreg, use_gender, protocol)))
+    return EvalStep(heads[0] if len(heads) == 1
+                    else par.ReplicatedStage(heads, mesh), replicas)
 
 
 # Memoized steps, first in first out: each holds the model, the assets
@@ -176,7 +192,10 @@ def evaluate_dataset(
     ``use_gt_cam``: the GT camera (``cam_rotmat``, ``cam_int``) or
     CamCalib's (``pred_cam_rotmat``, ``pred_cam_int``). ``save_images``
     with ``logdir``: render the first sample of every ``save_freq``-th
-    batch to ``val_images/`` (:func:`render_val_group`)."""
+    batch to ``val_images/`` (:func:`render_val_group`). ``mesh``:
+    data-parallel eval over a list of local devices, the first the
+    model's (:func:`make_eval_step`); one process only, and the loader's
+    batch size must divide over the devices."""
     protocol = 'j17' if dataset_name == 'mpi-inf-3dhp' else 'j14'
     qualitative = dataset_name in ('mpii', 'coco')
     if qualitative and not save_images:
@@ -185,25 +204,38 @@ def evaluate_dataset(
             'TESTING.SAVE_IMAGES True — its evaluation is qualitative '
             'only (reference spec/trainer.py:262-269)')
     if mesh is not None:
-        raise NotImplementedError(
-            'evaluate_dataset(mesh=...): data-parallel eval is not ported '
-            'yet (ROADMAP.md §1 item 12)')
+        if par.process_count() != 1:
+            raise ValueError(
+                'evaluate_dataset(mesh=...) is single-process: under a '
+                'process group each rank evaluates on its own, without a '
+                'mesh (train/trainer.py validate)')
+        n_dev = len(mesh)
+        bs_loader = int(getattr(loader, 'batch_size', 0))
+        if bs_loader % n_dev:
+            raise ValueError(
+                f'eval batch size {bs_loader} must be a multiple of the '
+                f'{n_dev}-device mesh (loader batches are padded to full '
+                'size, so every batch must split evenly)')
+        mesh = tuple(par.create_mesh(mesh))
     if variables is not None:
         model.load_state_dict(variables)
     device = next(model.parameters()).device
 
     key = (id(model), id(assets_by_gender), id(j_regressor_h36m),
-           use_gender, protocol, str(device))
+           use_gender, protocol, str(device), mesh)
     entry = _EVAL_STEP_CACHE.get(key)
     if entry is None:
         while len(_EVAL_STEP_CACHE) >= _EVAL_STEP_CACHE_MAX:
             _EVAL_STEP_CACHE.pop(next(iter(_EVAL_STEP_CACHE)))
         step = make_eval_step(model, assets_by_gender, j_regressor_h36m,
-                              use_gender=use_gender, protocol=protocol)
+                              use_gender=use_gender, protocol=protocol,
+                              mesh=mesh)
         # the entry holds the key's objects, so their ids stay theirs
         entry = _EVAL_STEP_CACHE[key] = (step, model, assets_by_gender,
                                          j_regressor_h36m)
     step = entry[0]
+    # the replicas evaluate the model's weights as they stand now
+    par.sync_replicas(step.replicas)
     acc = MetricAccumulator(save_results=save_results)
 
     cam_keys = (('cam_rotmat', 'cam_int') if use_gt_cam

@@ -1,6 +1,8 @@
 """Dense-supervision losses for PARE-style heads (torch twin of
 ``spec_tpu/losses/aux.py``): keypoint-heatmap MSE and per-pixel
-part-segmentation cross-entropy, both with static-shape masks."""
+part-segmentation cross-entropy, both with static-shape masks; in a
+data-parallel train step each is this rank's share of the global
+batch's loss (``parallel.sharded_batch``)."""
 
 from __future__ import annotations
 
@@ -8,6 +10,7 @@ from typing import Optional
 
 import torch
 
+from spec_tpu_torch import parallel as par
 from spec_tpu_torch.utils.precision import exact_fp32_fn
 
 
@@ -24,7 +27,11 @@ def joints_mse_loss(pred_heatmaps, gt_heatmaps,
         w = target_weight.reshape(B, J, 1).float()
         pred = pred * w
         gt = gt * w
-    return (0.5 * ((pred - gt) ** 2).mean(dim=(0, 2))).mean()
+    if par.batch_world() == 1:
+        return (0.5 * ((pred - gt) ** 2).mean(dim=(0, 2))).mean()
+    per_joint = ((pred - gt) ** 2).sum(dim=(0, 2)) / (
+        B * par.batch_world() * pred.shape[2])
+    return (0.5 * per_joint).mean()
 
 
 @exact_fp32_fn
@@ -42,4 +49,5 @@ def pixelwise_cross_entropy(logits, target, ignore_index: int = -1,
     w = valid.float()
     if class_weights is not None:
         w = w * class_weights.float()[safe]
-    return (nll * w).sum() / torch.clamp(w.sum(), min=1e-12)
+    return (nll * w).sum() / torch.clamp(par.all_reduce_data(w.sum()),
+                                         min=1e-12)

@@ -5,13 +5,16 @@ Per-angle losses over the 256-logit bin heads: cross-entropy,
 KL(one-hot) (equal to CE, the one-hot's entropy being 0), softargmax-L2
 on the soft index, and the "biased L2" that penalizes over-predicting
 the vfov harder (``where(pred > target, l2, l2 / (l2 + 1))``). Each takes
-(B, 256) logits and targets and returns a scalar, in exact fp32.
+(B, 256) logits and targets and returns a scalar, in exact fp32; in a
+data-parallel train step, this rank's share of the global batch's mean
+(``parallel.batch_mean``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from spec_tpu_torch import parallel as par
 from spec_tpu_torch.core.bins import softargmax1d
 from spec_tpu_torch.utils.precision import exact_fp32_fn
 
@@ -21,7 +24,7 @@ def cross_entropy_loss(logits, target_bins):
     """Mean CE with integer bin targets (``nn.CrossEntropyLoss``)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     picked = torch.gather(logp, -1, target_bins[:, None].long())[:, 0]
-    return -picked.mean()
+    return -par.batch_mean(picked)
 
 
 def kl_one_hot_loss(logits, target_bins):
@@ -33,7 +36,7 @@ def kl_one_hot_loss(logits, target_bins):
 def softargmax_l2_loss(logits, target_soft_idx):
     """L2 between the softargmax of the logits and the soft index."""
     pred = softargmax1d(logits)
-    return ((target_soft_idx.float() - pred) ** 2).mean()
+    return par.batch_mean((target_soft_idx.float() - pred) ** 2)
 
 
 @exact_fp32_fn
@@ -43,7 +46,7 @@ def softargmax_biased_l2_loss(logits, target_soft_idx):
     pred = softargmax1d(logits)
     t = target_soft_idx.float()
     l2 = (t - pred) ** 2
-    return torch.where(pred > t, l2, l2 / (l2 + 1.0)).mean()
+    return par.batch_mean(torch.where(pred > t, l2, l2 / (l2 + 1.0)))
 
 
 def camera_regressor_loss(pred_vfov, pred_pitch, pred_roll, gt_vfov,

@@ -18,6 +18,14 @@ Reference quirks kept, so the values match:
 * the cam variant's 2D loss uses FULL-IMAGE keypoints normalized to
   [-1, 1] by (W, H), rescaled per sample by ``img_size / (bbox_scale *
   200)`` to crop-loss magnitude.
+
+In a data-parallel train step (``parallel.sharded_batch``) each loss is
+this rank's share of the loss over the global batch: the masked means
+divide by the global counts (``parallel.all_reduce_data``) and the
+plain means by the global row count (``parallel.batch_mean``), as the
+JAX mesh step computes them over its sharded batch. A mean of per-rank
+means would differ whenever the ranks hold different numbers of
+``has_smpl`` or ``has_pose_3d`` rows.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import math
 
 import torch
 
+from spec_tpu_torch import parallel as par
 from spec_tpu_torch.core.geometry import rodrigues, rotmat_to_rot6d
 from spec_tpu_torch.utils.precision import exact_fp32_fn
 
@@ -37,12 +46,13 @@ def _safe_div(num, den):
 
 def _masked_row_mean(per_elem: torch.Tensor, row_mask: torch.Tensor):
     """Mean over the elements of the rows ``row_mask`` selects: torch's
-    ``tensor[mask].mean()`` with static shapes (0 when none is)."""
+    ``tensor[mask].mean()`` with static shapes (0 when none is); over
+    the global batch in a sharded one."""
     mask = row_mask.to(per_elem.dtype).reshape(
         (-1,) + (1,) * (per_elem.ndim - 1))
     numel_per_row = float(math.prod(per_elem.shape[1:]))
-    return _safe_div((per_elem * mask).sum(),
-                     row_mask.to(per_elem.dtype).sum() * numel_per_row)
+    return _safe_div((per_elem * mask).sum(), par.all_reduce_data(
+        row_mask.to(per_elem.dtype).sum() * numel_per_row))
 
 
 @exact_fp32_fn
@@ -55,7 +65,9 @@ def smpl_param_loss(pred_rotmat, pred_betas, gt_pose_aa, gt_betas, has_smpl,
     gt_rotmat = rodrigues(gt_pose_aa.reshape(B, 24, 3))
     valid = has_smpl.float()
     mse_pose = _masked_row_mean((pred_rotmat - gt_rotmat) ** 2, valid)
-    mean_conf = _safe_div((pose_conf.mean(dim=1) * valid).sum(), valid.sum())
+    mean_conf = _safe_div(
+        par.all_reduce_data((pose_conf.mean(dim=1) * valid).sum()),
+        par.all_reduce_data(valid.sum()))
     loss_pose = mse_pose * mean_conf
     loss_betas = _masked_row_mean((pred_betas - gt_betas) ** 2, valid)
     return loss_pose, loss_betas
@@ -99,7 +111,8 @@ def projected_keypoint_loss(pred_kp2d, gt_kp2d, openpose_weight: float,
 def gaussian_nll(pred_mean, pred_logvar, target):
     """Heteroscedastic Gaussian NLL ``0.5 (exp(-s) err^2 + s)``, mean."""
     err2 = (pred_mean - target) ** 2
-    return (0.5 * (torch.exp(-pred_logvar) * err2 + pred_logvar)).mean()
+    return par.batch_mean(0.5 * (torch.exp(-pred_logvar) * err2
+                                 + pred_logvar))
 
 
 @exact_fp32_fn
@@ -138,7 +151,7 @@ def _cam_regularizer(pred_cam):
     finite: below that the reference's value overflows and training has
     already diverged; exact for every s > -4."""
     s = torch.clamp(pred_cam[:, 0], min=-4.0)
-    return (torch.exp(-s * 10.0) ** 2).mean()
+    return par.batch_mean(torch.exp(-s * 10.0) ** 2)
 
 
 def _weighted(cfg, loss_keypoints, loss_keypoints_3d, loss_pose, loss_betas,
@@ -181,7 +194,7 @@ def hmr_cam_loss(pred: dict, gt: dict, cfg: HMRLossConfig = HMRLossConfig()):
         pred_kp2d, gt_kp2d, cfg.openpose_train_weight, cfg.gt_train_weight)
     # To crop-loss magnitude: image size over bbox size.
     scale = img_wh / (gt['scale'][:, None].float() * 200.0)
-    loss_keypoints = (kp_loss * scale[:, None, :]).mean()
+    loss_keypoints = par.batch_mean(kp_loss * scale[:, None, :])
     loss_keypoints_3d = keypoint_3d_loss(
         pred['smpl_joints3d'], gt['pose_3d'], gt['has_pose_3d'])
     loss_shape = shape_loss(pred['smpl_vertices'], gt['vertices'],
@@ -198,9 +211,9 @@ def hmr_loss(pred: dict, gt: dict, cfg: HMRLossConfig = HMRLossConfig()):
     loss_pose, loss_betas = smpl_param_loss(
         pred['pred_pose'], pred['pred_shape'], gt['pose'], gt['betas'],
         gt['has_smpl'], gt['pose_conf'])
-    loss_keypoints = projected_keypoint_loss(
+    loss_keypoints = par.batch_mean(projected_keypoint_loss(
         pred['smpl_joints2d'], gt['keypoints'], cfg.openpose_train_weight,
-        cfg.gt_train_weight).mean()
+        cfg.gt_train_weight))
     loss_keypoints_3d = keypoint_3d_loss(
         pred['smpl_joints3d'], gt['pose_3d'], gt['has_pose_3d'])
     loss_shape = shape_loss(pred['smpl_vertices'], gt['vertices'],

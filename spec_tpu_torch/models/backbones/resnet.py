@@ -34,6 +34,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from spec_tpu_torch import parallel as par
+
 
 class _Recompute:
     """The context of a checkpointed block's recompute: its BatchNorms
@@ -69,13 +71,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     scaled by n / (n - 1), and writing that copy back scaled by
     (n - 1) / n, gives ``(1 - m) rv + m var_b``. (The buffer itself may
     not be rescaled in place: autograd saves the tensor the call was
-    given.)"""
+    given.)
+
+    In a data-parallel train step (``parallel.sharded_batch`` over more
+    than one rank) the statistics are those of the GLOBAL batch, as
+    flax's over the sharded batch of the JAX mesh step: one all-reduce
+    of the per-channel sum, sum of squares and count, with autograd
+    (:meth:`_global_forward`). Per-rank statistics (torch DDP's default)
+    would normalize and train differently."""
 
     recomputing = False     # set by _Recompute
 
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if par.batch_world() > 1 and self.momentum is not None:
+            return self._global_forward(x)
         n = x.numel() // x.shape[1]
         if n < 2 or self.momentum is None:
             return super().forward(x)    # torch raises for one value
@@ -94,6 +105,33 @@ class BatchNorm2d(nn.BatchNorm2d):
         with torch.no_grad():
             self.running_var.copy_(var * ((n - 1) / n))
         return y
+
+    def _global_forward(self, x):
+        """Train mode over a batch sharded across the ranks: the mean and
+        biased variance (``E[x^2] - E[x]^2``, flax's) of the global
+        batch normalize, and update the running statistics (flax's rule,
+        biased variance) unless the block is being recomputed."""
+        C = x.shape[1]
+        xf = x.float()
+        stats = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                           xf.new_full((1,), x.numel() // C)])
+        stats = par.all_reduce_sum(stats)
+        n = stats[2 * C]
+        mean = stats[:C] / n
+        var = torch.clamp(stats[C:2 * C] / n - mean * mean, min=0.0)
+        scale = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            scale = scale * self.weight
+        y = (xf - mean[:, None, None]) * scale[:, None, None]
+        if self.bias is not None:
+            y = y + self.bias[:, None, None]
+        if not self.recomputing:
+            m = self.momentum
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                self.running_mean.mul_(1 - m).add_(mean.detach() * m)
+                self.running_var.mul_(1 - m).add_(var.detach() * m)
+        return y.to(x.dtype)
 
 
 def conv3x3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:

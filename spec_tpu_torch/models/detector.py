@@ -32,6 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from spec_tpu_torch import parallel as par
 from spec_tpu_torch.utils.batching import pad_pow2
 from spec_tpu_torch.utils.graphs import StageGraph, device_constant
 from spec_tpu_torch.utils.precision import compute_dtype
@@ -343,8 +344,12 @@ class YoloDetector:
     counterpart of the reference's ``jax.jit``); on the CPU they run
     eagerly. ``conf_thresh`` and ``nms_thresh`` are host-only and may be
     overridden per call. ``dtype``: the convolutions' compute dtype
-    (bf16, as the reference). ``mesh`` (sharding over several devices)
-    is not ported yet and raises."""
+    (bf16, as the reference). ``mesh``: a list of local devices, the
+    first ``device`` (``parallel.create_mesh``); the detector then runs
+    as one replica per device, each with its graphs, every batch split
+    into one equal part per device (``parallel.ReplicatedStage``).
+    ``batch_size`` must divide over the mesh; tail batches pad to a
+    multiple of its size."""
 
     def __init__(self, weights_path: Optional[str] = None,
                  img_size: int = 416, batch_size: int = 8,
@@ -354,10 +359,14 @@ class YoloDetector:
                  device: str | torch.device = 'cuda', pool=None):
         if img_size % 32:
             raise ValueError('img_size must be a multiple of 32')
+        self._min_pad = 1
         if mesh is not None:
-            raise NotImplementedError(
-                'YoloDetector(mesh=...) is not ported yet (multi-device '
-                'layouts, ROADMAP.md §1 item 12)')
+            if int(batch_size) % len(mesh):
+                raise ValueError(
+                    f'detector batch_size {batch_size} must be a multiple '
+                    f'of the {len(mesh)}-device mesh')
+            self._min_pad = len(mesh)
+            device = mesh[0]
         self.img_size = int(img_size)
         self.batch_size = int(batch_size)
         self.conf_thresh = float(conf_thresh)
@@ -373,6 +382,13 @@ class YoloDetector:
         self.model = self.model.to(self.device).eval()
         self._fwd = StageGraph('detector', functools.partial(
             _detect_forward, self.model, int(topk)), pool)
+        if mesh is not None and len(mesh) > 1:
+            models = par.replicate(self.model, mesh)
+            self._fwd = par.ReplicatedStage(
+                [self._fwd] + [StageGraph('detector', functools.partial(
+                    _detect_forward, m, int(topk)),
+                    pool if d == self.device else None)
+                    for m, d in zip(models[1:], mesh[1:])], mesh)
 
     def _to_device(self, frame) -> torch.Tensor:
         if isinstance(frame, torch.Tensor):
@@ -395,6 +411,8 @@ class YoloDetector:
             chunk = [self._to_device(f) for f in frames[start:start + B]]
             boxed = [letterbox(f, S) for f in chunk]
             bp = pad_pow2(len(chunk), B)
+            # under a mesh, every replica's part is non-empty
+            bp = par.pad_to_multiple(bp, self._min_pad)
             batch = torch.zeros((bp, S, S, 3), dtype=torch.float32,
                                 device=self.device)
             batch[:len(chunk)] = torch.stack([b[0] for b in boxed])

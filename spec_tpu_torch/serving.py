@@ -32,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from spec_tpu_torch import parallel as par
 from spec_tpu_torch.core import bins
 from spec_tpu_torch.core import geometry as G
 from spec_tpu_torch.core import smpl as S
@@ -241,8 +242,13 @@ class SpecPredictor:
     YoloDetector` (bf16, batches of 8, its graphs in the stages' pool;
     random init without ``yolo_weights``, with a warning) that
     ``predict(frames)`` without boxes runs first.
-    ``data_parallel`` and ``spatial_parallel`` are not ported yet and
-    raise.
+    ``data_parallel=True`` replicates both stages (and the detector)
+    on every local card (``parallel.create_mesh``), each replica with
+    graphs of its own: a padded batch splits into one equal part per
+    card and the outputs gather on the first, so ``batch_size`` must be a
+    multiple of the card count and padding never drops below one item
+    per card (``_min_pad``, ``_min_pad_s1``). ``spatial_parallel`` (the
+    height-sharded stage 1) is not ported yet and raises.
 
     Streams: ``camcalib_every`` state is kept per stream name, at most
     ``max_streams`` named streams, least recently used evicted. Unlike
@@ -265,6 +271,9 @@ class SpecPredictor:
     # class default would be shared by every instance)
     _cam_streams: Optional[OrderedDict] = None
     max_streams = 256  # LRU cap on retained named camcalib_every streams
+    mesh = None             # data_parallel's devices
+    _min_pad = 1            # padded batches are multiples of these
+    _min_pad_s1 = 1
 
     def __init__(
         self,
@@ -298,10 +307,8 @@ class SpecPredictor:
             raise ValueError(
                 'data_parallel and spatial_parallel are mutually '
                 'exclusive layouts (throughput vs single-frame latency)')
-        if data_parallel or spatial_parallel:
-            raise NotImplementedError(
-                'data_parallel/spatial_parallel are not ported yet '
-                '(multi-device layouts, ROADMAP.md §1 item 12)')
+        if spatial_parallel:
+            raise NotImplementedError(par.SPATIAL_NOT_PORTED)
         if use_fused_lbs is False:
             raise ValueError(
                 'use_fused_lbs=False has no counterpart in the port: SMPL '
@@ -314,6 +321,17 @@ class SpecPredictor:
                 'is no crop upload to shrink')
 
         self.device = torch.device(device)
+        if data_parallel:
+            self.mesh = par.create_mesh(device=self.device)
+            n_dev = len(self.mesh)
+            if batch_size % n_dev:
+                raise ValueError(
+                    f'batch_size {batch_size} must be a multiple of the '
+                    f'device count {n_dev} for data_parallel')
+            self.device = self.mesh[0]
+            # padded batches stay divisible by the mesh (powers of two
+            # compose with power-of-two meshes above this floor)
+            self._min_pad = self._min_pad_s1 = n_dev
         self.img_res = img_res
         self.batch_size = batch_size
         self.min_size = min_size
@@ -338,6 +356,8 @@ class SpecPredictor:
             'stage1', CamStage(self.camcalib, self.loss_type), pool)
         self._stage2 = StageGraph(
             'stage2', SpecStage(self.spec, self.assets), pool)
+        if self.mesh is not None:
+            self._replicate_stages(pool)
 
         if detector == 'yolo':
             from spec_tpu_torch.models.detector import YoloDetector
@@ -346,9 +366,45 @@ class SpecPredictor:
                 print('[serving] WARNING: detector=yolo without '
                       'yolo_weights runs a random-init detector '
                       '(pipeline smoke only)')
+            det_bs = 8
+            if self.mesh is not None:   # the batch must divide the mesh
+                det_bs = par.pad_to_multiple(det_bs, len(self.mesh))
             self.detector = YoloDetector(
                 weights_path=yolo_weights or None, img_size=yolo_img_size,
-                batch_size=8, device=self.device, pool=pool)
+                batch_size=det_bs, device=self.device, pool=pool,
+                mesh=self.mesh)
+
+    def _replicate_stages(self, pool) -> None:
+        """data_parallel: each stage as one replica per device of the
+        mesh, the first the stages built above; a card's replicas share
+        that card's graph pool (their replays run in turn)."""
+        pools = {self.device: pool}
+        s1, s2 = [self._stage1], [self._stage2]
+        cams = par.replicate(self.camcalib, self.mesh)
+        specs = par.replicate(self.spec, self.mesh)
+        for cam, spec, dev in zip(cams[1:], specs[1:], self.mesh[1:]):
+            if dev not in pools:
+                with torch.cuda.device(dev):
+                    pools[dev] = torch.cuda.graph_pool_handle()
+            assets = S.with_packed_lbs(self.assets.to(dev))
+            s1.append(StageGraph('stage1', CamStage(cam, self.loss_type),
+                                 pools[dev]))
+            s2.append(StageGraph('stage2', SpecStage(spec, assets),
+                                 pools[dev]))
+        # stage 1's angles are (3, B): their batch is dimension 1
+        self._stage1 = par.ReplicatedStage(s1, self.mesh,
+                                           out_dims=(0, 0, 0, 1))
+        self._stage2 = par.ReplicatedStage(s2, self.mesh)
+
+    def _padded(self, n_valid: int, mult: Optional[int] = None) -> int:
+        """The batch a chunk of ``n_valid`` items runs at: the next power
+        of two capped at ``batch_size``, rounded up to a multiple of the
+        mesh size under data_parallel (every replica's part non-empty).
+        ``mult`` overrides that multiple (stage 1 passes
+        ``_min_pad_s1``)."""
+        bp = pad_pow2(n_valid, self.batch_size)
+        mp = self._min_pad if mult is None else mult
+        return -(-bp // mp) * mp
 
     # -- stage 1 ------------------------------------------------------------
 
@@ -385,7 +441,7 @@ class SpecPredictor:
         for idxs in buckets.values():
             for s0 in range(0, len(idxs), self.batch_size):
                 chunk = idxs[s0:s0 + self.batch_size]
-                bp = pad_pow2(len(chunk), self.batch_size)
+                bp = self._padded(len(chunk), self._min_pad_s1)
                 pad = chunk + [chunk[-1]] * (bp - len(chunk))
                 yield chunk, torch.stack([resized[i] for i in pad])
 
@@ -586,7 +642,7 @@ class SpecPredictor:
         for s0 in range(0, len(work), self.batch_size):
             chunk = work[s0:s0 + self.batch_size]
             n_valid = len(chunk)
-            bp = pad_pow2(n_valid, self.batch_size)
+            bp = self._padded(n_valid)
             chunk = chunk + [chunk[-1]] * (bp - n_valid)
             crops = self._crops(chunk, frames_dev)
 

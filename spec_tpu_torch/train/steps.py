@@ -18,6 +18,16 @@ draws new masks. With ``GRAD_ACCUM_STEPS = k > 1`` there are two graphs
 per signature: the accumulating micro-step and the micro-step that also
 updates, each in a memory pool of its own (they replay in no fixed
 order).
+
+Data parallel (one process per GPU, ``parallel.initialize_multihost``):
+each rank steps on its slice of the global batch. The body runs in
+``parallel.sharded_batch``, so the losses and BatchNorm reduce over the
+global batch, and between the backward and the update the gradients are
+summed over the ranks in one flat buffer and the metrics made global.
+The parameters are broadcast from rank 0 when a state is first bound.
+Under NCCL the step, its collectives included, stays one graph replay;
+under gloo, whose collectives cannot be captured, it runs its eager body
+(:attr:`TrainStep.mode` says which).
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from typing import Callable, Optional
 
 import torch
 
+from spec_tpu_torch import parallel as par
 from spec_tpu_torch.core import smpl as S
 from spec_tpu_torch.losses import (
     HMRLossConfig,
@@ -65,20 +76,33 @@ class TrainStep:
         # TF32 off for the whole step, the backward included (it runs
         # after the forward's precision contexts have closed): fp32 convs
         # and matmuls stay fp32; bf16 autocast regions are unaffected.
-        with fp32_precision():
+        with fp32_precision(), par.sharded_batch():
             total, metrics = self.loss_fn(self._state.model, generator,
                                           dict(zip(names, tensors)))
             total.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in opt.params]
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if par.is_initialized():
+            grads = par.all_reduce_gradients(grads)
+            metrics = par.all_reduce_metrics(metrics)
         opt.step(grads, update)
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
+
+    @property
+    def mode(self) -> str:
+        """How :meth:`__call__` runs the step: 'graph' (a CUDA graph
+        replay on the card, the body directly on the CPU) or 'eager'
+        (under gloo, whose collectives a graph cannot capture)."""
+        return 'graph' if par.capturable() else 'eager'
 
     def _bind(self, state: TrainState) -> None:
         if self._state is not state:
             if self._state is not None and self.graphs.signatures():
                 raise ValueError('a train step with captured graphs is '
                                  'bound to its first state')
+            # every rank starts from rank 0's parameters and statistics
+            par.broadcast_module(state.model)
             self._state = state
 
     def _run(self, state, batch, generator, body) -> tuple:
@@ -99,7 +123,8 @@ class TrainStep:
 
     def __call__(self, state: TrainState, batch: dict,
                  generator: Optional[torch.Generator] = None) -> tuple:
-        return self._run(state, batch, generator, self.graphs)
+        return self._run(state, batch, generator,
+                         self.graphs if self.mode == 'graph' else self._body)
 
     def eager(self, state: TrainState, batch: dict,
               generator: Optional[torch.Generator] = None) -> tuple:

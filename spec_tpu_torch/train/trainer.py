@@ -22,8 +22,13 @@ in as supervision where the acceptance rule takes it. TRAINING.REMAT is
 the model's (``HMR(remat=True)``, which ``cli/spec_train`` builds from
 it).
 
-Not ported yet, raising ``NotImplementedError``: TRAINING.FSDP
-(ROADMAP.md §1 item 12). One process drives one device.
+Multi-process (``parallel.initialize_multihost``, one process per GPU):
+every rank runs the same steps on its slice of each global batch
+(``DataLoader(process_id=...)``; the step reduces over the global batch,
+``train/steps.py``), the ranks agree on a SIGTERM before the save
+(``parallel.all_processes_any``), rank 0 alone writes checkpoints, meta
+and TensorBoard, and each rank validates on its own. Not ported yet,
+raising ``NotImplementedError``: TRAINING.FSDP (ROADMAP.md §1 item 12c).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spec_tpu_torch import parallel as par
 from spec_tpu_torch.core import constants as C
 from spec_tpu_torch.core import smpl as S
 from spec_tpu_torch.losses import HMRLossConfig
@@ -71,8 +77,14 @@ class SpecTrainer:
         training = cfg.TRAINING
         if training.get('FSDP', False):
             raise NotImplementedError(
-                'TRAINING.FSDP is not ported yet (ROADMAP.md §1 item 12, '
-                'parallel/)')
+                'TRAINING.FSDP is not ported yet (ROADMAP.md §1 item 12c, '
+                'FSDP/HSDP)')
+        world = par.process_count()
+        if cfg.DATASET.BATCH_SIZE % world:
+            raise SystemExit(
+                f'DATASET.BATCH_SIZE={cfg.DATASET.BATCH_SIZE} must be '
+                f'divisible by the {world} processes (each trains on its '
+                'slice of every global batch)')
         if bool(training.get('REMAT', False)) != bool(
                 getattr(model.backbone, 'remat', False)):
             raise ValueError(
@@ -112,8 +124,10 @@ class SpecTrainer:
         self.step = make_spec_train_step(model, assets_by_gender['neutral'],
                                          tx, loss_cfg)
 
+        # only rank 0 writes checkpoints' meta, results and TensorBoard
+        self.is_main = par.process_index() == 0
         self.writer = None
-        if cfg.LOGDIR:
+        if cfg.LOGDIR and self.is_main:
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError:
@@ -334,6 +348,15 @@ class SpecTrainer:
         cfg = self.cfg
         max_epochs = max_epochs or cfg.TRAINING.MAX_EPOCHS
         generator = set_seed(cfg.SEED_VALUE, self.device)
+        if par.process_count() > 1:
+            # each rank's rows draw their own dropout masks
+            generator.manual_seed(max(int(cfg.SEED_VALUE), 0)
+                                  + par.process_index())
+            print(f'[train] rank {par.process_index()} of '
+                  f'{par.process_count()} ({par.backend()}): the step runs '
+                  + ('as one graph replay' if self.step.mode == 'graph'
+                     else 'its eager body (gloo collectives cannot be '
+                          'captured)'))
         global_step = int(self.state.step)
         start_epoch = min(self._resume_epoch, max_epochs)
         if start_epoch:
@@ -352,7 +375,9 @@ class SpecTrainer:
                 train_ds, batch_size=cfg.DATASET.BATCH_SIZE,
                 shuffle=cfg.DATASET.SHUFFLE_TRAIN,
                 num_workers=cfg.DATASET.NUM_WORKERS, drop_last=True,
-                seed=epoch, skip_batches=skip, group_keys=group_keys)
+                seed=epoch, skip_batches=skip,
+                process_id=par.process_index(),
+                process_count=par.process_count(), group_keys=group_keys)
             if skip:
                 print(f'[train] epoch {epoch}: skipping {skip} already-'
                       'trained batches (mid-epoch resume)')
@@ -365,16 +390,20 @@ class SpecTrainer:
                     batch = next(batch_iter, None)
                 if batch is None:
                     break
-                if stop.requested:
+                # the ranks agree before the save's barrier: their
+                # SIGTERM latches may be an iteration apart
+                if par.all_processes_any(stop.requested):
                     # Preemption: checkpoint the in-flight state (keep
                     # 1000: recency pruning must not delete the ranked
                     # best checkpoints) so --resume continues here.
                     self._save(global_step)
                     if self.writer:
                         self.writer.flush()
-                    self._write_meta(epoch, global_step, skip=batches_done)
-                    print(f'[train] preempted at step {global_step}; '
-                          f'checkpoint saved to {self.ckpt_dir}')
+                    if self.is_main:
+                        self._write_meta(epoch, global_step,
+                                         skip=batches_done)
+                        print(f'[train] preempted at step {global_step}; '
+                              f'checkpoint saved to {self.ckpt_dir}')
                     return self.state
                 with timer('h2d'):
                     dev = self._device_batch(batch)
@@ -410,11 +439,13 @@ class SpecTrainer:
             if (epoch + 1) % val_every == 0:
                 val_metric = self.validate(epoch, global_step)
                 self._save(global_step)
-                self._write_meta(epoch + 1, global_step)
-                self._prune_ranked(val_metric, global_step)
+                if self.is_main:
+                    self._write_meta(epoch + 1, global_step)
+                    self._prune_ranked(val_metric, global_step)
             else:
                 self._save(global_step)
-                self._write_meta(epoch + 1, global_step)
+                if self.is_main:
+                    self._write_meta(epoch + 1, global_step)
             if self.writer:
                 self.writer.flush()
         return self.state
@@ -437,7 +468,9 @@ class SpecTrainer:
         """``evaluate_dataset`` on each val loader with the model as it
         stands; returns the summed ``val_mpjpe`` (NaN when no dataset
         gave a finite one) and appends each summary to
-        ``val_accuracy_results_<ds>.json``."""
+        ``val_accuracy_results_<ds>.json``. Under several processes each
+        rank evaluates on its own (no collectives), and only rank 0
+        writes files."""
         from spec_tpu_torch.eval.eval_loop import evaluate_dataset
 
         total, n_finite = 0.0, 0
@@ -447,7 +480,9 @@ class SpecTrainer:
                     self.model, None, loader, self.assets, self.jreg,
                     use_gt_cam=self.cfg.TESTING.USE_GT_CAM,
                     use_gender=self.cfg.DATASET.USE_GENDER,
-                    save_results=False, logdir=self.cfg.LOGDIR or None,
+                    save_results=False,
+                    logdir=(self.cfg.LOGDIR or None) if self.is_main
+                    else None,
                     save_images=self.cfg.TESTING.SAVE_IMAGES,
                     save_freq=max(int(self.cfg.TESTING.SAVE_FREQ), 1),
                     dataset_name=ds_name)
@@ -474,7 +509,7 @@ class SpecTrainer:
         return total
 
     def _append_results_json(self, ds_name, epoch, summary):
-        if not self.cfg.LOGDIR:
+        if not self.cfg.LOGDIR or not self.is_main:
             return
         path = os.path.join(self.cfg.LOGDIR,
                             f'val_accuracy_results_{ds_name}.json')

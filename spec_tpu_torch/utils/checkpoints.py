@@ -427,10 +427,23 @@ def _keep_latest(directory: str, keep: int) -> None:
 def save_checkpoint(directory: str, state, step: int, keep: int = 30) -> str:
     """Write ``state`` (a ``train.state.TrainState``) as
     ``<directory>/step_NNNNNNNN`` (replacing one of the same step) and
-    keep the ``keep`` most recent. Returns the step directory."""
+    keep the ``keep`` most recent. Returns the step directory.
+
+    Under a process group every rank calls it: rank 0 writes (the state
+    is replicated) and every rank waits at a barrier until the
+    checkpoint is in place, so a resume on any rank finds it."""
+    from spec_tpu_torch import parallel as par
+
     directory = os.path.abspath(directory)
-    os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f'step_{step:08d}')
+    if par.process_index() == 0:
+        _write_checkpoint(directory, final, state, keep)
+    par.barrier()
+    return final
+
+
+def _write_checkpoint(directory, final, state, keep) -> None:
+    os.makedirs(directory, exist_ok=True)
     tmp = f'{final}.tmp-{os.getpid()}'
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
@@ -445,7 +458,6 @@ def save_checkpoint(directory: str, state, step: int, keep: int = 30) -> str:
         shutil.rmtree(final)
     os.replace(tmp, final)
     _keep_latest(directory, keep)
-    return final
 
 
 def _step_dir(directory: str, step: Optional[int]) -> str:

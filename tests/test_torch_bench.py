@@ -19,6 +19,17 @@ from spec_tpu_torch import bench as TB
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _reference_arguments():
     """{name: (default, choices)} of bench.py's add_argument calls; a
     store_true flag defaults to False."""

@@ -15,6 +15,17 @@ from test_torch_cuda_bottleneck import (F64_BUDGET, STAGES, chain_float64,
                                         random_chain)
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _block_weights(rng, C, M):
     return (rng.randn(C, M).astype('f4') * 0.05,
             rng.randn(M).astype('f4') * 0.1,

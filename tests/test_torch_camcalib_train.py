@@ -58,6 +58,17 @@ OPTS = ['MODEL.BACKBONE', 'resnet18', 'DATASET.TRAIN_DS', 'pano_scalenet',
         'TRAINING.MAX_EPOCHS', '1']
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope='module')
 def pano_root(tmp_path_factory):
     """The reference test's pano set, and the JAX init as a torch file."""
@@ -344,7 +355,7 @@ def test_flags_match_the_reference():
     want = _reference_flags('spec_tpu/cli/camcalib_train.py',
                             'spec_tpu/cli/_compat.py')
     got = _port_flags(TC.build_parser())
-    assert set(got) - set(want) == {'--help', '--device'}
+    assert set(got) - set(want) == {'--help', '--device', '--dist_backend'}
     for flag, (default, store_true) in want.items():
         assert got[flag] == (default, store_true), flag
     assert got['--device'][0] == 'cuda'
@@ -357,7 +368,8 @@ def test_needs_a_card_unless_asked_and_multihost_raises(monkeypatch,
         TC.main(['--log_root', str(tmp_path)])
     assert 'device cpu' in str(e.value)
     assert not (tmp_path / 'camcalib_train').exists()
-    with pytest.raises(NotImplementedError, match='item 12'):
+    # the multi-process flags are ported: a coordinator needs its world
+    with pytest.raises(ValueError, match='--num_processes'):
         TC.main(['--coordinator_address', 'localhost:1234', '--device',
                  'cpu'])
 

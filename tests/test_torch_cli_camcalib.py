@@ -24,6 +24,17 @@ from spec_tpu_torch.cli import camcalib_demo as TDemo
 MIN_SIZE = 64
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope='module')
 def ckpt(tmp_path_factory):
     """The golden's CamCalib weights as a torch state_dict file."""

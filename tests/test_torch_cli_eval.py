@@ -32,6 +32,17 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 METRIC_MM = 0.05
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope='module')
 def data_root(tmp_path_factory):
     """A data root holding the eval fixture as the registry's
@@ -207,7 +218,9 @@ def test_flags_match_reference(cli):
         want.pop('--num_gpus')
     got = _port_flags({'spec_eval': TEval, 'compute_error': TCompute,
                        'annotate_camcalib': TAnnotate}[cli].build_parser())
-    assert set(got) - set(want) == {'--help', '--device'}
+    # spec_eval also takes --dist_backend, the process group's backend
+    extra = {'--dist_backend'} if cli == 'spec_eval' else set()
+    assert set(got) - set(want) == {'--help', '--device'} | extra
     for flag, (default, store_true) in want.items():
         assert got[flag] == (default, store_true), flag
     assert got['--device'][0] == 'cuda'
@@ -230,11 +243,20 @@ def test_needs_a_card_unless_asked(cli, monkeypatch, tmp_path):
 
 def test_unported_flags_and_checkpoints_raise(data_root, tmp_path,
                                               monkeypatch):
-    for flags in (['--data_parallel'],
-                  ['--coordinator_address', 'localhost:1234']):
-        with pytest.raises(NotImplementedError, match='item 12'):
-            TEval.main(flags + ['--device', 'cpu'])
+    # --data_parallel and the multi-process flags are ported: a
+    # coordinator needs its world, and the batch must divide the mesh
+    with pytest.raises(ValueError, match='--num_processes'):
+        TEval.main(['--coordinator_address', 'localhost:1234',
+                    '--device', 'cpu'])
     monkeypatch.setenv('SPEC_DATA_ROOT', str(data_root))
+    from spec_tpu_torch import parallel as par
+    with monkeypatch.context() as m:
+        m.setattr(par, 'create_mesh',
+                  lambda devices=None, device=None: [torch.device('cpu')] * 3)
+        with pytest.raises(SystemExit, match='multiple of the 3-device'):
+            TEval.main(['--cfg', _cfg(tmp_path), '--log_root',
+                        str(tmp_path / 'logs'), '--data_parallel',
+                        '--device', 'cpu'])
     orbax_dir = tmp_path / 'checkpoints'
     (orbax_dir / 'step_00000010').mkdir(parents=True)
     with pytest.raises(ValueError, match='orbax'):
@@ -249,7 +271,8 @@ def test_help_runs_and_names_the_unported_items(capsys, monkeypatch):
         TEval.main(['--help'])
     assert e.value.code == 0
     text = capsys.readouterr().out
-    for phrase in ('--device', '--data_parallel', 'item 12', '--cluster'):
+    for phrase in ('--device', '--data_parallel', '--coordinator_address',
+                   '--dist_backend', '--cluster'):
         assert phrase in text, phrase
 
 

@@ -21,6 +21,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 from spec_tpu.cli import serve as JServe
 from spec_tpu_torch.cli import serve as TServe
@@ -31,6 +32,17 @@ from tests.test_torch_serving import (  # noqa: F401  (module fixture)
 
 H, W = 96, 128
 BX = np.array([[2, 2, 2, 2]], np.float32)
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _npz(**arrays) -> bytes:
@@ -636,8 +648,8 @@ def test_serve_help_documents_streams_and_unported_flags(capsys,
 
 
 @pytest.mark.parametrize('flags,item', [
-    (['--detector', 'yolo', '--data_parallel'], 12),
-    (['--data_parallel'], 12),
+    (['--detector', 'yolo', '--spatial_parallel'], 12),
+    (['--data_parallel', '--spatial_parallel'], 12),
     (['--spatial_parallel'], 12),
     (['--exported', 'art.specx', '--spatial_parallel'], 12)])
 def test_serve_unported_flags_raise(flags, item):

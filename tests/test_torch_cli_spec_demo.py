@@ -32,6 +32,17 @@ from spec_tpu_torch.cli import spec_demo as TDemo
 RES = 224
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope='module')
 def bridged(tmp_path_factory):
     """The JAX HMR (ResNet-18, PRNGKey(0)) and its variables; the same

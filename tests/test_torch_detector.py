@@ -248,7 +248,9 @@ def test_detector_stage_is_capturable(dtype):
 
 
 def test_unported_and_bad_arguments_raise():
-    with pytest.raises(NotImplementedError, match='item 12'):
-        TD.YoloDetector(mesh=object(), device='cpu')
+    # mesh= is ported (tests/test_torch_parallel.py): its batch must
+    # divide over the devices
+    with pytest.raises(ValueError, match='3-device mesh'):
+        TD.YoloDetector(mesh=[torch.device('cpu')] * 3, device='cpu')
     with pytest.raises(ValueError, match='multiple of 32'):
         TD.YoloDetector(img_size=100, device='cpu')

@@ -27,6 +27,17 @@ ATOL, LOSS_RTOL = 1e-5, 1e-5
 B, C = 3, 512
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize('use_cam_feats', [False, True])
 def test_estimate_var_head_matches_jax(use_cam_feats):
     rng = np.random.RandomState(0)

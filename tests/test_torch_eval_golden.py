@@ -13,6 +13,8 @@ import json
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from spec_tpu.core import smpl as JS
 from spec_tpu.models import HMR as JaxHMR
@@ -23,6 +25,17 @@ from tests.test_goldens import (
     _assert_close,
     _write_eval_fixture,
 )
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def golden_weights():

@@ -45,6 +45,17 @@ METRIC_MM = 0.05
 V, B, RES = 128, 4, 64
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope='module')
 def models():
     """The JAX HMR with PRNGKey(0) weights and the port's with the same
@@ -200,14 +211,16 @@ def test_unported_options_raise_and_name_their_item(models, tmp_path):
     from spec_tpu_torch.data.loader import DataLoader
 
     *_, port, tassets, jreg = models
-    with pytest.raises(NotImplementedError, match='item 12'):
-        TL.make_eval_step(port, tassets, jreg, mesh=object())
+    # mesh= is ported (tests/test_torch_parallel.py); a loader batch that
+    # does not divide over it raises
+    odd = type('Loader', (list,), {'batch_size': 3})()
+    with pytest.raises(ValueError, match='2-device mesh'):
+        TL.evaluate_dataset(port, None, odd, tassets, jreg,
+                            mesh=['cpu', 'cpu'])
     # save_images is ported: it renders (test_save_images_matches_jax)
     summary, _ = TL.evaluate_dataset(port, None, [], tassets, jreg,
                                      save_images=True)
     assert np.isnan(summary['val_mpjpe'])
-    with pytest.raises(NotImplementedError, match='item 12'):
-        TL.evaluate_dataset(port, None, [], tassets, jreg, mesh=object())
     with pytest.raises(SystemExit, match='in-the-wild'):
         TL.evaluate_dataset(port, None, [], tassets, jreg,
                             dataset_name='coco')
@@ -222,8 +235,9 @@ def test_unported_options_raise_and_name_their_item(models, tmp_path):
     # training mode and occluders are ported (tests/test_torch_train_data.py)
     assert CamDataset(str(npz), str(tmp_path), 'x', is_train=True,
                       occluders=[]).is_train
-    with pytest.raises(NotImplementedError, match='item 12'):
-        DataLoader([1, 2], batch_size=2, process_id=1, process_count=2)
+    # process sharding is ported: the batch must divide over processes
+    with pytest.raises(ValueError, match='divide evenly'):
+        DataLoader([1, 2, 3], batch_size=3, process_id=1, process_count=2)
 
 
 def _eval_batches(seed, disp):

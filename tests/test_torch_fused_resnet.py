@@ -23,6 +23,17 @@ from spec_tpu_torch.utils.checkpoints import state_dict_from_flax
 SHAPE = (2, 64, 96, 3)
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def randomize_bn_stats(rng, variables):
     """Centred running means N(0, 0.1), variances in [0.75, 1.25)."""
     def draw(path, a):

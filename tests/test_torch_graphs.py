@@ -25,6 +25,17 @@ UNCAPTURABLE = ('aten.lift_fresh', 'aten._local_scalar_dense',
                 'aten.unique_dim', 'aten.unique_consecutive')
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class _Refuse(TorchDispatchMode):
     def __init__(self):
         super().__init__()

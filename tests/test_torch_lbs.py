@@ -22,6 +22,17 @@ from spec_tpu_torch.core import smpl as TS
 from spec_tpu_torch.ops import lbs as TL
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(rng, B, V):
     assets = JS.create_test_assets(num_vertices=V)
     betas = rng.randn(B, 10).astype('f4') * 0.3

@@ -31,6 +31,17 @@ from spec_tpu_torch.utils.checkpoints import (
 V_SMALL = 700   # synthetic SMPL size; extra-joint vertex ids wrap mod V
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _load(model, variables, kind, backbone):
     model.load_state_dict(state_dict_from_flax(variables, kind, backbone))
     return model.eval()

@@ -38,6 +38,17 @@ FRAMES, H, W, IMG_RES = 2, 64, 96, 64
 BENCH = pathlib.Path(__file__).resolve().parents[1] / 'bench.py'
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bench_build_pipeline():
     """``bench.build_pipeline`` compiled from bench.py's source alone."""
     tree = ast.parse(BENCH.read_text())

@@ -18,6 +18,17 @@ from spec_tpu_torch.utils import profiling as TP
 from spec_tpu_torch.utils.graphs import StageGraph
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize('case', ['independent', 'mean_coupled',
                                   'per_row_norm', 'batch_max'])
 def test_check_batch_gradient_matches_reference(case):

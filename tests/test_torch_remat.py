@@ -51,6 +51,17 @@ from tests.test_torch_train_step import (
 LR = 1e-5
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _trunk_step(backbone, remat, x):
     m = R.get_backbone(backbone, remat=remat)
     m.reset_parameters(torch.Generator().manual_seed(0))

@@ -31,6 +31,17 @@ BOXES = [
 ]
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def write_predictor_data(root):
     """The SMPL files, J_regressor_extra.npy and both checkpoints under
     ``root`` -> the predictors' keyword arguments (build them with
@@ -182,9 +193,9 @@ def test_camcalib_every_stream_matches_jax(predictors):
 
 
 @pytest.mark.parametrize('kwargs,err', [
-    (dict(data_parallel=True), NotImplementedError),
+    (dict(spatial_parallel=True, batch_size=3), NotImplementedError),
     (dict(spatial_parallel=True), NotImplementedError),
-    (dict(detector='yolo', data_parallel=True), NotImplementedError),
+    (dict(detector='yolo', spatial_parallel=True), NotImplementedError),
     (dict(cfg_file='no_such_config.yaml'), FileNotFoundError),
     (dict(detector='ssd'), ValueError),
     (dict(use_fused_lbs=False), ValueError),
@@ -204,8 +215,9 @@ def test_import_hygiene():
     (the trainers, SMPLify, the pano datasets), the stage graphs, every
     kernel wrapper, the host-native bindings, the renderer, profiling and
     the region cache, the artifact export and loader, export_model,
-    prepare_data and the offline data generators (datagen/)
-    import no JAX, flax, PIL, cv2, PyYAML, joblib, matplotlib, tensorboard
+    prepare_data, the offline data generators (datagen/) and the
+    data-parallel layer (parallel/) import no JAX, flax, PIL, cv2,
+    PyYAML, joblib, matplotlib, tensorboard
     or triton (none of them exist on the machine with the card), no
     requests (the Flickr downloader imports it when it runs) and
     nothing of the JAX package spec_tpu, and importing them builds no
@@ -244,6 +256,7 @@ def test_import_hygiene():
         'from spec_tpu_torch.cli import export_model, prepare_data\n'
         'import spec_tpu_torch.datagen\n'
         'from spec_tpu_torch.datagen import flickr, synthetic\n'
+        'from spec_tpu_torch import parallel\n'
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'PIL', 'cv2', 'yaml', 'joblib', "
         "'matplotlib', 'triton', 'tensorboard', 'requests') "

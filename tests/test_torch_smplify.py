@@ -44,6 +44,17 @@ HOOK_ATOL = 1e-4
 B, V = 4, 256
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _project_np(joints, cam_t, R, K):
     pts = joints @ R.T + cam_t
     proj = pts @ K.T

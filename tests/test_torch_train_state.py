@@ -24,6 +24,17 @@ SHAPES = {'w': (6, 5), 'b': (5,), 'init_pose': (1, 12), 'init_cam': (1, 3)}
 UPDATES = 5
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class _Tiny(torch.nn.Module):
     """Two parameters and two HMR-style init buffers."""
 

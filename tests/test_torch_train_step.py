@@ -84,6 +84,17 @@ B, RES, V = 4, 64, 128
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _no_dropout(monkeypatch):
     monkeypatch.setattr(fnn.Dropout, '__call__',
                         lambda self, x, deterministic=None, rng=None: x)

@@ -72,6 +72,17 @@ V, RES, BATCH = 128, 64, 2
 GRID_LEVELS = dict(mean=1e-3, far_share=2e-3)
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One intra-op thread: this file runs whole models, and under a
+    parallel test run (several workers sharing the cores) torch's default
+    threads wait on each other (tests/test_torch_detector.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(make, logdir, **over):
     cfg = make()
     cfg.LOGDIR = str(logdir)
@@ -424,7 +435,9 @@ def test_spec_train_cli_fdr_then_spec_eval_reads_the_checkpoint(
     monkeypatch.undo()
     ref = {a.dest for a in captured['parser']._actions}
     port = {a.dest for a in TTrain.build_parser()._actions}
-    assert port == ref | {'device'}
+    # --dist_backend: the process group's backend (gloo for ranks that
+    # share one card)
+    assert port == ref | {'device', 'dist_backend'}
 
 
 def test_spec_train_cli_needs_a_card_or_cpu(monkeypatch, tmp_path):
@@ -435,9 +448,10 @@ def test_spec_train_cli_needs_a_card_or_cpu(monkeypatch, tmp_path):
         TTrain.main(['--log_root', str(tmp_path)])
     assert e.value.code not in (0, None) and 'device cpu' in str(e.value)
     assert not (tmp_path / 'spec_train.py').exists()
+    # the multi-process flags are ported: each needs the others
     for flags in (['--coordinator_address', 'localhost:1'],
                   ['--num_processes', '2'], ['--process_id', '0']):
-        with pytest.raises(NotImplementedError, match='item 12'):
+        with pytest.raises(ValueError, match='--num_processes'):
             TTrain.main(flags + ['--device', 'cpu'])
 
 
