@@ -223,7 +223,26 @@ printing its own results; any failure raises and exits nonzero:
     --data_parallel``, ``serve --data_parallel`` (one request, SIGTERM)
     and ``spec_train`` with two ranks over gloo for one step, each its
     own process on tiny inputs (cv2 writes the frames), each exiting 0;
-24. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
+    (b') one NCCL rank under the seam ``parallel.force_global_reductions``
+    (the multi-rank step's code with a world of one: BatchNorm's global
+    statistics and the losses' global counts, each an autograd
+    all-reduce): one graph with its all-reduces captured (counted), the
+    replay equal to its eager body bit for bit, PAR_STEPS steps within
+    PAR_LOSS_RTOL and PAR_UPDATE_RTOL of the plain step, ms per replay
+    against the plain step's in turns;
+24. spatial (``SpecPredictor(spatial_parallel=True)``,
+    ``parallel/spatial.py``): phase 4's full-width predictor on its
+    input, (a) over the card's own device list (one band: the plain stage
+    1) bit for bit against the plain predictor; (b) with the device-list
+    seam giving two bands of rows on the one card, in fp32 and bf16,
+    within phase 8's limits of that dtype (PREDICT_LIMITS, ANGLE_LIMIT),
+    each band's replayed row sums equal to its eager segments' bit for
+    bit, the halo copies per call, K1 launching once per stage-2 replica
+    (``launches_by_path``); (c) batch-1 stage 1 on one 600x1066 frame,
+    two bands against plain, medians of SPATIAL_CALLS calls in turns,
+    with device profiles; (d) ``serve --spatial_parallel`` as its own
+    process for one request, then SIGTERM, exit 0;
+25. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then, instead of
 the rest, profiles phase 4's predictor (wall medians per stage, device
@@ -234,7 +253,8 @@ eager stage bodies.
 ``python3 chip_smoke.py --render`` runs phases 1-2 and then phase 20
 alone; ``python3 chip_smoke.py --export`` runs phases 1-2 and then
 phases 21 and 22; ``python3 chip_smoke.py --parallel`` runs phases 1-2
-and then phase 23.
+and then phase 23; ``python3 chip_smoke.py --spatial`` runs phases 1-2
+and then phase 24.
 ``python3 chip_smoke.py --k3-tiles`` runs phases 1-2 and then times K3
 in fp32 and bf16 at each stage shape with every candidate output tile
 forced, beside the tile the kernel picks.
@@ -252,6 +272,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -382,6 +403,13 @@ def _time_ms(fn, n=50, warmup=5, flush=None):
     return statistics.median(times)
 
 
+# Profiles of n calls that _kernel_ms takes before it gives up on one that
+# names every launch: the tracer has dropped one kernel event of 50 in
+# every one of four profiles in a row (the first K1 batch, after phase
+# 19's profiles).
+PROFILE_ATTEMPTS = 4
+
+
 def _kernel_ms(fn, kernel, n=50, warmup=5, flush=None):
     """The kernel's own device time and the device work of one call.
 
@@ -392,8 +420,8 @@ def _kernel_ms(fn, kernel, n=50, warmup=5, flush=None):
     A second, unflushed profile of ``n`` calls gives the device
     operations per call. Returns (ms, device ops per call). A profile
     that names fewer launches than calls (the tracer dropped an event:
-    the wrapper counts every launch it makes) is taken once more; a
-    second short one raises."""
+    the wrapper counts every launch it makes) is taken again, up to
+    PROFILE_ATTEMPTS profiles in all; then it raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -403,26 +431,31 @@ def _kernel_ms(fn, kernel, n=50, warmup=5, flush=None):
             fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # a spin kernel before and after the calls, left out below:
+            # the tracer has lost a profile's edge event
+            torch.cuda._sleep(1000)
             for _ in range(n):
                 if flushed:
                     flush.zero_()
                 fn()
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and 'spin_kernel' not in e.name]
 
-    for attempt in range(2):
+    for attempt in range(PROFILE_ATTEMPTS):
         durs = [(e.time_range.end - e.time_range.start) / 1e3
                 for e in device_events(flush is not None)
                 if kernel in e.name]
         if len(durs) == n:
             break
         print(f'[profile] the profiler saw {len(durs)} launches of '
-              f'{kernel!r} in {n} calls' + ('; profiling again'
-                                            if attempt == 0 else ''),
-              flush=True)
+              f'{kernel!r} in {n} calls (attempt {attempt + 1} of '
+              f'{PROFILE_ATTEMPTS})', flush=True)
     else:
         raise RuntimeError(f'the profiler saw {len(durs)} launches of '
-                           f'{kernel!r} in {n} calls, twice')
+                           f'{kernel!r} in {n} calls, {PROFILE_ATTEMPTS} '
+                           'times')
     ops = len(device_events(False)) / n
     return statistics.median(durs), ops
 
@@ -4418,6 +4451,130 @@ def _par_nccl(device, sizes):
         _release_if(device)
 
 
+def _par_nccl_global(device, sizes):
+    """23(b'): one NCCL rank (gloo in a CPU rehearsal) under the seam
+    ``parallel.force_global_reductions``: the step takes the multi-rank
+    branches (BatchNorm's global statistics and the losses' global counts,
+    each an autograd all-reduce) with a world of one, so the one card runs
+    the multi-rank step's code. One graph with its all-reduces captured;
+    the replay equal to its eager body bit for bit; PAR_STEPS steps within
+    PAR_LOSS_RTOL and PAR_UPDATE_RTOL of the plain step (fp32
+    ``E[x^2] - E[x]^2`` is not cuDNN's formula); ms per replay against
+    the plain step's, in turns."""
+    import torch
+
+    from spec_tpu_torch import parallel as par
+    from spec_tpu_torch.ops import lbs as L
+
+    B, res, vertices, backbone = sizes
+    card = device == 'cuda'
+    dev = torch.device(device)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = _par_setup(B, dev, backbone, res, vertices)
+        full = {k: torch.from_numpy(v).to(dev) for k, v in plain[2].items()}
+        start = {k: v.detach().cpu().clone()
+                 for k, v in plain[0].model.state_dict().items()}
+        want, _ = _par_steps(plain[0], plain[1], full, PAR_STEPS, dev)
+        want_sd = {k: v.detach().cpu().clone()
+                   for k, v in plain[0].model.state_dict().items()}
+        par.initialize_multihost(f'127.0.0.1:{_free_port()}', 1, 0,
+                                 backend='nccl' if card else 'gloo',
+                                 device=device)
+        calls = []
+        all_reduce = torch.distributed.all_reduce
+
+        def counted(*a, **k):
+            calls.append(torch.cuda.is_current_stream_capturing()
+                         if card else False)
+            return all_reduce(*a, **k)
+
+        try:
+            state, step, _ = _par_setup(B, dev, backbone, res, vertices)
+            n_bn = sum(isinstance(m, torch.nn.BatchNorm2d)
+                       for m in state.model.modules())
+            torch.distributed.all_reduce = counted
+            with par.force_global_reductions():
+                L.LAUNCHES = 0
+                got, _ = _par_steps(state, step, full, PAR_STEPS, dev)
+                launches = L.LAUNCHES
+                torch.distributed.all_reduce = all_reduce
+                got_sd = {k: v.detach().cpu().clone()
+                          for k, v in state.model.state_dict().items()}
+                # the replay against its eager body, from one state
+                snap = _snapshot(state)
+                _, eager = step.eager(state, full)
+                eager_sd = {k: v.detach().clone()
+                            for k, v in state.model.state_dict().items()}
+                _restore(state, snap)
+                _, replay = step(state, full)
+                same = all(torch.equal(replay[k], eager[k])
+                           for k in eager) and all(
+                    torch.equal(v, eager_sd[k])
+                    for k, v in state.model.state_dict().items())
+            worst_loss = max(abs(g[k] - v) / max(abs(v), 1e-6)
+                             for g, w in zip(got, want) for k, v in w.items())
+            upd, worst, biggest = _update_errors(got_sd, want_sd, start)
+            graphs = len(step.graphs.signatures())
+            print(f'[parallel nccl global] {par.backend()}, one rank, '
+                  f'force_global_reductions: the step {step.mode}, '
+                  f'{graphs} graph(s); the body called all_reduce '
+                  f'{len(calls)} times in {PAR_STEPS} steps, '
+                  f'{sum(calls)} of them inside the capture ({n_bn} '
+                  f'BatchNorm layers: a forward and a backward each, then '
+                  f'the losses\', the gradients\' and the metrics\'); '
+                  f'replay vs eager from one state bit-identical: {same}; '
+                  f'against the plain step: losses within '
+                  f'{worst_loss:.3e} relative (limit {PAR_LOSS_RTOL:.0e}), '
+                  f'the model update {upd:.3e} relative (limit '
+                  f'{PAR_UPDATE_RTOL:.0e}), the largest parameter '
+                  f'difference {worst:.3e} against the largest update '
+                  f'entry {biggest:.3e}; K1 launches {launches}',
+                  flush=True)
+            if not (worst_loss <= PAR_LOSS_RTOL and upd <= PAR_UPDATE_RTOL
+                    and worst <= PAR_UPDATE_RTOL * biggest):
+                raise RuntimeError('the global-statistics step differs from '
+                                   'the plain step beyond the limits')
+            if len(calls) < 2 * n_bn + 2:
+                raise RuntimeError('the step did not take the global '
+                                   'branches')
+            if not card:
+                return {'nccl 1 rank, global branches': launches}
+            if not same:
+                raise RuntimeError('the global-statistics replay differs '
+                                   'from its eager body')
+            if graphs != 1 or step.mode != 'graph' or \
+                    sum(calls) < 2 * n_bn + 2:
+                raise RuntimeError('the global-statistics step is not one '
+                                   'graph with its all-reduces')
+            wall = {}
+            for label, (st, sp) in (('plain', plain[:2]),
+                                    ('global', (state, step)),
+                                    ('plain', plain[:2]),
+                                    ('global', (state, step))):
+                wall.setdefault(label, []).append(_wall_ms(
+                    lambda: sp(st, full), PAR_REPLAYS))
+            prof = _device_profile('parallel nccl global replay',
+                                   lambda: step(state, full),
+                                   min(wall['global']), 3)
+            nccl = sum(n for name, n in prof['count_by_name'].items()
+                       if 'nccl' in name.lower())
+            print(f'[parallel nccl global] ms per step (median of '
+                  f'{PAR_REPLAYS}, two turns): '
+                  + ', '.join(f'{k} ' + ' '.join(f'{t:.3f}' for t in v)
+                              for k, v in wall.items())
+                  + f'; NCCL kernels the profiler names per replay '
+                  f'{nccl:g}', flush=True)
+            return {'nccl 1 rank, global branches': launches}
+        finally:
+            torch.distributed.all_reduce = all_reduce
+            torch.distributed.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        _release_if(device)
+
+
 def _par_predict(device, make_predictor, frames, boxes):
     """23(c): ``SpecPredictor(data_parallel=True)`` with the card's own
     device list (count 1) against the plain predictor, bit for bit; then
@@ -4483,19 +4640,37 @@ def _par_predict(device, make_predictor, frames, boxes):
     return launches
 
 
-def _within_predict_limits(got, want):
-    """Phase 8's fp32 limits (PREDICT_LIMITS) on every person's outputs."""
+def _predict_diffs(got, want):
+    """The largest difference of each output phase 8 limits
+    (PREDICT_LIMITS) and of the camera angles, over every person of two
+    ``predict`` results."""
     import numpy as np
 
+    worst = {}
     for rg, rw in zip(got, want):
         if len(rg) != len(rw):
             raise RuntimeError('person counts differ')
         for g, w in zip(rg, rw):
-            for k, lim in PREDICT_LIMITS['fp32'].items():
+            for k in PREDICT_LIMITS['fp32']:
                 d = float(np.abs(np.asarray(g[k]) - np.asarray(w[k])).max())
-                if not d <= lim:
-                    raise RuntimeError(f'data_parallel {k} differs by {d} '
-                                       f'(limit {lim})')
+                worst[k] = max(worst.get(k, 0.0), d)
+            worst['angles'] = max(worst.get('angles', 0.0), *(
+                abs(g['camera'][a] - w['camera'][a])
+                for a in ('vfov', 'pitch', 'roll')))
+    return worst
+
+
+def _within_predict_limits(got, want, tag='fp32', label='data_parallel'):
+    """Phase 8's limits (PREDICT_LIMITS, ANGLE_LIMIT of ``tag``) on every
+    person's outputs and camera angles. Returns the largest difference
+    of each."""
+    worst = _predict_diffs(got, want)
+    limits = dict(PREDICT_LIMITS[tag], angles=ANGLE_LIMIT[tag])
+    for k, d in worst.items():
+        if not d <= limits[k]:
+            raise RuntimeError(f'{label} {k} differs by {d} (limit '
+                               f'{limits[k]})')
+    return worst
 
 
 def _par_write_data(root, n_train=2, n_val=4):
@@ -4559,11 +4734,6 @@ def _par_clis(device, d):
     """23(d): ``spec_eval --data_parallel``, ``serve --data_parallel``
     and ``spec_train`` with two ranks for one step, each its own process
     on tiny inputs, each exiting 0."""
-    import json
-    import urllib.request
-
-    import numpy as np
-
     root = os.path.join(d, 'data')
     _par_write_data(root)
     env = dict(os.environ, SPEC_DATA_ROOT=root, OMP_NUM_THREADS='1')
@@ -4604,14 +4774,26 @@ def _par_clis(device, d):
           f'{time.perf_counter() - t0:.1f} s; {steps[0].strip()}',
           flush=True)
 
+    _serve_once(device, d, '--data_parallel', 'parallel cli', env)
+
+
+def _serve_once(device, d, flag, label, env):
+    """``python -m spec_tpu_torch.cli.serve FLAG`` as a process of its own
+    (ResNet-18 HMR, 96-row frames): one request of two frames, /stats,
+    SIGTERM, exit 0."""
+    import json
+    import urllib.request
+
+    import numpy as np
+
     t0 = time.perf_counter()
     cfg = os.path.join(d, 'serve.yaml')
     with open(cfg, 'w') as f:
         f.write(f'HMR:\n  BACKBONE: {PAR_CLI_BACKBONE}\n')
     proc = subprocess.Popen(
-        py + ['spec_tpu_torch.cli.serve', '--data_parallel', '--device',
-              device, '--host', '127.0.0.1', '--port', '0', '--cfg', cfg,
-              '--min_size', '96', '--batch_size', '4'],
+        [sys.executable, '-m', 'spec_tpu_torch.cli.serve', flag, '--device',
+         device, '--host', '127.0.0.1', '--port', '0', '--cfg', cfg,
+         '--min_size', '96', '--batch_size', '4'],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env=env, cwd=str(ROOT))
     try:
@@ -4621,7 +4803,7 @@ def _par_clis(device, d):
             if 'listening on' in line:
                 break
         else:
-            raise RuntimeError('serve --data_parallel:\n' + ''.join(lines))
+            raise RuntimeError(f'serve {flag}:\n' + ''.join(lines))
         base = 'http://' + line.split('listening on ')[1].split()[0]
         frames = _synthetic_frames(2, PAR_CLI_HW, 5)
         boxes = [np.array([[80., 60., 60., 90.]], 'f4')] * 2
@@ -4638,11 +4820,11 @@ def _par_clis(device, d):
             proc.kill()
             proc.wait()
     if status != 200 or proc.returncode != 0:
-        raise RuntimeError(f'serve --data_parallel: status {status}, exit '
+        raise RuntimeError(f'serve {flag}: status {status}, exit '
                            f'{proc.returncode}:\n{"".join(lines)}{rest}')
-    print(f'[parallel cli] serve --data_parallel: one request of 2 frames '
-          f'answered (status {status}, {len(body)} bytes; /stats '
-          f'{stats}), SIGTERM, exit 0 in {time.perf_counter() - t0:.1f} s',
+    print(f'[{label}] serve {flag}: one request of 2 frames answered '
+          f'(status {status}, {len(body)} bytes; /stats {stats}), '
+          f'SIGTERM, exit 0 in {time.perf_counter() - t0:.1f} s',
           flush=True)
 
 
@@ -4668,6 +4850,7 @@ def phase_parallel(device='cuda'):
         launches = {f'parallel train {k} (gloo)': v for k, v in
                     _par_two_ranks(device, sizes, d).items()}
         launches.update(_par_nccl(device, sizes))
+        launches.update(_par_nccl_global(device, sizes))
         frames, boxes = _frames_and_boxes(4, PERSONS_PER_FRAME, seed=0)
 
         def make(data_parallel):
@@ -4684,6 +4867,190 @@ def phase_parallel(device='cuda'):
         return launches
     finally:
         shutil.rmtree(d, ignore_errors=True)
+
+
+# Phase 24 (spatial): phase 4's full-width predictor (ResNet-50 in both
+# stages, min_size 600) on its four 720x1280 frames with boxes under
+# spatial_parallel, and batch-1 stage 1 on one of its frames resized to
+# 600x1066, banded against plain (medians of SPATIAL_CALLS calls, in
+# turns).
+SPATIAL_CALLS = 20
+# bf16: the bands' stage-1 logits within SPATIAL_LOGIT_ULPS bf16 spacings
+# (at the largest logit's magnitude) of the plain stage's. The angles are
+# decoded from logits of a random head that reach the tens, where one
+# bf16 spacing is 0.125, and the decode turns such a flip into up to
+# 1e-2 rad: the plain predictor itself moves that far between a frame
+# alone and the same frame in a batch of four, so end to end the bf16
+# outputs are printed beside that spread, and stage 2 is held to phase
+# 8's bf16 limits on the plain stage's cameras.
+SPATIAL_LOGIT_ULPS = 2
+
+
+def _same_predict(got, want):
+    """Whether two ``predict`` results are equal bit for bit."""
+    import numpy as np
+
+    return [len(r) for r in got] == [len(r) for r in want] and all(
+        g['camera'] == w['camera'] and all(
+            np.array_equal(g[k], w[k]) for k in w if k != 'camera')
+        for rg, rw in zip(got, want) for g, w in zip(rg, rw))
+
+
+def phase_spatial(device='cuda'):
+    """Phase 24 (see the module docstring). Returns K1's launches per
+    path for the kernels line. ``device='cpu'`` rehearses its logic on a
+    machine without a card (shrink FRAME_HW and PAR_BACKBONE first; the
+    frames are then resized to 96 rows)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from spec_tpu_torch import parallel as par
+    from spec_tpu_torch.ops import lbs as L
+    from spec_tpu_torch.serving import SpecPredictor
+
+    card = device == 'cuda'
+    frames, boxes = _frames_and_boxes(4, PERSONS_PER_FRAME, seed=0)
+    n_persons = sum(len(b) for b in boxes)
+    create_mesh = par.create_mesh
+    two = [torch.device('cuda', 0) if card else torch.device('cpu')] * 2
+
+    def make(dtype, spatial, mesh=None):
+        if mesh is not None:
+            par.create_mesh = lambda devices=None, device=None: list(mesh)
+        try:
+            return SpecPredictor(
+                device=device, backbone=PAR_BACKBONE,
+                camcalib_backbone=PAR_BACKBONE, use_cam_feats=True,
+                img_res=224, min_size=600 if card else 96,
+                batch_size=BATCH_SIZE, dtype=dtype,
+                spatial_parallel=spatial)
+        finally:
+            par.create_mesh = create_mesh
+
+    launches = {}
+    _release_if(device)
+    for tag, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
+        plain = make(dtype, False)
+        plain.predict(frames, boxes)                    # capture
+        want = plain.predict(frames, boxes)
+        if tag == 'fp32':
+            # (a) the card's own device list: one band, the whole frame
+            one = make(dtype, True)
+            one.predict(frames, boxes)
+            L.LAUNCHES = 0
+            got = one.predict(frames, boxes)
+            launches['spatial predict (1 band)'] = L.LAUNCHES
+            same = _same_predict(got, want)
+            print(f'[spatial] (a) spatial_parallel over the card\'s own '
+                  f'device list ({len(one.mesh)} device: one band, the '
+                  f'plain stage 1), {PAR_BACKBONE} fp32, phase 4\'s input: '
+                  f'against the plain predictor bit for bit: {same}; K1 '
+                  f'launches in one call {L.LAUNCHES}', flush=True)
+            if len(one.mesh) == 1 and not same:
+                raise RuntimeError('spatial_parallel over one device '
+                                   'differs from the plain predictor')
+            del one
+            _release_if(device)
+        # (b) two bands on the one card through the device-list seam
+        sp = make(dtype, True, two)
+        stage = sp._stage1
+        sp.predict(frames, boxes)                       # capture
+        L.LAUNCHES = 0
+        got = sp.predict(frames, boxes)
+        n_k1 = launches[f'spatial predict (2 bands, {tag})'] = L.LAUNCHES
+        _check_results(got, n_persons)
+        copies, partials = stage.last['copies'], stage.last['partials']
+        frames_dev = [sp._upload(f) for f in frames]
+        (_, batch), = sp._stage1_batches(frames_dev)
+        with torch.inference_mode():
+            sums = stage.row_sums(batch)
+            eager = stage.fn.row_sums(batch)
+            banded, whole = stage(batch), plain._stage1(batch)
+        bands_same = [bool(torch.equal(a, b)) for a, b in zip(sums, eager)]
+        rows = [b['rows'] for b in stage.last['exchanges'][0]['bands']]
+        d_logit = max(float((a - b).abs().max())
+                      for a, b in zip(banded[:3], whole[:3]))
+        top = max(float(t.abs().max()) for t in whole[:3])
+        spacing = 2.0 ** (math.floor(math.log2(top)) - 7)    # bf16's
+        # the plain predictor's own spread: each frame alone against the
+        # frames in one call (stage 1 at B = 1 and B = 4)
+        alone = [plain.predict([f], [b])[0] for f, b in zip(frames, boxes)]
+        spread = _predict_diffs(alone, want)
+        worst = _predict_diffs(got, want)
+        print(f'[spatial] (b) two bands on {two[0]}, {PAR_BACKBONE} {tag}, '
+              f'phase 4\'s input (stage-1 batch {tuple(batch.shape)}, '
+              f'band rows {rows}): against the plain predictor, the largest '
+              f'differences ' + ', '.join(f'{k} {v:.3e}'
+                                          for k, v in worst.items())
+              + f' (phase 8\'s {tag} limits: ' + ', '.join(
+                  f'{k} {v:g}' for k, v in PREDICT_LIMITS[tag].items())
+              + f', angles {ANGLE_LIMIT[tag]:g}); the plain predictor\'s own '
+              f'spread (each frame alone against the four in one call): '
+              + ', '.join(f'{k} {v:.3e}' for k, v in spread.items())
+              + f'; stage-1 logits max |diff| {d_logit:.4g} at max |logit| '
+              f'{top:.4g} (bf16 spacing there {spacing:g}); each band\'s '
+              f'replayed row sums equal to its eager segments\' bit for '
+              f'bit: {bands_same}; {len(stage.windows)} exchanges, '
+              f'{copies} halo copies per call, the pool adds {partials} '
+              f'bands\' sums; K1 launches in one call {n_k1} (one per '
+              f'stage-2 replica)', flush=True)
+        if tag == 'fp32':
+            _within_predict_limits(got, want, tag, 'spatial_parallel')
+        else:
+            if not d_logit <= SPATIAL_LOGIT_ULPS * spacing:
+                raise RuntimeError(f'bf16 stage-1 logits of two bands differ '
+                                   f'by {d_logit} (limit '
+                                   f'{SPATIAL_LOGIT_ULPS} x {spacing})')
+            cams = plain.estimate_cameras(frames)
+            stage2 = _within_predict_limits(
+                sp.predict(frames, boxes, cameras=cams),
+                plain.predict(frames, boxes, cameras=cams), tag,
+                'spatial_parallel stage 2')
+            print(f'[spatial] (b) bf16 stage 2 on the plain stage\'s '
+                  f'cameras (two replicas against one): ' + ', '.join(
+                      f'{k} {v:.3e}' for k, v in stage2.items())
+                  + ' (phase 8\'s bf16 limits)', flush=True)
+        if card and not all(bands_same):
+            raise RuntimeError('a band\'s replay differs from its eager '
+                               'segments')
+        if partials != 2 or copies <= len(stage.windows):
+            raise RuntimeError('the frame was not split into two bands')
+        if card and n_k1 != 2:
+            raise RuntimeError(f'{n_k1} K1 launches for 2 stage-2 replicas')
+        # (c) batch-1 stage 1, banded against plain, in turns
+        one_frame = batch[:1].contiguous()
+        if card:
+            wall = {}
+            with torch.inference_mode():
+                for label, fn in (('plain', plain._stage1),
+                                  ('2 bands', stage), ('2 bands', stage),
+                                  ('plain', plain._stage1)):
+                    wall.setdefault(label, []).append(_wall_ms(
+                        lambda: fn(one_frame), SPATIAL_CALLS))
+                for label, fn in (('plain', plain._stage1),
+                                  ('2 bands', stage)):
+                    _device_profile(f'spatial stage 1 {tag} B=1 {label}',
+                                    lambda: fn(one_frame),
+                                    min(wall[label]), 3)
+            print(f'[spatial] (c) batch-1 stage 1 on one '
+                  f'{one_frame.shape[1]}x{one_frame.shape[2]} frame, '
+                  f'{PAR_BACKBONE} {tag}, ms per call (median of '
+                  f'{SPATIAL_CALLS}, two turns): '
+                  + ', '.join(f'{k} ' + ' '.join(f'{t:.3f}' for t in v)
+                              for k, v in wall.items())
+                  + f'; {copies} halo copies per call', flush=True)
+        del plain, sp, stage
+        _release_if(device)
+    # (d) the server as its own process (the card's own device list)
+    d = tempfile.mkdtemp(prefix='spatial_', dir=str(ROOT / 'build'))
+    try:
+        _serve_once(device, d, '--spatial_parallel', 'spatial',
+                    dict(os.environ, OMP_NUM_THREADS='1'))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return launches
 
 
 def main() -> int:
@@ -4729,6 +5096,9 @@ def main() -> int:
     if '--parallel' in sys.argv[1:]:
         print(json.dumps(phase_parallel()))
         return 0
+    if '--spatial' in sys.argv[1:]:
+        print(json.dumps(phase_spatial()))
+        return 0
     from spec_tpu_torch.utils.batching import pad_pow2
 
     k3_rows = phase_bottleneck()
@@ -4766,8 +5136,11 @@ def main() -> int:
     exported = phase_export()
     synth_launches = phase_datagen()
     parallel = phase_parallel()
+    spatial = phase_spatial()
 
-    row = lbs_rows[main_batch]         # K1's batch on this slice's path
+    # K1's batch on this slice's path: a stage-2 replica's half of the
+    # predictor's chunk under spatial_parallel with two bands
+    row = lbs_rows[main_batch // 2]
 
     def k3_entry(tag):
         """K3 in ``tag`` (bf16, or fp32 as 3xTF32): layer1's block at
@@ -4796,16 +5169,19 @@ def main() -> int:
         'source': 'spec_tpu_torch/csrc/lbs.cu',
         'replaces': 'spec_tpu/ops/pallas/lbs.py:97',
         # this slice's path: one predict call at phase 4's input (fp32)
-        # of the artifact exported on the CPU and loaded on the card;
-        # the times below are phase 6's at that path's stage-2 batch
-        'launches': exported['fp32 cpu-exported'],
-        'batch': main_batch,
+        # under spatial_parallel with two bands on the card (stage 2 as
+        # two replicas); the times below are phase 6's at a replica's
+        # stage-2 batch
+        'launches': spatial['spatial predict (2 bands, fp32)'],
+        'batch': main_batch // 2,
         'launches_by_path': {**render,
+                             # phase 24: the spatial paths
+                             **spatial,
                              # phase 23: the data-parallel paths
                              **parallel,
-                             # this slice's paths: one predict of the
-                             # artifact exported on the CPU, loaded on
-                             # the card (fp32), and spec_synth
+                             # one predict of the artifact exported on the
+                             # CPU, loaded on the card (fp32), and
+                             # spec_synth
                              'exported predict':
                                  exported['fp32 cpu-exported'],
                              **{f'exported predict ({k})': v
@@ -4832,7 +5208,8 @@ def main() -> int:
         'backward_bound_ms': _bound(*_k1_backward_work(TRAIN_BATCH),
                                     PEAK_FLOPS['fp32'])[0],
         # phase 6's kernel time at the batch each listed path gives K1
-        'ms_by_path': {'exported predict': row['ms'],
+        'ms_by_path': {'spatial predict (2 bands)': row['ms'],
+                       'exported predict': lbs_rows[main_batch]['ms'],
                        'spec_synth': lbs_rows[SYNTH['n']]['ms'],
                        'parallel train rank': lbs_rows[PAR_BATCH // 2]['ms'],
                        'data_parallel predict (2 replicas)':

@@ -517,19 +517,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help='replicate the predictor on every card of '
                              'this process and split each batch over '
                              'them (--batch_size a multiple of the count)')
+    parser.add_argument('--spatial_parallel', action='store_true',
+                        help='single-frame LATENCY layout: stage 1 splits '
+                             'each frame into one band of rows per card '
+                             'of this process, the bands exchanging halo '
+                             'rows at each layer, instead of batching '
+                             'frames; stage 2 splits its persons as '
+                             'under --data_parallel; exclusive with '
+                             '--data_parallel')
     add_device_flag(parser)
-    g = parser.add_argument_group(
-        'reference flags not ported yet (each raises NotImplementedError)')
-    g.add_argument('--spatial_parallel', action='store_true',
-                   help='ROADMAP.md §1 item 12b')
     return parser.parse_args(argv)
-
-
-def _unported(args) -> None:
-    if args.spatial_parallel:
-        from spec_tpu_torch.parallel import SPATIAL_NOT_PORTED
-
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
 
 
 def build_predictor(args, device):
@@ -545,9 +542,10 @@ def build_predictor(args, device):
         # Stream amortization is a serving knob, not part of the model.
         pred.camcalib_every = max(1, args.camcalib_every)
         pred.cut_threshold = args.cut_threshold
-        if args.data_parallel:
-            print('[serve] --data_parallel does not apply to --exported: '
-                  'the artifact runs on one device', flush=True)
+        for flag in ('data_parallel', 'spatial_parallel'):
+            if getattr(args, flag):
+                print(f'[serve] --{flag} does not apply to --exported: '
+                      'the artifact runs on one device', flush=True)
         return pred
     return SpecPredictor(
         spec_ckpt=args.spec_ckpt, camcalib_ckpt=args.camcalib_ckpt,
@@ -557,12 +555,12 @@ def build_predictor(args, device):
         yolo_img_size=args.yolo_img_size,
         camcalib_every=args.camcalib_every,
         cut_threshold=args.cut_threshold, device=device,
-        data_parallel=args.data_parallel)
+        data_parallel=args.data_parallel,
+        spatial_parallel=args.spatial_parallel)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    _unported(args)
     device = resolve_device(args.device, 'spec_tpu_torch.cli.serve')
     predictor = build_predictor(args, device)
     server = create_server(predictor, args.host, args.port,

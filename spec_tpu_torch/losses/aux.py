@@ -27,7 +27,7 @@ def joints_mse_loss(pred_heatmaps, gt_heatmaps,
         w = target_weight.reshape(B, J, 1).float()
         pred = pred * w
         gt = gt * w
-    if par.batch_world() == 1:
+    if not par.global_batch():
         return (0.5 * ((pred - gt) ** 2).mean(dim=(0, 2))).mean()
     per_joint = ((pred - gt) ** 2).sum(dim=(0, 2)) / (
         B * par.batch_world() * pred.shape[2])

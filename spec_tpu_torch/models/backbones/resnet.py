@@ -74,7 +74,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     given.)
 
     In a data-parallel train step (``parallel.sharded_batch`` over more
-    than one rank) the statistics are those of the GLOBAL batch, as
+    than one rank, or under ``parallel.force_global_reductions``) the
+    statistics are those of the GLOBAL batch, as
     flax's over the sharded batch of the JAX mesh step: one all-reduce
     of the per-channel sum, sum of squares and count, with autograd
     (:meth:`_global_forward`). Per-rank statistics (torch DDP's default)
@@ -85,7 +86,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
-        if par.batch_world() > 1 and self.momentum is not None:
+        if par.global_batch() and self.momentum is not None:
             return self._global_forward(x)
         n = x.numel() // x.shape[1]
         if n < 2 or self.momentum is None:

@@ -51,6 +51,16 @@ class CameraRegressorNetwork(nn.Module):
             pooled = feats.mean(dim=(2, 3))
             return tuple(getattr(self, n)(pooled).float() for n in HEADS)
 
+    def forward_pooled(self, row_sums, count: int):
+        """The heads over a trunk split into bands of rows
+        (``parallel/spatial.py``): the pooled mean of :meth:`forward` is
+        the sum of the bands' (B, C) fp32 row sums of the feature map
+        divided by ``count``, its full height times width. Returns the
+        logits as :meth:`forward` does."""
+        pooled = torch.stack(list(row_sums)).sum(0) / count
+        with compute_dtype(self.dtype, pooled.device.type):
+            return tuple(getattr(self, n)(pooled).float() for n in HEADS)
+
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random init from an explicit generator: torchvision trunk

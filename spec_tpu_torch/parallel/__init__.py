@@ -30,8 +30,13 @@ graph replay; gloo's cannot, so under gloo the step runs its eager body
 (:func:`capturable`). That choice follows from the backend; it is never
 made by catching a failed capture.
 
-Not ported yet: the height-sharded ``spatial_parallel`` layout (ROADMAP.md
-§1 item 12b) and FSDP/HSDP (item 12c); their functions raise
+* **one process, the frame's rows over several local devices**
+  (``SpecPredictor(spatial_parallel=True)``): stage 1's trunk split into
+  bands of rows with halo rows exchanged at each layer
+  (:class:`~spec_tpu_torch.parallel.spatial.SpatialStage`,
+  ``parallel/spatial.py``).
+
+Not ported yet: FSDP/HSDP (ROADMAP.md §1 item 12c); its functions raise
 ``NotImplementedError``.
 """
 
@@ -46,9 +51,6 @@ import torch
 import torch.distributed as dist
 import torch.utils._pytree as pytree
 
-SPATIAL_NOT_PORTED = (
-    'spatial_parallel (height-sharded stage 1 with a halo exchange) is '
-    'not ported yet (ROADMAP.md §1 item 12b)')
 FSDP_NOT_PORTED = (
     'FSDP/HSDP (sharded parameters and optimizer state) is not ported yet '
     '(ROADMAP.md §1 item 12c)')
@@ -230,10 +232,6 @@ def fsdp_shardings(tree, mesh, axis_name=None, min_size=2 ** 14):
     raise NotImplementedError(FSDP_NOT_PORTED)
 
 
-def spatial_sharding(mesh, axis_name=None, ndim: int = 4, dim: int = 1):
-    raise NotImplementedError(SPATIAL_NOT_PORTED)
-
-
 def _split(x, n: int):
     if x.shape[0] % n:
         raise ValueError(f'a batch of {x.shape[0]} rows does not split '
@@ -333,11 +331,15 @@ class ReplicatedStage:
 
 # -- the data-parallel train step -------------------------------------------
 
-# Ranks the batch is sharded over while a step body runs (sharded_batch
-# sets it and restores it). Module-level, not thread-local: the autograd
-# engine may run a REMAT block's recompute, and its BatchNorms, on a
-# thread of its own during the step's backward.
+# Ranks the batch is sharded over while a step body runs, and whether
+# its reductions are global (sharded_batch sets both and restores them).
+# Module-level, not thread-local: the autograd engine may run a REMAT
+# block's recompute, and its BatchNorms, on a thread of its own during
+# the step's backward.
 _BATCH_WORLD = 1
+_GLOBAL = False
+# The test seam of force_global_reductions.
+_FORCE_GLOBAL = False
 
 
 @contextlib.contextmanager
@@ -347,13 +349,35 @@ def sharded_batch():
     reductions (:func:`batch_mean`, :func:`all_reduce_data`) and the
     train-mode BatchNorm statistics (``models/backbones/resnet.
     BatchNorm2d``) then reduce over the global batch. Outside, and in
-    one process, they are the plain local reductions."""
-    global _BATCH_WORLD
-    prev, _BATCH_WORLD = _BATCH_WORLD, process_count()
+    one process, they are the plain local reductions (unless
+    :func:`force_global_reductions` is on)."""
+    global _BATCH_WORLD, _GLOBAL
+    world = process_count()
+    if _FORCE_GLOBAL and not is_initialized():
+        raise RuntimeError('force_global_reductions needs a process group')
+    prev = _BATCH_WORLD, _GLOBAL
+    _BATCH_WORLD, _GLOBAL = world, world > 1 or _FORCE_GLOBAL
     try:
         yield
     finally:
-        _BATCH_WORLD = prev
+        _BATCH_WORLD, _GLOBAL = prev
+
+
+@contextlib.contextmanager
+def force_global_reductions():
+    """Test seam: inside, :func:`sharded_batch` takes the global branches
+    (the all-reduces of BatchNorm's statistics and of the losses' counts,
+    the global means) even when the process group has one rank, so one
+    card runs the multi-rank step's code. The divisors keep the true rank
+    count: a sum over one rank is the local sum, so the step computes
+    what the plain step does, through other operations. Needs a process
+    group."""
+    global _FORCE_GLOBAL
+    prev, _FORCE_GLOBAL = _FORCE_GLOBAL, True
+    try:
+        yield
+    finally:
+        _FORCE_GLOBAL = prev
 
 
 def batch_world() -> int:
@@ -362,11 +386,18 @@ def batch_world() -> int:
     return _BATCH_WORLD
 
 
+def global_batch() -> bool:
+    """Whether the current batch's reductions run over the ranks (inside
+    :func:`sharded_batch` with more than one rank, or under
+    :func:`force_global_reductions`)."""
+    return _GLOBAL
+
+
 def all_reduce_data(t: torch.Tensor) -> torch.Tensor:
     """The sum over the ranks of ``t``, a value that depends on the data
     only (a count, a confidence sum: no gradient flows through it), in a
     sharded batch; ``t`` itself otherwise."""
-    if _BATCH_WORLD == 1:
+    if not _GLOBAL:
         return t
     t = t.detach().clone()
     dist.all_reduce(t)
@@ -394,7 +425,7 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     """The sum over the ranks of ``t`` with autograd: its backward sums
     the cotangents over the ranks (each rank's loss is its share of the
     global loss). ``t`` itself outside a sharded batch."""
-    if _BATCH_WORLD == 1:
+    if not _GLOBAL:
         return t
     return _AllReduceSum.apply(t)
 
@@ -403,7 +434,7 @@ def batch_mean(x: torch.Tensor) -> torch.Tensor:
     """``x.mean()`` over the global batch, when ``x`` holds this rank's
     rows (every rank the same number): this rank's share, which summed
     over the ranks is the global mean. ``x.mean()`` in one process."""
-    if _BATCH_WORLD == 1:
+    if not _GLOBAL:
         return x.mean()
     return x.sum() / (x.numel() * _BATCH_WORLD)
 
@@ -440,3 +471,11 @@ def all_reduce_metrics(metrics: dict) -> dict:
                         for k in keys])
     dist.all_reduce(flat)
     return {k: flat[i] for i, k in enumerate(keys)}
+
+
+from spec_tpu_torch.parallel.spatial import (  # noqa: E402
+    SpatialSharding,
+    SpatialStage,
+    band_rows,
+    spatial_sharding,
+)

@@ -112,9 +112,21 @@ def _cam_forward(camcalib, loss_type: str, batch_u8: torch.Tensor):
     normalize, CamCalib, bin decode -> (vfov, pitch, roll logits (B, 256)
     each, angles (3, B) = (vfov, pitch, roll)). The predictor keeps the
     angles; ``camcalib_demo`` also plots the logits."""
-    logits = camcalib(normalize_u8(batch_u8))
+    return _cam_outputs(camcalib(normalize_u8(batch_u8)), loss_type)
+
+
+def _cam_outputs(logits, loss_type: str):
+    """Stage 1's outputs from CamCalib's logits: the logits and the
+    angles (3, B) of their bin decode."""
     return (*logits, torch.stack(bins.convert_preds_to_angles(
         *logits, loss_type=loss_type)))
+
+
+def _normalize_nchw(tile_u8: torch.Tensor) -> torch.Tensor:
+    """``normalize_u8`` of an NCHW view of uint8 frames, as an NCHW
+    (channels_last) view: spatial_parallel's bands normalize their own
+    rows."""
+    return normalize_u8(tile_u8.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
 
 def _spec_forward(spec, assets, crops, rotmat, K, bbox_scale, bbox_center,
@@ -247,8 +259,16 @@ class SpecPredictor:
     graphs of its own: a padded batch splits into one equal part per
     card and the outputs gather on the first, so ``batch_size`` must be a
     multiple of the card count and padding never drops below one item
-    per card (``_min_pad``, ``_min_pad_s1``). ``spatial_parallel`` (the
-    height-sharded stage 1) is not ported yet and raises.
+    per card (``_min_pad``, ``_min_pad_s1``). ``spatial_parallel=True``
+    is the single-frame latency layout: stage 1 splits each frame's rows
+    into one band per card, the bands exchanging halo rows before every
+    layer whose window spans rows and the first card adding the bands'
+    pooled sums and running the heads (``parallel.SpatialStage``), so a
+    one-frame call stays one frame (``_min_pad_s1`` 1); stage 2 splits
+    its person batch as under ``data_parallel`` (``_min_pad`` the card
+    count, ``batch_size`` a multiple of it); the detector stays on the
+    first card. With one card the one band is the whole frame: stage 1
+    is the plain stage. The two layouts exclude each other.
 
     Streams: ``camcalib_every`` state is kept per stream name, at most
     ``max_streams`` named streams, least recently used evicted. Unlike
@@ -271,7 +291,7 @@ class SpecPredictor:
     # class default would be shared by every instance)
     _cam_streams: Optional[OrderedDict] = None
     max_streams = 256  # LRU cap on retained named camcalib_every streams
-    mesh = None             # data_parallel's devices
+    mesh = None             # data_parallel's or spatial_parallel's devices
     _min_pad = 1            # padded batches are multiples of these
     _min_pad_s1 = 1
 
@@ -307,8 +327,6 @@ class SpecPredictor:
             raise ValueError(
                 'data_parallel and spatial_parallel are mutually '
                 'exclusive layouts (throughput vs single-frame latency)')
-        if spatial_parallel:
-            raise NotImplementedError(par.SPATIAL_NOT_PORTED)
         if use_fused_lbs is False:
             raise ValueError(
                 'use_fused_lbs=False has no counterpart in the port: SMPL '
@@ -321,17 +339,20 @@ class SpecPredictor:
                 'is no crop upload to shrink')
 
         self.device = torch.device(device)
-        if data_parallel:
+        if data_parallel or spatial_parallel:
             self.mesh = par.create_mesh(device=self.device)
             n_dev = len(self.mesh)
             if batch_size % n_dev:
                 raise ValueError(
                     f'batch_size {batch_size} must be a multiple of the '
-                    f'device count {n_dev} for data_parallel')
+                    f'device count {n_dev} for '
+                    'data_parallel/spatial_parallel')
             self.device = self.mesh[0]
             # padded batches stay divisible by the mesh (powers of two
-            # compose with power-of-two meshes above this floor)
-            self._min_pad = self._min_pad_s1 = n_dev
+            # compose with power-of-two meshes above this floor); under
+            # spatial_parallel stage 1 splits rows, not frames
+            self._min_pad = n_dev
+            self._min_pad_s1 = 1 if spatial_parallel else n_dev
         self.img_res = img_res
         self.batch_size = batch_size
         self.min_size = min_size
@@ -357,7 +378,7 @@ class SpecPredictor:
         self._stage2 = StageGraph(
             'stage2', SpecStage(self.spec, self.assets), pool)
         if self.mesh is not None:
-            self._replicate_stages(pool)
+            self._replicate_stages(pool, spatial_parallel)
 
         if detector == 'yolo':
             from spec_tpu_torch.models.detector import YoloDetector
@@ -366,42 +387,64 @@ class SpecPredictor:
                 print('[serving] WARNING: detector=yolo without '
                       'yolo_weights runs a random-init detector '
                       '(pipeline smoke only)')
+            # Detection splits over the mesh under data_parallel; under
+            # spatial_parallel it stays on the first card (its 416² input
+            # is small: split into bands it would be mostly halo).
+            det_mesh = self.mesh if data_parallel else None
             det_bs = 8
-            if self.mesh is not None:   # the batch must divide the mesh
-                det_bs = par.pad_to_multiple(det_bs, len(self.mesh))
+            if det_mesh is not None:    # the batch must divide the mesh
+                det_bs = par.pad_to_multiple(det_bs, len(det_mesh))
             self.detector = YoloDetector(
                 weights_path=yolo_weights or None, img_size=yolo_img_size,
                 batch_size=det_bs, device=self.device, pool=pool,
-                mesh=self.mesh)
+                mesh=det_mesh)
 
-    def _replicate_stages(self, pool) -> None:
+    def _replicate_stages(self, pool, spatial: bool) -> None:
         """data_parallel: each stage as one replica per device of the
-        mesh, the first the stages built above; a card's replicas share
-        that card's graph pool (their replays run in turn)."""
+        mesh, the first the stages built above; spatial_parallel: stage 2
+        so, and stage 1 split into bands of rows over the mesh. A card's
+        replicas and bands share that card's graph pool (their replays
+        run in turn)."""
         pools = {self.device: pool}
-        s1, s2 = [self._stage1], [self._stage2]
-        cams = par.replicate(self.camcalib, self.mesh)
-        specs = par.replicate(self.spec, self.mesh)
-        for cam, spec, dev in zip(cams[1:], specs[1:], self.mesh[1:]):
+        for dev in self.mesh[1:]:
             if dev not in pools:
                 with torch.cuda.device(dev):
                     pools[dev] = torch.cuda.graph_pool_handle()
+        s2 = [self._stage2]
+        specs = par.replicate(self.spec, self.mesh)
+        for spec, dev in zip(specs[1:], self.mesh[1:]):
             assets = S.with_packed_lbs(self.assets.to(dev))
-            s1.append(StageGraph('stage1', CamStage(cam, self.loss_type),
-                                 pools[dev]))
             s2.append(StageGraph('stage2', SpecStage(spec, assets),
                                  pools[dev]))
-        # stage 1's angles are (3, B): their batch is dimension 1
-        self._stage1 = par.ReplicatedStage(s1, self.mesh,
-                                           out_dims=(0, 0, 0, 1))
         self._stage2 = par.ReplicatedStage(s2, self.mesh)
+        cams = par.replicate(self.camcalib, self.mesh)
+        if not spatial:
+            s1 = [self._stage1] + [
+                StageGraph('stage1', CamStage(cam, self.loss_type),
+                           pools[dev])
+                for cam, dev in zip(cams[1:], self.mesh[1:])]
+            # stage 1's angles are (3, B): their batch is dimension 1
+            self._stage1 = par.ReplicatedStage(s1, self.mesh,
+                                               out_dims=(0, 0, 0, 1))
+            return
+        camcalib, loss_type = self.camcalib, self.loss_type
+
+        def heads(*row_sums, count):
+            return _cam_outputs(camcalib.forward_pooled(row_sums, count),
+                                loss_type)
+
+        self._stage1 = par.SpatialStage(
+            [cam.backbone for cam in cams], heads, self.mesh,
+            prep=_normalize_nchw, dtype=camcalib.dtype,
+            pools=[pools[dev] for dev in self.mesh], whole=self._stage1)
 
     def _padded(self, n_valid: int, mult: Optional[int] = None) -> int:
         """The batch a chunk of ``n_valid`` items runs at: the next power
         of two capped at ``batch_size``, rounded up to a multiple of the
-        mesh size under data_parallel (every replica's part non-empty).
-        ``mult`` overrides that multiple (stage 1 passes
-        ``_min_pad_s1``)."""
+        mesh size under data_parallel and spatial_parallel (every
+        replica's part non-empty). ``mult`` overrides that multiple
+        (stage 1 passes ``_min_pad_s1``, 1 under spatial_parallel, whose
+        stage 1 splits rows)."""
         bp = pad_pow2(n_valid, self.batch_size)
         mp = self._min_pad if mult is None else mult
         return -(-bp // mp) * mp

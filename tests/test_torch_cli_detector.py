@@ -192,7 +192,6 @@ def test_serve_flags_build_the_detector(monkeypatch):
                         lambda **kw: seen.update(kw))
     args = TServe.parse_args(['--detector', 'yolo', '--yolo_weights',
                               'w.weights', '--yolo_img_size', '320'])
-    TServe._unported(args)             # no longer refused
     TServe.build_predictor(args, torch.device('cpu'))
     assert (seen['detector'], seen['yolo_weights'],
             seen['yolo_img_size']) == ('yolo', 'w.weights', 320)

@@ -16,6 +16,7 @@ import io
 import json
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 
@@ -642,19 +643,56 @@ def test_serve_help_documents_streams_and_unported_flags(capsys,
     assert e.value.code == 0
     helptext = capsys.readouterr().out
     for phrase in ('X-Spec-Stream', 'PER STREAM', '--device',
-                   'box-less requests', '.specx artifact', 'item 12'):
+                   'box-less requests', '.specx artifact',
+                   'one band of rows per card'):
         assert phrase in helptext, phrase
-    assert 'item 11' not in helptext      # --exported is ported
+    # --exported (item 11) and --spatial_parallel (item 12b) are ported;
+    # no serve flag waits for an item
+    assert 'item 11' not in helptext and 'item 12' not in helptext
 
 
-@pytest.mark.parametrize('flags,item', [
-    (['--detector', 'yolo', '--spatial_parallel'], 12),
-    (['--data_parallel', '--spatial_parallel'], 12),
-    (['--spatial_parallel'], 12),
-    (['--exported', 'art.specx', '--spatial_parallel'], 12)])
-def test_serve_unported_flags_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=f'item {item}'):
-        TServe.main(flags + ['--device', 'cpu'])
+@pytest.mark.parametrize('flags', [
+    ['--detector', 'yolo', '--spatial_parallel'],
+    ['--data_parallel', '--spatial_parallel'],
+    ['--spatial_parallel'],
+    ['--exported', 'art.specx', '--spatial_parallel']])
+def test_serve_spatial_parallel_flag(flags, monkeypatch, tmp_path, capsys):
+    """--spatial_parallel builds the banded predictor (here on two CPU
+    devices through the device-list seam); with --detector yolo the
+    detector stays on the first device, unsplit; with --data_parallel
+    the predictor raises the reference's ValueError; with --exported the
+    flag is ignored (the artifact runs on one device)."""
+    from spec_tpu_torch import export
+    from spec_tpu_torch import parallel as par
+
+    monkeypatch.setenv('SPEC_DATA_ROOT', str(tmp_path))
+    monkeypatch.setattr(par, 'create_mesh', lambda devices=None,
+                        device=None: [torch.device('cpu')] * 2)
+    loaded = types.SimpleNamespace()
+    monkeypatch.setattr(export, 'load_predictor',
+                        lambda path, batch_size, device: loaded)
+    cfg = tmp_path / 'r18.yaml'
+    cfg.write_text('HMR:\n  BACKBONE: resnet18\n')
+    args = TServe.parse_args(flags + ['--cfg', str(cfg), '--min_size', '64',
+                                      '--batch_size', '4'])
+    assert args.spatial_parallel
+    if '--data_parallel' in flags:
+        with pytest.raises(ValueError, match='mutually exclusive'):
+            TServe.build_predictor(args, torch.device('cpu'))
+        return
+    if '--exported' in flags:
+        pred = TServe.build_predictor(args, torch.device('cpu'))
+        assert pred is loaded
+        assert '--spatial_parallel does not apply to --exported' in \
+            capsys.readouterr().out
+        return
+    pred = TServe.build_predictor(args, torch.device('cpu'))
+    assert isinstance(pred._stage1, par.SpatialStage)
+    assert len(pred._stage1.mesh) == 2
+    assert (pred._min_pad_s1, pred._min_pad) == (1, 2)
+    if '--detector' in flags:
+        assert (pred.detector._min_pad, pred.detector.batch_size) == (1, 8)
+        assert not isinstance(pred.detector._fwd, par.ReplicatedStage)
 
 
 def test_serve_main_needs_a_card_unless_asked(monkeypatch):

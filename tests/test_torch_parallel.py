@@ -15,8 +15,12 @@ the CPU, against spec_tpu's and against the port's plain path.
   them, so only the convolutions' batch-dependent rounding differs).
 * The layouts' ``ValueError``s (an indivisible batch, both layouts at
   once; ``tests/test_parallel_infer.py``), the ``NotImplementedError``s
-  naming item 12b (``spatial_parallel``) and 12c (FSDP/HSDP), and the
-  collectives' no-ops in one process.
+  naming item 12c (FSDP/HSDP), and the collectives' no-ops in one
+  process; ``SpecPredictor``'s pads under ``spatial_parallel`` too (the
+  layout itself is tests/test_torch_spatial.py's).
+* The test seam ``force_global_reductions``: with a one-rank gloo group
+  the SPEC step takes the multi-rank branches and still computes the
+  plain step.
 
 The multi-process half is ``tests/test_torch_multiprocess.py``.
 """
@@ -98,13 +102,19 @@ def test_loader_slices_match_jax(shuffle):
 
 @pytest.mark.parametrize('n_dev', [1, 2, 8])
 def test_padding_matches_jax_predictor(n_dev, monkeypatch, tmp_path):
+    _hold_padding(n_dev, monkeypatch, tmp_path, data_parallel=True)
+
+
+def _hold_padding(n_dev, monkeypatch, tmp_path, **layout):
+    """The port's pads equal the JAX predictor's under ``layout`` on a
+    mesh of ``n_dev`` devices."""
     import spec_tpu.parallel as jpar
     from spec_tpu.serving import SpecPredictor as JaxPredictor
     from spec_tpu_torch.serving import SpecPredictor
 
     monkeypatch.setenv('SPEC_DATA_ROOT', str(tmp_path))
     kw = dict(backbone='resnet18', camcalib_backbone='resnet18',
-              batch_size=8, min_size=64, data_parallel=True)
+              batch_size=8, min_size=64, **layout)
     jmesh = jpar.create_mesh
     monkeypatch.setattr(jpar, 'create_mesh',
                         lambda devices=None, axis_name='data':
@@ -113,12 +123,25 @@ def test_padding_matches_jax_predictor(n_dev, monkeypatch, tmp_path):
                         lambda devices=None, device=None: CPU8[:n_dev])
     jp = JaxPredictor(use_fused_lbs=False, **kw)
     tp = SpecPredictor(device='cpu', **kw)
+    s1 = 1 if layout.get('spatial_parallel') else n_dev
     assert (tp._min_pad, tp._min_pad_s1) == (jp._min_pad, jp._min_pad_s1) \
-        == (n_dev, n_dev)
+        == (n_dev, s1)
     for n in range(1, 20):
         for mult in (None, 1, n_dev):
             assert tp._padded(n, mult) == jp._padded(n, mult), (n, mult)
-    assert len(tp._stage1.stages if n_dev > 1 else [tp._stage1]) == n_dev
+    if layout.get('spatial_parallel'):
+        assert tp._stage1.mesh == CPU8[:n_dev]
+    else:
+        assert len(tp._stage1.stages if n_dev > 1 else [tp._stage1]) == \
+            n_dev
+
+
+@pytest.mark.parametrize('n_dev', [1, 2, 8])
+def test_spatial_padding_matches_jax_predictor(n_dev, monkeypatch,
+                                               tmp_path):
+    """test_padding_matches_jax_predictor under spatial_parallel: stage 1
+    pads for no mesh (it splits rows), stage 2 for the device count."""
+    _hold_padding(n_dev, monkeypatch, tmp_path, spatial_parallel=True)
 
 
 def _frames_and_boxes(seed):
@@ -284,6 +307,9 @@ def test_layout_errors_match_jax(eight_devices):
 
 
 def test_unported_layouts_name_their_item(eight_devices):
+    """FSDP/HSDP names item 12c; spatial_parallel (item 12b) is ported:
+    its sharding names the devices and the split dimension, and the
+    predictor splits stage 1 into bands over the seam's 8 devices."""
     from spec_tpu_torch.serving import SpecPredictor
 
     for fn in (lambda: par.create_hybrid_mesh(CPU8),
@@ -291,10 +317,12 @@ def test_unported_layouts_name_their_item(eight_devices):
                lambda: par.fsdp_shardings({}, CPU8)):
         with pytest.raises(NotImplementedError, match='item 12c'):
             fn()
-    with pytest.raises(NotImplementedError, match='item 12b'):
-        par.spatial_sharding(CPU8)
-    with pytest.raises(NotImplementedError, match='item 12b'):
-        SpecPredictor(device='cpu', spatial_parallel=True)
+    sh = par.spatial_sharding(CPU8)
+    assert sh.devices == CPU8 and sh.dim == 1
+    pred = SpecPredictor(device='cpu', spatial_parallel=True,
+                         backbone='resnet18', camcalib_backbone='resnet18')
+    assert isinstance(pred._stage1, par.SpatialStage)
+    assert pred._stage1.mesh == CPU8
 
 
 def test_single_process_helpers(monkeypatch):
@@ -323,3 +351,63 @@ def test_single_process_helpers(monkeypatch):
         assert par.batch_world() == 1           # no process group
         assert par.batch_mean(x) == x.mean()
         assert par.all_reduce_data(x) is x
+    assert not par.global_batch()
+    with par.force_global_reductions(), pytest.raises(RuntimeError,
+                                                      match='process group'):
+        with par.sharded_batch():
+            pass
+
+
+def test_forced_global_step_matches_plain():
+    """The seam ``force_global_reductions`` with a one-rank gloo group:
+    the SPEC step (chip_smoke.py's phase 23 setup at a small size) takes
+    the multi-rank branches (BatchNorm's global statistics and the
+    losses' global counts, each an all-reduce) and still computes the
+    plain step: its losses and model update within phase 23's limits
+    (PAR_LOSS_RTOL, PAR_UPDATE_RTOL; bf16 autocast), and each BatchNorm
+    running statistic's change within PAR_UPDATE_RTOL of the plain
+    step's."""
+    import chip_smoke as cs
+
+    dev = torch.device('cpu')
+    sizes = dict(B=8, device=dev, backbone='resnet18', res=64, vertices=128)
+    plain = cs._par_setup(**sizes)
+    batch = {k: torch.from_numpy(v) for k, v in plain[2].items()}
+    start = {k: v.clone() for k, v in plain[0].model.state_dict().items()}
+    want, _ = cs._par_steps(plain[0], plain[1], batch, cs.PAR_STEPS, dev)
+    want_sd = plain[0].model.state_dict()
+    par.initialize_multihost(f'127.0.0.1:{cs._free_port()}', 1, 0,
+                             backend='gloo', device='cpu')
+    calls = []
+    all_reduce = torch.distributed.all_reduce
+    try:
+        state, step, _ = cs._par_setup(**sizes)
+        torch.distributed.all_reduce = (
+            lambda *a, **k: calls.append(1) or all_reduce(*a, **k))
+        with par.force_global_reductions():
+            got, _ = cs._par_steps(state, step, batch, cs.PAR_STEPS, dev)
+    finally:
+        torch.distributed.all_reduce = all_reduce
+        torch.distributed.destroy_process_group()
+    n_bn = sum(isinstance(m, torch.nn.BatchNorm2d)
+               for m in state.model.modules())
+    # a forward and a backward all-reduce per BatchNorm layer, the losses'
+    # counts, the gradients and the metrics, in every step
+    assert len(calls) >= cs.PAR_STEPS * (2 * n_bn + 2), (len(calls), n_bn)
+    for g, w in zip(got, want):
+        for k, v in w.items():
+            assert abs(g[k] - v) <= cs.PAR_LOSS_RTOL * max(abs(v), 1e-6), k
+    got_sd = state.model.state_dict()
+    upd, worst, biggest = cs._update_errors(got_sd, want_sd, start)
+    assert upd <= cs.PAR_UPDATE_RTOL, upd
+    assert worst <= cs.PAR_UPDATE_RTOL * biggest, (worst, biggest)
+    stats = [k for k in want_sd if k.endswith(('running_mean', 'running_var',
+                                               'num_batches_tracked'))]
+    assert len(stats) == 3 * n_bn
+    for k in stats:
+        if k.endswith('num_batches_tracked'):
+            assert torch.equal(got_sd[k], want_sd[k]), k
+            continue
+        diff = float((got_sd[k] - want_sd[k]).abs().max())
+        moved = float((want_sd[k] - start[k]).abs().max())
+        assert diff <= cs.PAR_UPDATE_RTOL * moved, (k, diff, moved)

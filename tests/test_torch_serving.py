@@ -192,10 +192,31 @@ def test_camcalib_every_stream_matches_jax(predictors):
             pred.camcalib_every = 1
 
 
+@pytest.mark.parametrize('kwargs', [
+    dict(spatial_parallel=True, batch_size=3),
+    dict(spatial_parallel=True),
+    dict(detector='yolo', spatial_parallel=True)])
+def test_spatial_parallel_builds(kwargs):
+    """spatial_parallel on the CPU's one device: one band is the whole
+    frame, so stage 1 runs the plain stage; the layout's pads (stage 1
+    never pads for the mesh, stage 2 to the device count, 1 here) and an
+    unsplit detector."""
+    from spec_tpu_torch import parallel as par
+    from spec_tpu_torch.serving import SpecPredictor
+
+    pred = SpecPredictor(device='cpu', backbone='resnet18',
+                         camcalib_backbone='resnet18', **kwargs)
+    assert pred.mesh == [torch.device('cpu')]
+    assert (pred._min_pad_s1, pred._min_pad) == (1, 1)
+    assert pred._padded(2, pred._min_pad_s1) == 2
+    assert isinstance(pred._stage1, par.SpatialStage)
+    assert pred._stage1.whole.fn.camcalib is pred.camcalib
+    if 'detector' in kwargs:
+        assert (pred.detector._min_pad, pred.detector.batch_size) == (1, 8)
+        assert not isinstance(pred.detector._fwd, par.ReplicatedStage)
+
+
 @pytest.mark.parametrize('kwargs,err', [
-    (dict(spatial_parallel=True, batch_size=3), NotImplementedError),
-    (dict(spatial_parallel=True), NotImplementedError),
-    (dict(detector='yolo', spatial_parallel=True), NotImplementedError),
     (dict(cfg_file='no_such_config.yaml'), FileNotFoundError),
     (dict(detector='ssd'), ValueError),
     (dict(use_fused_lbs=False), ValueError),
@@ -216,7 +237,8 @@ def test_import_hygiene():
     kernel wrapper, the host-native bindings, the renderer, profiling and
     the region cache, the artifact export and loader, export_model,
     prepare_data, the offline data generators (datagen/) and the
-    data-parallel layer (parallel/) import no JAX, flax, PIL, cv2,
+    data-parallel and spatial layouts (parallel/) import no JAX, flax,
+    PIL, cv2,
     PyYAML, joblib, matplotlib, tensorboard
     or triton (none of them exist on the machine with the card), no
     requests (the Flickr downloader imports it when it runs) and
