@@ -242,7 +242,34 @@ printing its own results; any failure raises and exits nonzero:
     two bands against plain, medians of SPATIAL_CALLS calls in turns,
     with device profiles; (d) ``serve --spatial_parallel`` as its own
     process for one request, then SIGTERM, exit 0;
-25. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
+25. fsdp (``TRAINING.FSDP``, ``spec_tpu_torch/parallel/fsdp.py``: the
+    optimizer state sharded leaf-wise, gradients reduce-scattered onto
+    each rank's slices, the updated slices all-gathered into whole
+    parameters): phase 23's full-width SPEC step with SGD momentum
+    FSDP_MOMENTUM, PAR_STEPS steps held to the plain step over the global
+    batch: the losses (PAR_LOSS_RTOL), the trainable parameters
+    (FSDP_UPDATE_RTOL) and, apart, BatchNorm's running statistics
+    (FSDP_STATS_RTOL). (a) One NCCL rank, full-axis layout: one
+    graph with its reduce-scatters, all-gathers and all-reduces captured
+    (counted at the calls, and the NCCL kernels a replay's profile
+    names), the replay equal to its eager body bit for bit, the largest
+    differences from the plain step, ms per replay against the plain
+    step's in turns, the optimizer-slot bytes and the peak allocated
+    memory beside the plain step's (measured before the FSDP runs and
+    again after them), K1's launches (the kernels line's
+    ``launches``); (b) the same on a (1, 1) hybrid mesh
+    (``create_hybrid_mesh(fsdp=1)``), so the fsdp and data subgroups'
+    collectives sit inside the capture; (c) two gloo ranks sharing the
+    card (processes of this script), eager: the ranks equal, the
+    parameters held to a plain data-parallel rank on the same rows (the
+    losses and statistics also to one process), each rank's slot bytes
+    at most FSDP_SLOT_SHARE of the plain step's, each rank's peak
+    allocated memory beside the plain data-parallel rank's (before the
+    FSDP run and after it); (d)
+    ``spec_train`` with ``TRAINING.FSDP True`` over two gloo ranks for
+    one step (tiny inputs), then a plain one-process ``spec_train
+    --resume`` from its checkpoint, each exiting 0;
+26. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then, instead of
 the rest, profiles phase 4's predictor (wall medians per stage, device
@@ -254,7 +281,8 @@ eager stage bodies.
 alone; ``python3 chip_smoke.py --export`` runs phases 1-2 and then
 phases 21 and 22; ``python3 chip_smoke.py --parallel`` runs phases 1-2
 and then phase 23; ``python3 chip_smoke.py --spatial`` runs phases 1-2
-and then phase 24.
+and then phase 24; ``python3 chip_smoke.py --fsdp`` runs phases 1-2 and
+then phase 25.
 ``python3 chip_smoke.py --k3-tiles`` runs phases 1-2 and then times K3
 in fp32 and bf16 at each stage shape with every candidate output tile
 forced, beside the tile the kernel picks.
@@ -4135,10 +4163,11 @@ PAR_LOSS_RTOL, PAR_UPDATE_RTOL = 1e-2, 5e-2
 PAR_CLI_HW, PAR_CLI_RES, PAR_CLI_BACKBONE = (120, 160), 64, 'resnet18'
 
 
-def _par_setup(B, device, backbone, res, vertices):
-    """The phase's model, SGD state, step and global batch (numpy) on
-    ``device``: ``bench.train_setup``'s HMR (seed 0, zeroed decoders),
-    bf16, dropout off."""
+def _par_setup(B, device, backbone, res, vertices, momentum=None):
+    """The phase's model, SGD state (``momentum``: SGD's trace, for
+    phase 25), step and global batch (numpy) on ``device``:
+    ``bench.train_setup``'s HMR (seed 0, zeroed decoders), bf16, dropout
+    off."""
     import numpy as np
     import torch
 
@@ -4159,6 +4188,7 @@ def _par_setup(B, device, backbone, res, vertices):
     model.head.dropout_rate = 0.0
     model = model.to(device).train()
     state = create_train_state(model, Transform('sgd', PAR_LR,
+                                                momentum=momentum,
                                                 clip_norm=1.0))
     step = make_spec_train_step(model, S.create_test_assets(vertices))
     batch = bench.train_inputs(B, res)
@@ -4189,9 +4219,13 @@ def _par_steps(state, step, batch, n, device):
 
 
 def _par_rank(argv):
-    """One rank of phase 23(a): ``chip_smoke.py --parallel-rank RANK
-    WORLD PORT DIR DEVICE SIZES`` (SIZES: batch,res,vertices,backbone).
-    Joins a gloo group, steps on its slice of the global batch and writes
+    """One rank of phase 23(a) or 25(c): ``chip_smoke.py --parallel-rank
+    RANK WORLD PORT DIR DEVICE SIZES [fsdp]`` (SIZES:
+    batch,res,vertices,backbone). Joins a gloo group, steps on its slice
+    of the global batch (with ``fsdp``: SGD with momentum, the state laid
+    out over every rank, between two plain data-parallel runs from the
+    same start, cuDNN deterministic in all: the first is FSDP's
+    reference, both give the peak memory) and writes
     ``DIR/rank{RANK}.pt``."""
     import torch
 
@@ -4199,18 +4233,58 @@ def _par_rank(argv):
     from spec_tpu_torch.ops import lbs as L
 
     rank, world, port, d, device, sizes = argv[:6]
+    fsdp = argv[6:7] == ['fsdp']
     rank, world = int(rank), int(world)
     B, res, vertices, backbone = sizes.split(',')
     par.initialize_multihost(f'127.0.0.1:{port}', world, rank,
                              backend='gloo', device=device)
     dev = par.local_device(device)
-    state, step, batch = _par_setup(int(B), dev, backbone, int(res),
-                                    int(vertices))
-    local = par.shard_batch({k: torch.from_numpy(v)
-                             for k, v in batch.items()}, [dev])[0]
+    sizes = (int(B), dev, backbone, int(res), int(vertices))
+
+    def local_batch(batch):
+        return par.shard_batch({k: torch.from_numpy(v)
+                                for k, v in batch.items()}, [dev])[0]
+
+    def plain_run():
+        """A plain data-parallel rank: (losses, state_dict, peak bytes)."""
+        with _peak_memory(dev) as peak:
+            state, step, batch = _par_setup(*sizes, FSDP_MOMENTUM)
+            losses, _ = _par_steps(state, step, local_batch(batch),
+                                   PAR_STEPS, dev)
+        return losses, {k: v.detach().cpu() for k, v in
+                        state.model.state_dict().items()}, peak['bytes']
+
+    plain = {'peak_bytes': 0, 'again_peak_bytes': 0}
+    if fsdp:
+        # FSDP's reference on the same rows, and its peak memory
+        torch.backends.cudnn.deterministic = True
+        plain['losses'], plain['state'], plain['peak_bytes'] = plain_run()
+    with _peak_memory(dev) as peak:
+        state, step, batch = _par_setup(*sizes,
+                                        FSDP_MOMENTUM if fsdp else None)
+        if fsdp:
+            _fsdp_bind(state, 'fsdp')
+        local = local_batch(batch)
+        L.LAUNCHES = 0
+        losses, ms = _par_steps(state, step, local, PAR_STEPS, dev)
+        launches = L.LAUNCHES
+    out = {'rows': len(local['img']), 'mode': step.mode,
+           'backend': par.backend(), 'device': str(dev),
+           'launches': launches, 'losses': losses, 'ms': ms,
+           'peak_bytes': peak['bytes'], 'plain': plain,
+           'slot_bytes': state.optimizer.slot_bytes(),
+           'sharded': (len(state.optimizer.layout.sharded)
+                       if state.optimizer.layout else 0),
+           'state': {k: v.detach().cpu()
+                     for k, v in state.model.state_dict().items()}}
+    numel = sum(p.numel() for p in state.optimizer.params)
+    del state, step, local
+    if fsdp:
+        # the plain rank's peak again, past the first runs' one-time
+        # allocations (cuDNN's algorithm search among them)
+        plain['again_peak_bytes'] = plain_run()[2]
     # the gradient all-reduce alone, on a buffer of the model's size
-    flat = torch.ones(sum(p.numel() for p in state.optimizer.params),
-                      device=dev)
+    flat = torch.ones(numel, device=dev)
     ar_ms = []
     for _ in range(4):
         if dev.type == 'cuda':
@@ -4220,15 +4294,8 @@ def _par_rank(argv):
         if dev.type == 'cuda':
             torch.cuda.synchronize(dev)
         ar_ms.append((time.perf_counter() - t0) * 1e3)
-    L.LAUNCHES = 0
-    losses, ms = _par_steps(state, step, local, PAR_STEPS, dev)
-    out = {'rows': len(local['img']), 'mode': step.mode,
-           'backend': par.backend(), 'device': str(dev),
-           'launches': L.LAUNCHES, 'losses': losses, 'ms': ms,
-           'allreduce_ms': statistics.median(ar_ms[1:]),
-           'allreduce_bytes': flat.numel() * 4,
-           'state': {k: v.detach().cpu()
-                     for k, v in state.model.state_dict().items()}}
+    out.update(allreduce_ms=statistics.median(ar_ms[1:]),
+               allreduce_bytes=flat.numel() * 4)
     torch.save(out, os.path.join(d, f'rank{rank}.pt'))
     par.barrier()
     return 0
@@ -4267,16 +4334,39 @@ def _free_port():
     return port
 
 
-def _update_errors(got, want, start):
-    """(relative L2 of the update difference over the whole model, the
-    largest |parameter difference|, the largest |update| entry) of two
-    state_dicts from one start."""
+@contextlib.contextmanager
+def _peak_memory(device):
+    """Inside: yields a dict whose 'bytes' is set on the way out to the
+    peak of allocated memory on ``device`` above what was allocated on
+    the way in (the caching allocator's count, CUDA graph pools
+    included; 0 off a card)."""
+    import torch
+
+    out = {'bytes': 0}
+    if device.type != 'cuda':
+        yield out
+        return
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    try:
+        yield out
+    finally:
+        torch.cuda.synchronize(device)
+        out['bytes'] = torch.cuda.max_memory_allocated(device) - base
+
+
+def _update_errors(got, want, start, keys=None):
+    """(relative L2 of the update difference, the largest |difference|,
+    the largest |update| entry) of two state_dicts from one start, over
+    ``keys`` (by default every entry but the batch counters)."""
     import torch
 
     num = den = 0.0
     worst = biggest = 0.0
     for k, w in want.items():
-        if k.endswith('num_batches_tracked'):
+        if k.endswith('num_batches_tracked') or (
+                keys is not None and k not in keys):
             continue
         g, w, s = (t.double().cpu() for t in (got[k], w, start[k]))
         num += float(((g - w) ** 2).sum())
@@ -4284,6 +4374,68 @@ def _update_errors(got, want, start):
         worst = max(worst, float((g - w).abs().max()))
         biggest = max(biggest, float((w - s).abs().max()))
     return (num / max(den, 1e-300)) ** 0.5, worst, biggest
+
+
+# the collectives phases 23 and 25 count in a step's body
+COLLECTIVES = ('reduce_scatter_tensor', 'all_gather_into_tensor',
+               'all_reduce')
+
+
+@contextlib.contextmanager
+def _counted_collectives(card):
+    """Inside: every call of the COLLECTIVES of ``torch.distributed`` is
+    recorded as (name, group, whether a CUDA graph capture was on)."""
+    import torch
+    import torch.distributed as dist
+
+    calls = []
+    saved = {n: getattr(dist, n) for n in COLLECTIVES}
+
+    def counted(name, fn):
+        def call(*a, **k):
+            calls.append((name, k.get('group'),
+                          card and torch.cuda.is_current_stream_capturing()))
+            return fn(*a, **k)
+        return call
+
+    for n, fn in saved.items():
+        setattr(dist, n, counted(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def _par_errors(got, want, got_sd, want_sd, start):
+    """(the largest relative loss difference, then ``_update_errors``) of
+    two runs' per-step losses and final state_dicts from one start."""
+    worst_loss = max(abs(g[k] - v) / max(abs(v), 1e-6)
+                     for g, w in zip(got, want) for k, v in w.items())
+    return (worst_loss,) + _update_errors(got_sd, want_sd, start)
+
+
+def _within_par_limits(worst_loss, upd, worst, biggest):
+    """Phase 23's limits on ``_par_errors``'s numbers."""
+    return (worst_loss <= PAR_LOSS_RTOL and upd <= PAR_UPDATE_RTOL
+            and worst <= PAR_UPDATE_RTOL * biggest)
+
+
+def _replay_is_eager(state, step, batch):
+    """Whether a replay of the train ``step`` equals its eager body from
+    one state, bit for bit (metrics and state_dict); leaves the replay's
+    state."""
+    import torch
+
+    snap = _snapshot(state)
+    _, eager = step.eager(state, batch)
+    eager_sd = {k: v.detach().clone()
+                for k, v in state.model.state_dict().items()}
+    _restore(state, snap)
+    _, replay = step(state, batch)
+    return all(torch.equal(replay[k], eager[k]) for k in eager) and all(
+        torch.equal(v, eager_sd[k])
+        for k, v in state.model.state_dict().items())
 
 
 def _par_two_ranks(device, sizes, d):
@@ -4388,22 +4540,12 @@ def _par_nccl(device, sizes):
             grouped = _par_setup(B, dev, backbone, res, vertices)
             # count the all-reduces the step's body calls (its first call
             # runs it eagerly, the second captures it)
-            calls = []
-            all_reduce = torch.distributed.all_reduce
-
-            def counted(*a, **k):
-                calls.append(torch.cuda.is_current_stream_capturing()
-                             if card else False)
-                return all_reduce(*a, **k)
-
-            torch.distributed.all_reduce = counted
-            try:
+            with _counted_collectives(card) as calls:
                 L.LAUNCHES = 0
                 got, _ = _par_steps(grouped[0], grouped[1], full,
                                     PAR_STEPS, dev)
-            finally:
-                torch.distributed.all_reduce = all_reduce
             launches = L.LAUNCHES
+            captured = [c[2] for c in calls if c[0] == 'all_reduce']
             sd_got = grouped[0].model.state_dict()
             same = got == want and all(
                 torch.equal(v, sd_got[k])
@@ -4411,8 +4553,8 @@ def _par_nccl(device, sizes):
             graphs = len(grouped[1].graphs.signatures())
             print(f'[parallel nccl 1 rank] {par.backend()}, the step '
                   f'{grouped[1].mode}, {graphs} graph(s) captured; the '
-                  f'body called all_reduce {len(calls)} times, '
-                  f'{sum(calls)} of them inside the capture; '
+                  f'body called all_reduce {len(captured)} times, '
+                  f'{sum(captured)} of them inside the capture; '
                   f'{PAR_STEPS} steps equal the step without a process '
                   f'group bit for bit: {same}; K1 launches {launches}',
                   flush=True)
@@ -4421,7 +4563,8 @@ def _par_nccl(device, sizes):
                                    'step without a process group')
             if not card:
                 return {'nccl 1 rank': launches}
-            if graphs != 1 or grouped[1].mode != 'graph' or not any(calls):
+            if graphs != 1 or grouped[1].mode != 'graph' or \
+                    not any(captured):
                 raise RuntimeError('the NCCL step is not one graph with '
                                    'its all-reduce')
             wall = {}
@@ -4482,40 +4625,21 @@ def _par_nccl_global(device, sizes):
         par.initialize_multihost(f'127.0.0.1:{_free_port()}', 1, 0,
                                  backend='nccl' if card else 'gloo',
                                  device=device)
-        calls = []
-        all_reduce = torch.distributed.all_reduce
-
-        def counted(*a, **k):
-            calls.append(torch.cuda.is_current_stream_capturing()
-                         if card else False)
-            return all_reduce(*a, **k)
-
         try:
             state, step, _ = _par_setup(B, dev, backbone, res, vertices)
             n_bn = sum(isinstance(m, torch.nn.BatchNorm2d)
                        for m in state.model.modules())
-            torch.distributed.all_reduce = counted
             with par.force_global_reductions():
-                L.LAUNCHES = 0
-                got, _ = _par_steps(state, step, full, PAR_STEPS, dev)
-                launches = L.LAUNCHES
-                torch.distributed.all_reduce = all_reduce
+                with _counted_collectives(card) as counted:
+                    L.LAUNCHES = 0
+                    got, _ = _par_steps(state, step, full, PAR_STEPS, dev)
+                    launches = L.LAUNCHES
                 got_sd = {k: v.detach().cpu().clone()
                           for k, v in state.model.state_dict().items()}
-                # the replay against its eager body, from one state
-                snap = _snapshot(state)
-                _, eager = step.eager(state, full)
-                eager_sd = {k: v.detach().clone()
-                            for k, v in state.model.state_dict().items()}
-                _restore(state, snap)
-                _, replay = step(state, full)
-                same = all(torch.equal(replay[k], eager[k])
-                           for k in eager) and all(
-                    torch.equal(v, eager_sd[k])
-                    for k, v in state.model.state_dict().items())
-            worst_loss = max(abs(g[k] - v) / max(abs(v), 1e-6)
-                             for g, w in zip(got, want) for k, v in w.items())
-            upd, worst, biggest = _update_errors(got_sd, want_sd, start)
+                same = _replay_is_eager(state, step, full)
+            calls = [c[2] for c in counted if c[0] == 'all_reduce']
+            worst_loss, upd, worst, biggest = _par_errors(
+                got, want, got_sd, want_sd, start)
             graphs = len(step.graphs.signatures())
             print(f'[parallel nccl global] {par.backend()}, one rank, '
                   f'force_global_reductions: the step {step.mode}, '
@@ -4532,8 +4656,7 @@ def _par_nccl_global(device, sizes):
                   f'difference {worst:.3e} against the largest update '
                   f'entry {biggest:.3e}; K1 launches {launches}',
                   flush=True)
-            if not (worst_loss <= PAR_LOSS_RTOL and upd <= PAR_UPDATE_RTOL
-                    and worst <= PAR_UPDATE_RTOL * biggest):
+            if not _within_par_limits(worst_loss, upd, worst, biggest):
                 raise RuntimeError('the global-statistics step differs from '
                                    'the plain step beyond the limits')
             if len(calls) < 2 * n_bn + 2:
@@ -4568,7 +4691,6 @@ def _par_nccl_global(device, sizes):
                   f'{nccl:g}', flush=True)
             return {'nccl 1 rank, global branches': launches}
         finally:
-            torch.distributed.all_reduce = all_reduce
             torch.distributed.destroy_process_group()
     finally:
         torch.backends.cudnn.deterministic = deterministic
@@ -5053,10 +5175,396 @@ def phase_spatial(device='cuda'):
     return launches
 
 
+# Phase 25 (fsdp): TRAINING.FSDP's layout (spec_tpu_torch/parallel/fsdp.py)
+# on phase 23's full-width SPEC step (ResNet-50 HMR with camera features,
+# bf16, V = 6890, B = PAR_BATCH, dropout off), SGD at PAR_LR with
+# momentum FSDP_MOMENTUM (its trace is the slot a rank shards) and the
+# global-norm clip, PAR_STEPS steps from one start held to the plain
+# step on the same rows (in (c), a plain data-parallel rank; there the
+# losses and BatchNorm statistics also to one process over the global
+# batch): each loss within PAR_LOSS_RTOL relative; over the trainable
+# parameters alone the update within FSDP_UPDATE_RTOL relative (L2), and
+# so the update of the sharded leaves alone (the small replicated
+# leaves, BatchNorm's scales and shifts among them, carry most of the
+# update's norm), and the largest parameter difference within
+# FSDP_UPDATE_RTOL of the largest update entry; BatchNorm's running
+# statistics, which move without the optimizer and by far more than SGD
+# moves a parameter, on their own: their change within FSDP_STATS_RTOL
+# relative (L2).
+FSDP_MOMENTUM = 0.9
+# Sound runs on an H100 read 0 ((c), against the plain data-parallel
+# rank) and under 1e-7 ((a)) for both updates; runs whose all-gather was
+# dropped, or whose optimizer stepped copies of the sharded slices, read
+# 0.097-0.110 over the trainable parameters and 0.739-1.000 over the
+# sharded leaves. The statistics against one process read 4.6e-3.
+FSDP_UPDATE_RTOL, FSDP_STATS_RTOL = 1e-3, 5e-2
+# a rank of two holds at most this share of the plain step's slot bytes
+# (the sharded leaves' halves plus the small replicated leaves whole)
+FSDP_SLOT_SHARE = 0.6
+
+
+def _fsdp_errors(got, want, got_sd, want_sd, start, model, ranks):
+    """Phase 25's errors of a run over ``ranks`` ranks (per-step losses
+    ``got``, final state_dict ``got_sd``) against the plain one from
+    ``start``: a dict of the largest relative loss difference,
+    ``_update_errors`` over the trainable parameters of ``model``
+    ('update', 'worst', 'biggest'), the relative L2 of the update over
+    the leaves the layout shards ('sharded') and of the BatchNorm
+    statistics' change ('stats')."""
+    from spec_tpu_torch import parallel as par
+
+    mesh = par.create_process_mesh(list(range(ranks)))
+    params = {k: p for k, p in model.named_parameters() if p.requires_grad}
+    sharded = {k for k, p in params.items()
+               if par.fsdp_leaf_sharding(mesh, p.shape) is not None}
+    stats = {k for k in want_sd
+             if k.endswith(('running_mean', 'running_var'))}
+    loss = max(abs(g[k] - v) / max(abs(v), 1e-6)
+               for g, w in zip(got, want) for k, v in w.items())
+    update, worst, biggest = _update_errors(got_sd, want_sd, start,
+                                            set(params))
+    return dict(loss=loss, update=update, worst=worst, biggest=biggest,
+                sharded=_update_errors(got_sd, want_sd, start, sharded)[0],
+                stats=_update_errors(got_sd, want_sd, start, stats)[0])
+
+
+def _fsdp_report(e):
+    """``_fsdp_errors``'s numbers beside their limits, for a phase line."""
+    return (f'losses within {e["loss"]:.3e} relative (limit '
+            f'{PAR_LOSS_RTOL:.0e}); over the trainable parameters the '
+            f'update {e["update"]:.3e} relative, over the sharded leaves '
+            f'{e["sharded"]:.3e} (limit {FSDP_UPDATE_RTOL:.0e} each), and '
+            f'the largest difference '
+            f'{e["worst"]:.3e} against the largest update entry '
+            f'{e["biggest"]:.3e} (limit {FSDP_UPDATE_RTOL:.0e} of it); the '
+            f'BatchNorm statistics\' change {e["stats"]:.3e} relative (limit '
+            f'{FSDP_STATS_RTOL:.0e})')
+
+
+def _within_fsdp_limits(e):
+    return (e['loss'] <= PAR_LOSS_RTOL
+            and max(e['update'], e['sharded']) <= FSDP_UPDATE_RTOL
+            and e['worst'] <= FSDP_UPDATE_RTOL * e['biggest']
+            and e['stats'] <= FSDP_STATS_RTOL)
+
+
+def _mib(n):
+    return f'{n / 2 ** 20:.1f} MiB'
+
+
+def _fsdp_bind(state, layout):
+    """Lay ``state`` out as the trainer does under TRAINING.FSDP: 'fsdp'
+    over every rank (``create_process_mesh``), 'hsdp' over groups of one
+    rank (``create_hybrid_mesh(fsdp=1)``: with one rank a (1, 1) mesh,
+    so both its subgroups run their collectives). Returns the mesh."""
+    from spec_tpu_torch import parallel as par
+
+    mesh = (par.create_hybrid_mesh(fsdp=1) if layout == 'hsdp'
+            else par.create_process_mesh())
+    par.shard_like(state, par.fsdp_shardings(state.optimizer.params, mesh))
+    return mesh
+
+
+def _fsdp_plain(device, sizes):
+    """The plain step (no process group) at phase 25's setup: (state,
+    step, the global batch on the device, the start, the losses of
+    PAR_STEPS steps, the state_dict after them, the peak memory of its
+    setup and steps)."""
+    import torch
+
+    B, res, vertices, backbone = sizes
+    dev = torch.device(device)
+    with _peak_memory(dev) as peak:
+        state, step, batch = _par_setup(B, dev, backbone, res, vertices,
+                                        FSDP_MOMENTUM)
+        full = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        start = {k: v.detach().cpu().clone()
+                 for k, v in state.model.state_dict().items()}
+        want, _ = _par_steps(state, step, full, PAR_STEPS, dev)
+    want_sd = {k: v.detach().cpu().clone()
+               for k, v in state.model.state_dict().items()}
+    return dict(state=state, step=step, full=full, start=start, want=want,
+                want_sd=want_sd, peak_bytes=peak['bytes'])
+
+
+def _fsdp_nccl(device, sizes, plain, layout):
+    """25(a) (``layout`` 'fsdp') and 25(b) ('hsdp', a (1, 1) hybrid
+    mesh): one rank of the process group (NCCL on the card, gloo in a CPU
+    rehearsal). The step is one graph with its collectives captured, the
+    replay equals its eager body bit for bit, PAR_STEPS steps stay
+    within phase 23's limits of the plain step; ms per replay against
+    the plain step's in turns (25(a)). Returns (K1 launches over the
+    steps, the peak memory of its setup and steps)."""
+    import torch
+
+    from spec_tpu_torch.ops import lbs as L
+
+    B, res, vertices, backbone = sizes
+    card = device == 'cuda'
+    dev = torch.device(device)
+    with _peak_memory(dev) as peak:
+        # (its own copy of the batch, as the plain step's peak counts one)
+        full = {k: v.clone() for k, v in plain['full'].items()}
+        state, step, _ = _par_setup(B, dev, backbone, res, vertices,
+                                    FSDP_MOMENTUM)
+        mesh = _fsdp_bind(state, layout)
+        with _counted_collectives(card) as calls:
+            L.LAUNCHES = 0
+            got, _ = _par_steps(state, step, full, PAR_STEPS, dev)
+            launches = L.LAUNCHES
+    opt = state.optimizer
+    got_sd = {k: v.detach().cpu().clone()
+              for k, v in state.model.state_dict().items()}
+    same = _replay_is_eager(state, step, full)
+    errors = _fsdp_errors(got, plain['want'], got_sd, plain['want_sd'],
+                          plain['start'], state.model, mesh.ranks.size)
+    graphs = len(step.graphs.signatures())
+
+    def n(name, captured=None, group=None):
+        return sum(1 for c in calls if c[0] == name
+                   and (captured is None or c[2] == captured)
+                   and (group is None or c[1] is group))
+
+    counts = {name: (n(name), n(name, True)) for name in COLLECTIVES}
+    replica = (n('all_reduce', group=mesh.replica_group), n(
+        'all_reduce', True, mesh.replica_group)) \
+        if mesh.replica_group is not None else (0, 0)
+    slot_bytes = opt.slot_bytes()
+    print(f'[fsdp {layout} 1 rank] {step.mode}, mesh {mesh.shape}, '
+          f'{len(opt.layout.sharded)} of {len(opt.params)} trainable '
+          f'tensors sharded; {graphs} graph(s); collectives the body '
+          f'called in {PAR_STEPS} steps (all, inside the capture): '
+          + ', '.join(f'{k} {v[0]} ({v[1]})' for k, v in counts.items())
+          + (f', of the all-reduces over the data group {replica[0]} '
+             f'({replica[1]})' if mesh.replica_group is not None else '')
+          + f'; replay vs eager from one state bit-identical: {same}; '
+          f'against the plain step: {_fsdp_report(errors)}; optimizer '
+          f'slot bytes on this rank {slot_bytes} (plain '
+          f'{plain["state"].optimizer.slot_bytes()}); peak allocated '
+          f'memory of setup and steps {_mib(peak["bytes"])} (plain '
+          f'{_mib(plain["peak_bytes"])}); K1 launches {launches}',
+          flush=True)
+    if not _within_fsdp_limits(errors):
+        raise RuntimeError(f'the {layout} step differs from the plain step '
+                           'beyond the limits')
+    if not (counts['reduce_scatter_tensor'][0]
+            and counts['all_gather_into_tensor'][0]) or (
+            mesh.replica_group is not None and not replica[0]):
+        raise RuntimeError(f'the {layout} step did not run its collectives')
+    if not card:
+        return launches, peak['bytes']
+    if not same:
+        raise RuntimeError(f'the {layout} replay differs from its eager '
+                           'body')
+    if graphs != 1 or step.mode != 'graph' or not (
+            counts['reduce_scatter_tensor'][1]
+            and counts['all_gather_into_tensor'][1]
+            and counts['all_reduce'][1]) or (
+            mesh.replica_group is not None and not replica[1]):
+        raise RuntimeError(f'the {layout} step is not one graph with its '
+                           'collectives')
+    if launches != 2 * PAR_STEPS:
+        raise RuntimeError(f'the {layout} step launched K1 {launches} '
+                           'times')
+    if layout == 'fsdp':
+        wall = {}
+        for label, (st, sp) in (('plain', (plain['state'], plain['step'])),
+                                ('fsdp', (state, step)),
+                                ('plain', (plain['state'], plain['step'])),
+                                ('fsdp', (state, step))):
+            wall.setdefault(label, []).append(_wall_ms(
+                lambda: sp(st, full), PAR_REPLAYS))
+        prof = _device_profile('fsdp 1 rank replay', lambda: step(state, full),
+                               min(wall['fsdp']), 3)
+        nccl = {kind: sum(c for name, c in prof['count_by_name'].items()
+                          if 'nccl' in name.lower() and kind in name.lower())
+                for kind in ('reducescatter', 'allgather', 'allreduce')}
+        print(f'[fsdp fsdp 1 rank] ms per step (median of {PAR_REPLAYS}, '
+              f'two turns): '
+              + ', '.join(f'{k} ' + ' '.join(f'{t:.3f}' for t in v)
+                          for k, v in wall.items())
+              + '; NCCL kernels the profiler names per replay: '
+              + ', '.join(f'{k} {v:g}' for k, v in nccl.items())
+              + ' (one rank: NCCL may copy without a kernel of its own)',
+              flush=True)
+    del state, step
+    return launches, peak['bytes']
+
+
+def _fsdp_two_ranks(device, sizes, d, plain):
+    """25(c): two gloo ranks on the one card (two processes of this
+    script), the step eager, the state laid out over both: the ranks
+    equal; the losses and BatchNorm statistics against the plain step
+    over the global batch, and the trainable parameters against a plain
+    data-parallel rank on the same rows (against one process bf16 rounds
+    the convolutions of 32 and of 64 rows differently, and the sharded
+    leaves' small gradients differ by up to 0.38 relative); each rank's
+    slot bytes about half the plain step's."""
+    import torch
+
+    port = _free_port()
+    spec = ','.join(str(x) for x in sizes)
+    logs = _spawn([[sys.executable, str(ROOT / 'chip_smoke.py'),
+                    '--parallel-rank', str(r), '2', str(port), str(d),
+                    device, spec, 'fsdp'] for r in range(2)], 'fsdp rank',
+                  env=dict(os.environ, OMP_NUM_THREADS='1'))
+    ranks = [torch.load(os.path.join(d, f'rank{r}.pt'), weights_only=False)
+             for r in range(2)]
+    for r, log in enumerate(logs):
+        for line in log.strip().splitlines()[-3:]:
+            print(f'[fsdp rank {r}] {line}')
+    r0, r1 = ranks
+    model = plain['state'].model
+    one = [_fsdp_errors(r['losses'], plain['want'], r['state'],
+                        plain['want_sd'], plain['start'], model, 2)
+           for r in ranks]
+    dp = [_fsdp_errors(r['losses'], r['plain']['losses'], r['state'],
+                       r['plain']['state'], plain['start'], model, 2)
+          for r in ranks]
+    whole = plain['state'].optimizer.slot_bytes()
+    print(f'[fsdp 2 ranks] {sizes[3]} bf16, global B={sizes[0]} '
+          f'({r0["rows"]} a rank), {PAR_STEPS} SGD steps (momentum '
+          f'{FSDP_MOMENTUM}), {r0["backend"]} on {r0["device"]} and '
+          f'{r1["device"]}, the step {r0["mode"]}, {r0["sharded"]} tensors '
+          f'sharded: against a plain data-parallel rank, rank 0 '
+          f'{_fsdp_report(dp[0])}, rank 1 the parameter update '
+          f'{dp[1]["update"]:.3e} relative, {dp[1]["sharded"]:.3e} over the '
+          f'sharded leaves; against one process (not held: bf16), rank 0 '
+          f'losses within {one[0]["loss"]:.3e} relative (limit '
+          f'{PAR_LOSS_RTOL:.0e}), the BatchNorm statistics\' change '
+          f'{one[0]["stats"]:.3e} (limit {FSDP_STATS_RTOL:.0e}), the '
+          f'parameter update {one[0]["update"]:.3e}, '
+          f'{one[0]["sharded"]:.3e} over the sharded leaves; optimizer slot '
+          f'bytes per rank {r0["slot_bytes"]} and {r1["slot_bytes"]} against '
+          f'{whole} in one process ({r0["slot_bytes"] / whole:.3f}); peak '
+          f'allocated memory per rank {_mib(r0["peak_bytes"])} and '
+          f'{_mib(r1["peak_bytes"])} against a plain data-parallel rank\'s '
+          f'{_mib(r0["plain"]["peak_bytes"])} and '
+          f'{_mib(r1["plain"]["peak_bytes"])} before it, '
+          f'{_mib(r0["plain"]["again_peak_bytes"])} and '
+          f'{_mib(r1["plain"]["again_peak_bytes"])} after it; ms per step '
+          f'(rank 0) '
+          + ' '.join(f'{t:.1f}' for t in r0['ms'])
+          + f'; K1 launches per rank {r0["launches"]} and '
+          f'{r1["launches"]}', flush=True)
+    if r0['losses'] != r1['losses'] or any(
+            not torch.equal(r0['state'][k], r1['state'][k])
+            for k in r0['state']):
+        raise RuntimeError('the two FSDP ranks disagree on the losses or the '
+                           'parameters')
+    if not (all(_within_fsdp_limits(e) for e in dp)
+            and one[0]['loss'] <= PAR_LOSS_RTOL
+            and one[0]['stats'] <= FSDP_STATS_RTOL):
+        raise RuntimeError('two FSDP ranks differ from a plain data-parallel '
+                           'rank or from one process beyond the limits')
+    if r0['mode'] != 'eager' or not r0['sharded'] or any(
+            r['slot_bytes'] > FSDP_SLOT_SHARE * whole for r in ranks):
+        raise RuntimeError('the FSDP ranks did not shard their slots')
+    if device == 'cuda' and r0['launches'] != 2 * PAR_STEPS:
+        raise RuntimeError(f'FSDP rank 0 launched K1 {r0["launches"]} times')
+    return {'rank 0': r0['launches'], 'rank 1': r1['launches']}
+
+
+def _fsdp_cli(device, d):
+    """25(d): ``spec_train`` with TRAINING.FSDP over two gloo ranks for one
+    step (each rank its own process, phase 23(d)'s tiny inputs), then a
+    plain one-process ``spec_train --resume`` from its checkpoint; each
+    exits 0."""
+    root = os.path.join(d, 'data')
+    _par_write_data(root)
+    env = dict(os.environ, SPEC_DATA_ROOT=root, OMP_NUM_THREADS='1')
+    logs_dir = os.path.join(d, 'fsdp_train')
+    opts = ['HMR.BACKBONE', PAR_CLI_BACKBONE, 'DATASET.IMG_RES',
+            str(PAR_CLI_RES), 'DATASET.NUM_WORKERS', '1',
+            'DATASET.VAL_DS', '3dpw-test-cam', 'DATASET.BATCH_SIZE', '2',
+            'LOG_FREQ_TB_IMAGES', '0', 'DATASET.TRAIN_DS', 'spec-syn',
+            'TRAINING.LOG_SAVE_INTERVAL', '1']
+    py = [sys.executable, '-m', 'spec_tpu_torch.cli.spec_train', '--device',
+          device, '--log_root', logs_dir]
+    t0 = time.perf_counter()
+    port = _free_port()
+    logs = _spawn([py + ['--fdr', '--coordinator_address',
+                         f'127.0.0.1:{port}', '--num_processes', '2',
+                         '--process_id', str(r), '--dist_backend', 'gloo',
+                         '--opts', *opts, 'TRAINING.FSDP', 'True']
+                   for r in range(2)], 'spec_train FSDP (2 ranks)', env=env)
+    layout = [line for line in logs[0].splitlines() if 'FSDP over' in line]
+    steps = [line for line in logs[0].splitlines() if ' step 1 ' in line]
+    if not layout or not steps:
+        raise RuntimeError(f'spec_train FSDP (2 ranks):\n{logs[0][-3000:]}')
+    print(f'[fsdp cli] spec_train TRAINING.FSDP True, 2 ranks over gloo, '
+          f'--fdr: exit 0 in {time.perf_counter() - t0:.1f} s; '
+          f'{layout[0].strip()}; {steps[0].strip()}', flush=True)
+    t0 = time.perf_counter()
+    log, = _spawn([py + ['--resume', '--opts', *opts,
+                         'TRAINING.MAX_EPOCHS', '2']],
+                  'spec_train --resume (plain)', env=env)
+    resumed = [line for line in log.splitlines()
+               if 'resumed from step 1' in line]
+    steps = [line for line in log.splitlines() if ' step 2 ' in line]
+    if not resumed or not steps or 'FSDP over' in log:
+        raise RuntimeError(f'spec_train --resume (plain):\n{log[-3000:]}')
+    print(f'[fsdp cli] plain spec_train --resume from that checkpoint: exit '
+          f'0 in {time.perf_counter() - t0:.1f} s; {resumed[0].strip()}; '
+          f'{steps[0].strip()}', flush=True)
+
+
+def phase_fsdp(device='cuda'):
+    """Phase 25 (see the module docstring). Returns K1's launches per
+    path for the kernels line. ``device='cpu'`` rehearses its logic on a
+    machine without a card (shrink PAR_BATCH, PAR_RES, PAR_BACKBONE,
+    PAR_VERTICES first); the NCCL rank is then a gloo one and the kernel
+    counts are 0."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from spec_tpu_torch import parallel as par
+
+    d = tempfile.mkdtemp(prefix='fsdp_', dir=str(ROOT / 'build'))
+    sizes = (PAR_BATCH, PAR_RES, PAR_VERTICES, PAR_BACKBONE)
+    card = device == 'cuda'
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _release_if(device)
+        plain = _fsdp_plain(device, sizes)
+        launches = {f'fsdp train {k} (gloo)': v for k, v in
+                    _fsdp_two_ranks(device, sizes, d, plain).items()}
+        par.initialize_multihost(f'127.0.0.1:{_free_port()}', 1, 0,
+                                 backend='nccl' if card else 'gloo',
+                                 device=device)
+        peaks = {'plain': plain['peak_bytes']}
+        try:
+            for layout in ('fsdp', 'hsdp'):
+                n, peaks[layout] = _fsdp_nccl(device, sizes, plain, layout)
+                launches[f'fsdp step ({layout}, 1 NCCL rank)'] = n
+                _release_if(device)
+        finally:
+            torch.distributed.destroy_process_group()
+        del plain
+        _release_if(device)
+        # the plain step's peak again, past the first run's one-time
+        # allocations (cuDNN's algorithm search among them)
+        peaks['plain again'] = _fsdp_plain(device, sizes)['peak_bytes']
+        _release_if(device)
+        print('[fsdp memory] peak allocated memory of setup and '
+              f'{PAR_STEPS} steps, one process: '
+              + ', '.join(f'{k} {_mib(v)}' for k, v in peaks.items()),
+              flush=True)
+        _fsdp_cli(device, d)
+        return launches
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(d, ignore_errors=True)
+        _release_if(device)
+
+
 def main() -> int:
     import torch
 
-    if '--parallel-rank' in sys.argv[1:]:      # one rank of phase 23(a)
+    if '--parallel-rank' in sys.argv[1:]:      # one rank of 23(a), 25(c)
         sys.path.insert(0, str(ROOT))
         return _par_rank(sys.argv[sys.argv.index('--parallel-rank') + 1:])
     if not torch.cuda.is_available():
@@ -5099,6 +5607,9 @@ def main() -> int:
     if '--spatial' in sys.argv[1:]:
         print(json.dumps(phase_spatial()))
         return 0
+    if '--fsdp' in sys.argv[1:]:
+        print(json.dumps(phase_fsdp()))
+        return 0
     from spec_tpu_torch.utils.batching import pad_pow2
 
     k3_rows = phase_bottleneck()
@@ -5117,7 +5628,8 @@ def main() -> int:
     lbs_rows = phase_lbs(sorted(set(LBS_BATCHES)
                                 | {main_batch, pipe_batch, TRAIN_BATCH,
                                    det['batch'], SYNTH['n'],
-                                   PAR_BATCH // 2, main_batch // 2}))
+                                   PAR_BATCH, PAR_BATCH // 2,
+                                   main_batch // 2}))
     verts, _, cam_t, vfov, pitch, roll = pipe['fp32']['fused']['outs']
     k2 = phase_projection(_projection_operands(verts, cam_t, vfov, pitch,
                                                roll))
@@ -5137,10 +5649,11 @@ def main() -> int:
     synth_launches = phase_datagen()
     parallel = phase_parallel()
     spatial = phase_spatial()
+    fsdp = phase_fsdp()
 
-    # K1's batch on this slice's path: a stage-2 replica's half of the
-    # predictor's chunk under spatial_parallel with two bands
-    row = lbs_rows[main_batch // 2]
+    # K1's batch on this slice's path: the FSDP step's global batch on
+    # one NCCL rank
+    row = lbs_rows[PAR_BATCH]
 
     def k3_entry(tag):
         """K3 in ``tag`` (bf16, or fp32 as 3xTF32): layer1's block at
@@ -5168,13 +5681,14 @@ def main() -> int:
         'route': 'cuda',
         'source': 'spec_tpu_torch/csrc/lbs.cu',
         'replaces': 'spec_tpu/ops/pallas/lbs.py:97',
-        # this slice's path: one predict call at phase 4's input (fp32)
-        # under spatial_parallel with two bands on the card (stage 2 as
-        # two replicas); the times below are phase 6's at a replica's
-        # stage-2 batch
-        'launches': spatial['spatial predict (2 bands, fp32)'],
-        'batch': main_batch // 2,
+        # this slice's path: PAR_STEPS steps of the full-axis FSDP train
+        # step on one NCCL rank (phase 25(a), two K1 forwards a step);
+        # the times below are phase 6's at its batch
+        'launches': fsdp['fsdp step (fsdp, 1 NCCL rank)'],
+        'batch': PAR_BATCH,
         'launches_by_path': {**render,
+                             # phase 25: the FSDP/HSDP paths
+                             **fsdp,
                              # phase 24: the spatial paths
                              **spatial,
                              # phase 23: the data-parallel paths
@@ -5208,7 +5722,9 @@ def main() -> int:
         'backward_bound_ms': _bound(*_k1_backward_work(TRAIN_BATCH),
                                     PEAK_FLOPS['fp32'])[0],
         # phase 6's kernel time at the batch each listed path gives K1
-        'ms_by_path': {'spatial predict (2 bands)': row['ms'],
+        'ms_by_path': {'fsdp step': row['ms'],
+                       'spatial predict (2 bands)':
+                           lbs_rows[main_batch // 2]['ms'],
                        'exported predict': lbs_rows[main_batch]['ms'],
                        'spec_synth': lbs_rows[SYNTH['n']]['ms'],
                        'parallel train rank': lbs_rows[PAR_BATCH // 2]['ms'],

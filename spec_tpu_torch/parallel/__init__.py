@@ -36,8 +36,12 @@ made by catching a failed capture.
   (:class:`~spec_tpu_torch.parallel.spatial.SpatialStage`,
   ``parallel/spatial.py``).
 
-Not ported yet: FSDP/HSDP (ROADMAP.md §1 item 12c); its functions raise
-``NotImplementedError``.
+* **FSDP/HSDP** (training, ``TRAINING.FSDP`` and ``FSDP_GROUP_SIZE``):
+  the optimizer state sharded leaf-wise over a group of ranks by the
+  reference's rule, gradients reduce-scattered onto each rank's slices
+  and the updated slices all-gathered back into whole parameters
+  (``parallel/fsdp.py``: :func:`create_hybrid_mesh`,
+  :func:`fsdp_shardings`, :func:`shard_like`).
 """
 
 from __future__ import annotations
@@ -50,11 +54,6 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 import torch.utils._pytree as pytree
-
-FSDP_NOT_PORTED = (
-    'FSDP/HSDP (sharded parameters and optimizer state) is not ported yet '
-    '(ROADMAP.md §1 item 12c)')
-
 
 # -- the process group ------------------------------------------------------
 
@@ -87,6 +86,20 @@ def local_rank() -> int:
     """This process's index on its host (a launcher's ``LOCAL_RANK``,
     else the global rank)."""
     return int(os.environ.get('LOCAL_RANK', process_index()))
+
+
+def local_process_count() -> int:
+    """Processes on this host: a launcher's ``LOCAL_WORLD_SIZE``, else
+    every rank (one host)."""
+    return int(os.environ.get('LOCAL_WORLD_SIZE', process_count()))
+
+
+def spans_hosts() -> bool:
+    """Whether the ranks span hosts: a launcher's ``WORLD_SIZE`` above
+    its ``LOCAL_WORLD_SIZE``. Without a launcher's variables the ranks
+    count as one host's."""
+    world = int(os.environ.get('WORLD_SIZE', process_count()))
+    return world > local_process_count()
 
 
 def local_device(device) -> torch.device:
@@ -218,18 +231,6 @@ def create_mesh(devices: Optional[Sequence] = None,
     if device is not None and torch.device(device).type == 'cpu':
         return [torch.device('cpu')]
     return [torch.device('cuda', i) for i in range(torch.cuda.device_count())]
-
-
-def create_hybrid_mesh(devices=None, fsdp: int = 2):
-    raise NotImplementedError(FSDP_NOT_PORTED)
-
-
-def fsdp_leaf_sharding(mesh, shape, axis_name=None, min_size=2 ** 14):
-    raise NotImplementedError(FSDP_NOT_PORTED)
-
-
-def fsdp_shardings(tree, mesh, axis_name=None, min_size=2 ** 14):
-    raise NotImplementedError(FSDP_NOT_PORTED)
 
 
 def _split(x, n: int):
@@ -473,6 +474,16 @@ def all_reduce_metrics(metrics: dict) -> dict:
     return {k: flat[i] for i, k in enumerate(keys)}
 
 
+from spec_tpu_torch.parallel.fsdp import (  # noqa: E402
+    FsdpLayout,
+    FsdpSharding,
+    ProcessMesh,
+    create_hybrid_mesh,
+    create_process_mesh,
+    fsdp_leaf_sharding,
+    fsdp_shardings,
+    shard_like,
+)
 from spec_tpu_torch.parallel.spatial import (  # noqa: E402
     SpatialSharding,
     SpatialStage,

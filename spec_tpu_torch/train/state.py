@@ -185,13 +185,22 @@ class Optimizer:
     """A :class:`Transform` bound to ``params``, with its state on their
     device: ``count`` (updates applied), the moments, and the
     accumulated gradient under ``every_k > 1`` (``acc``, and ``mini``,
-    micro-batches in it)."""
+    micro-batches in it).
+
+    Under FSDP (:meth:`shard`, ``parallel.shard_like``) the rule steps on
+    ``targets``, this rank's slices of the sharded leaves (views of the
+    parameters) and the replicated leaves whole, with the slots at the
+    targets' shapes; ``step`` takes the targets' gradients and ends by
+    gathering the updated slices into the whole parameters. Without a
+    layout ``targets`` is ``params``."""
 
     def __init__(self, tx: Transform, params: list):
         if not params:
             raise ValueError('no trainable tensors')
         self.tx = tx
         self.params = params
+        self.targets = params
+        self.layout = None
         dev = params[0].device
         self.count = torch.zeros((), dtype=torch.float32, device=dev)
         zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
@@ -207,6 +216,25 @@ class Optimizer:
         # (it picks the accumulating or the updating step).
         self.host_mini = 0
 
+    @torch.no_grad()
+    def shard(self, layout) -> None:
+        """Step on ``layout``'s slices from now on (a
+        ``parallel.FsdpLayout`` over :attr:`params`): each slot keeps
+        this rank's slice of its current value."""
+        if self.layout is not None:
+            raise ValueError('the optimizer state is already sharded')
+        if layout.params is not self.params:
+            raise ValueError('the layout is not over these tensors')
+        self.layout = layout
+        self.targets = layout.local
+        self.slots = {k: [layout.slice(i, t).clone() for i, t in enumerate(v)]
+                      for k, v in self.slots.items()}
+
+    def slot_bytes(self) -> int:
+        """Bytes of the slots this rank holds."""
+        return sum(t.numel() * t.element_size()
+                   for ts in self.slots.values() for t in ts)
+
     def will_update(self) -> bool:
         """Does the next micro-batch end an accumulation window?"""
         return self.host_mini + 1 >= self.tx.every_k
@@ -219,8 +247,9 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, grads: list, update: bool) -> None:
-        """One micro-batch's gradients: accumulate them (``every_k >
-        1``) and, when ``update``, apply the rule. Device operations only;
+        """One micro-batch's gradients (of :attr:`targets`): accumulate
+        them (``every_k > 1``) and, when ``update``, apply the rule.
+        Device operations (and, under a layout, its collectives) only;
         the caller moves ``host_mini``."""
         tx = self.tx
         if tx.every_k > 1:
@@ -237,13 +266,14 @@ class Optimizer:
         elif not update:
             raise ValueError('every micro-batch updates when every_k is 1')
         if tx.clip_norm:
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
+            norm = (self.layout.global_norm(grads) if self.layout
+                    else torch.linalg.vector_norm(
+                        torch.stack(torch._foreach_norm(grads))))
             factor = torch.where(norm < tx.clip_norm,
                                  torch.ones_like(norm), tx.clip_norm / norm)
             grads = torch._foreach_mul(grads, factor)
         if tx.weight_decay and tx.kind in ('adam', 'sgd'):
-            grads = torch._foreach_add(grads, self.params,
+            grads = torch._foreach_add(grads, self.targets,
                                        alpha=tx.weight_decay)
         if tx.kind in ('adam', 'adamw'):
             mu, nu = self.slots['mu'], self.slots['nu']
@@ -258,7 +288,7 @@ class Optimizer:
             torch._foreach_add_(denom, EPS)
             direction = torch._foreach_div(mu_hat, denom)
             if tx.kind == 'adamw' and tx.weight_decay:
-                torch._foreach_add_(direction, self.params,
+                torch._foreach_add_(direction, self.targets,
                                     alpha=tx.weight_decay)
         elif tx.momentum:
             trace = self.slots['trace']
@@ -267,18 +297,25 @@ class Optimizer:
             direction = trace
         else:
             direction = grads
-        torch._foreach_sub_(self.params, torch._foreach_mul(
+        torch._foreach_sub_(self.targets, torch._foreach_mul(
             direction, self._learning_rate()))
         self.count.add_(1.0)
+        if self.layout is not None:
+            self.layout.gather_params()
 
     def state_dict(self) -> dict:
-        """A copy of the state on the CPU."""
+        """A copy of the state on the CPU, each slot whole. Under a layout
+        the slots are gathered over the shard group: every rank of it
+        calls this."""
         def copy(t):
             return t.detach().to('cpu', copy=True)
 
+        def whole(ts):
+            return self.layout.gather_whole(ts) if self.layout else ts
+
         out = {'kind': self.tx.kind, 'count': copy(self.count),
                'host_mini': self.host_mini,
-               'slots': {k: [copy(t) for t in v]
+               'slots': {k: [copy(t) for t in whole(v)]
                          for k, v in self.slots.items()}}
         if self.tx.every_k > 1:
             out['mini'] = copy(self.mini)
@@ -286,8 +323,9 @@ class Optimizer:
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
-        """Copy a saved state into this one's tensors, in place (graphs
-        captured on them stay valid)."""
+        """Copy a saved state (whole slots, whatever layout saved it)
+        into this one's tensors, in place (graphs captured on them stay
+        valid); under a layout each slot takes this rank's slice."""
         if sd['kind'] != self.tx.kind or set(sd['slots']) != set(
                 self.slots):
             raise ValueError(
@@ -297,11 +335,11 @@ class Optimizer:
         for name, saved in sd['slots'].items():
             mine = self.slots[name]
             if len(saved) != len(mine) or any(
-                    s.shape != m.shape for s, m in zip(saved, mine)):
+                    s.shape != p.shape for s, p in zip(saved, self.params)):
                 raise ValueError(f'optimizer slot {name!r} has other '
                                  'shapes than the model')
-            for m, s in zip(mine, saved):
-                m.copy_(s)
+            for i, (m, s) in enumerate(zip(mine, saved)):
+                m.copy_(self.layout.slice(i, s) if self.layout else s)
         self.count.copy_(sd['count'])
         if self.tx.every_k > 1:
             self.mini.copy_(sd['mini'])

@@ -25,8 +25,14 @@ each rank steps on its slice of the global batch. The body runs in
 global batch, and between the backward and the update the gradients are
 summed over the ranks in one flat buffer and the metrics made global.
 The parameters are broadcast from rank 0 when a state is first bound.
-Under NCCL the step, its collectives included, stays one graph replay;
-under gloo, whose collectives cannot be captured, it runs its eager body
+Under FSDP/HSDP (a state bound to a layout by ``parallel.shard_like``)
+the gradients are reduced onto this rank's slices instead
+(``parallel.FsdpLayout.reduce_gradients``: a reduce-scatter of the
+sharded leaves, an all-reduce over the data group under HSDP, an
+all-reduce of the replicated leaves), the optimizer steps on the slices
+and all-gathers them back into the whole parameters. Under NCCL the
+step, its collectives included, stays one graph replay; under gloo,
+whose collectives cannot be captured, it runs its eager body
 (:attr:`TrainStep.mode` says which).
 """
 
@@ -83,8 +89,13 @@ class TrainStep:
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in opt.params]
         metrics = {k: v.detach() for k, v in metrics.items()}
-        if par.is_initialized():
+        if opt.layout is not None:
+            # FSDP: the gradients of this rank's slices (the optimizer
+            # gathers the updated slices into the parameters)
+            grads = opt.layout.reduce_gradients(grads)
+        elif par.is_initialized():
             grads = par.all_reduce_gradients(grads)
+        if par.is_initialized():
             metrics = par.all_reduce_metrics(metrics)
         opt.step(grads, update)
         return metrics

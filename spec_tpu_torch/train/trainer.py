@@ -27,8 +27,17 @@ every rank runs the same steps on its slice of each global batch
 (``DataLoader(process_id=...)``; the step reduces over the global batch,
 ``train/steps.py``), the ranks agree on a SIGTERM before the save
 (``parallel.all_processes_any``), rank 0 alone writes checkpoints, meta
-and TensorBoard, and each rank validates on its own. Not ported yet,
-raising ``NotImplementedError``: TRAINING.FSDP (ROADMAP.md §1 item 12c).
+and TensorBoard, and each rank validates on its own.
+
+TRAINING.FSDP shards the optimizer state leaf-wise over every rank
+(full-axis FSDP) or, with TRAINING.FSDP_GROUP_SIZE = k > 1, over groups
+of k consecutive ranks, replicated across the groups (HSDP), as the
+reference's trainer lays its state out (``parallel/fsdp.py``: the
+parameters stay whole on every rank). Ranks on several hosts need HSDP
+with groups within a host. A checkpoint holds the whole state whatever
+the layout: every rank enters the save (it gathers the slots) and rank 0
+writes; a resume takes each rank's slice of the saved slots, so FSDP
+and plain runs resume each other.
 """
 
 from __future__ import annotations
@@ -75,10 +84,24 @@ class SpecTrainer:
         self.device = next(model.parameters()).device
 
         training = cfg.TRAINING
-        if training.get('FSDP', False):
-            raise NotImplementedError(
-                'TRAINING.FSDP is not ported yet (ROADMAP.md §1 item 12c, '
-                'FSDP/HSDP)')
+        fsdp = bool(training.get('FSDP', False))
+        fsdp_group = int(training.get('FSDP_GROUP_SIZE', 0) or 0)
+        self.mesh = None
+        if fsdp and fsdp_group > 1:
+            # HSDP: the optimizer state shards over groups of k ranks and
+            # replicates across them; the batch shards over every rank
+            self.mesh = par.create_hybrid_mesh(fsdp=fsdp_group)
+        elif fsdp:
+            self.mesh = par.create_process_mesh()
+        local = par.local_process_count()
+        if par.spans_hosts() and fsdp and not (fsdp_group > 1
+                                               and local % fsdp_group == 0):
+            # a shard group across hosts would put every step's
+            # reduce-scatter and all-gather on the network between them
+            raise SystemExit(
+                'multi-host + TRAINING.FSDP requires HSDP with '
+                'within-host groups: set TRAINING.FSDP_GROUP_SIZE to a '
+                f'divisor of the {local} local processes')
         world = par.process_count()
         if cfg.DATASET.BATCH_SIZE % world:
             raise SystemExit(
@@ -118,6 +141,9 @@ class SpecTrainer:
             loss_weight=cfg.HMR.LOSS_WEIGHT,
         )
         self.state = create_train_state(model, tx)
+        if self.mesh is not None:
+            par.shard_like(self.state, par.fsdp_shardings(
+                self.state.optimizer.params, self.mesh))
         # SMPLify's SMPL (K1's operands attached) and its prediction graph
         self._fit_assets = None
         self._predict = None
@@ -357,6 +383,12 @@ class SpecTrainer:
                   + ('as one graph replay' if self.step.mode == 'graph'
                      else 'its eager body (gloo collectives cannot be '
                           'captured)'))
+        layout = self.state.optimizer.layout
+        if layout is not None:
+            print(f'[train] FSDP over {self.mesh.shape}: {len(layout.sharded)}'
+                  f' of {len(layout.params)} trainable tensors sharded, '
+                  f'{self.state.optimizer.slot_bytes()} bytes of optimizer '
+                  f'slots on rank {par.process_index()}')
         global_step = int(self.state.step)
         start_epoch = min(self._resume_epoch, max_epochs)
         if start_epoch:

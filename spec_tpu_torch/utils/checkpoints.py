@@ -429,20 +429,25 @@ def save_checkpoint(directory: str, state, step: int, keep: int = 30) -> str:
     ``<directory>/step_NNNNNNNN`` (replacing one of the same step) and
     keep the ``keep`` most recent. Returns the step directory.
 
-    Under a process group every rank calls it: rank 0 writes (the state
-    is replicated) and every rank waits at a barrier until the
-    checkpoint is in place, so a resume on any rank finds it."""
+    Under a process group every rank calls it: rank 0 writes (when the
+    optimizer's slots are sharded, ``parallel/fsdp.py``, every rank
+    first takes part in their gather), and every rank waits at a barrier
+    until the checkpoint is in place, so a resume on any rank finds
+    it."""
     from spec_tpu_torch import parallel as par
 
     directory = os.path.abspath(directory)
     final = os.path.join(directory, f'step_{step:08d}')
-    if par.process_index() == 0:
-        _write_checkpoint(directory, final, state, keep)
+    rank0 = par.process_index() == 0
+    optimizer = (state.optimizer.state_dict()
+                 if rank0 or state.optimizer.layout is not None else None)
+    if rank0:
+        _write_checkpoint(directory, final, state, optimizer, keep)
     par.barrier()
     return final
 
 
-def _write_checkpoint(directory, final, state, keep) -> None:
+def _write_checkpoint(directory, final, state, optimizer, keep) -> None:
     os.makedirs(directory, exist_ok=True)
     tmp = f'{final}.tmp-{os.getpid()}'
     shutil.rmtree(tmp, ignore_errors=True)
@@ -450,8 +455,7 @@ def _write_checkpoint(directory, final, state, keep) -> None:
     torch.save({k: v.detach().cpu() for k, v in
                 state.model.state_dict().items()},
                os.path.join(tmp, MODEL_FILE))
-    torch.save(state.optimizer.state_dict(),
-               os.path.join(tmp, OPTIMIZER_FILE))
+    torch.save(optimizer, os.path.join(tmp, OPTIMIZER_FILE))
     with open(os.path.join(tmp, STATE_FILE), 'w') as f:
         json.dump({'step': int(state.step)}, f)
     if os.path.exists(final):

@@ -14,10 +14,13 @@ the CPU, against spec_tpu's and against the port's plain path.
   within 1e-5 (fp32; each replica gets one row, the plain path all of
   them, so only the convolutions' batch-dependent rounding differs).
 * The layouts' ``ValueError``s (an indivisible batch, both layouts at
-  once; ``tests/test_parallel_infer.py``), the ``NotImplementedError``s
-  naming item 12c (FSDP/HSDP), and the collectives' no-ops in one
-  process; ``SpecPredictor``'s pads under ``spatial_parallel`` too (the
+  once; ``tests/test_parallel_infer.py``), the FSDP/HSDP meshes and leaf
+  rule (item 12c), and the collectives' no-ops in one process; ``SpecPredictor``'s pads under ``spatial_parallel`` too (the
   layout itself is tests/test_torch_spatial.py's).
+* ``fsdp_shardings`` on every leaf of a ResNet-18 CamCalib and HMR
+  state shards the leaves ``spec_tpu.parallel.fsdp_shardings`` shards,
+  along an axis of the same size, over 2 and 8 ranks and a (4, 2)
+  hybrid mesh (leaves matched by name through ``state_dict_from_flax``).
 * The test seam ``force_global_reductions``: with a one-rank gloo group
   the SPEC step takes the multi-rank branches and still computes the
   plain step.
@@ -307,22 +310,118 @@ def test_layout_errors_match_jax(eight_devices):
 
 
 def test_unported_layouts_name_their_item(eight_devices):
-    """FSDP/HSDP names item 12c; spatial_parallel (item 12b) is ported:
-    its sharding names the devices and the split dimension, and the
-    predictor splits stage 1 into bands over the seam's 8 devices."""
+    """FSDP/HSDP (item 12c) and spatial_parallel (item 12b) are ported:
+    the FSDP meshes describe ranks as the reference's describe devices
+    (and refuse an indivisible group as it does), the leaf rule needs no
+    process group; spatial_parallel's sharding names the devices and the
+    split dimension, and the predictor splits stage 1 into bands over
+    the seam's 8 devices."""
     from spec_tpu_torch.serving import SpecPredictor
 
-    for fn in (lambda: par.create_hybrid_mesh(CPU8),
-               lambda: par.fsdp_leaf_sharding(CPU8, (4, 4)),
-               lambda: par.fsdp_shardings({}, CPU8)):
-        with pytest.raises(NotImplementedError, match='item 12c'):
-            fn()
+    mesh = par.create_hybrid_mesh(range(N_DEV), fsdp=2)
+    assert mesh.shape == {'data': 4, 'fsdp': 2}
+    assert mesh.ranks.tolist() == [[0, 1], [2, 3], [4, 5], [6, 7]]
+    assert mesh.shard_axis == 'fsdp' and mesh.shard_group is None
+    assert par.create_process_mesh(range(N_DEV)).shape == {'data': N_DEV}
+    with pytest.raises(ValueError, match='not divisible by fsdp=3'):
+        par.create_hybrid_mesh(range(N_DEV), fsdp=3)
+    flat = par.create_process_mesh(range(N_DEV))
+    assert par.fsdp_leaf_sharding(flat, (4, 4)) is None        # small
+    assert par.fsdp_leaf_sharding(flat, (3, 2 ** 14 + 1)) is None
+    sh = par.fsdp_leaf_sharding(mesh, (64, 512, 3, 3))
+    assert (sh.dim, sh.count, sh.axis_name) == (1, 2, 'fsdp')
+    assert par.fsdp_leaf_sharding(flat, (256, 256)).dim == 0   # first tie
+    assert par.fsdp_shardings({}, flat) == {}
     sh = par.spatial_sharding(CPU8)
     assert sh.devices == CPU8 and sh.dim == 1
     pred = SpecPredictor(device='cpu', spatial_parallel=True,
                          backbone='resnet18', camcalib_backbone='resnet18')
     assert isinstance(pred._stage1, par.SpatialStage)
     assert pred._stage1.mesh == CPU8
+
+
+def _flax_ids(variables):
+    """``variables`` with leaf i (in tree order) an array of its shape
+    filled with i + 1: after ``state_dict_from_flax``, which only
+    transposes and reshapes, each tensor holds the id of its leaf."""
+    leaves, tree = jax.tree_util.tree_flatten(variables)
+    ids = [np.full(np.shape(x), i + 1, np.float32)
+           for i, x in enumerate(leaves)]
+    return jax.tree_util.tree_unflatten(tree, ids), leaves
+
+
+@pytest.mark.parametrize('kind', ['camcalib', 'hmr'])
+def test_fsdp_layout_matches_jax(kind):
+    """Every leaf of a ResNet-18 CamCalib and HMR state, matched by name
+    through ``state_dict_from_flax``: the port's ``fsdp_shardings``
+    shards the same leaves as ``spec_tpu.parallel.fsdp_shardings``,
+    along an axis of the same size, over 2 and 8 ranks and on a hybrid
+    (4, 2) mesh, where nothing shards over the data axis."""
+    import spec_tpu.parallel as jpar
+    from spec_tpu.models import HMR as JaxHMR
+    from spec_tpu.models import CameraRegressorNetwork as JaxCamCalib
+    from spec_tpu_torch.models.camcalib import CameraRegressorNetwork
+    from spec_tpu_torch.models.hmr import HMR
+    from spec_tpu_torch.utils.checkpoints import state_dict_from_flax
+
+    key = jax.random.PRNGKey(0)
+    if kind == 'camcalib':
+        shapes = jax.eval_shape(
+            JaxCamCalib(backbone='resnet18', num_fc_layers=1).init, key,
+            jax.ShapeDtypeStruct((1, 64, 64, 3), np.float32))
+        port = CameraRegressorNetwork(backbone='resnet18', num_fc_layers=1)
+    else:
+        import __graft_entry__ as ge
+        from spec_tpu.core import smpl as JS
+
+        jassets = JS.create_test_assets(num_vertices=128)
+        args = ge._example_inputs(1, 64, np.random.RandomState(0))
+        jmodel = JaxHMR(backbone='resnet18', use_cam=True,
+                        use_cam_feats=True)
+        shapes = jax.eval_shape(lambda k: jmodel.init(k, jassets, *args),
+                                key)
+        port = HMR(backbone='resnet18', use_cam_feats=True)
+    ids, leaves = _flax_ids(shapes)
+    sd = state_dict_from_flax(ids, kind, 'resnet18')
+    assert {k: v.shape for k, v in sd.items()} == {
+        k: v.shape for k, v in port.state_dict().items()}
+    owner = {}
+    for k, v in sd.items():
+        if k.endswith('num_batches_tracked'):
+            continue
+        leaf = torch.unique(v).tolist()
+        assert len(leaf) == 1, k              # one JAX leaf per tensor
+        owner[k] = int(leaf[0]) - 1
+    assert sorted(set(owner.values())) == list(range(len(leaves)))
+    layouts = {'2': (jpar.create_mesh(jax.devices()[:2]),
+                     par.create_process_mesh(range(2))),
+               '8': (jpar.create_mesh(jax.devices()[:8]),
+                     par.create_process_mesh(range(8))),
+               '(4, 2)': (jpar.create_hybrid_mesh(jax.devices()[:8], fsdp=2),
+                          par.create_hybrid_mesh(range(8), fsdp=2))}
+    for name, (jmesh, mesh) in layouts.items():
+        jsh = jax.tree_util.tree_leaves(
+            jpar.fsdp_shardings(shapes, jmesh),
+            is_leaf=lambda x: isinstance(x, jax.sharding.NamedSharding))
+        got = par.fsdp_shardings(sd, mesh)
+        n_sharded = 0
+        for k, i in owner.items():
+            spec = tuple(jsh[i].spec) + (None,) * len(leaves[i].shape)
+            axes = [d for d in range(len(leaves[i].shape))
+                    if spec[d] is not None]
+            if not axes:
+                assert got[k] is None, (name, k)
+                continue
+            ax, = axes
+            n_sharded += 1
+            assert got[k] is not None, (name, k)
+            assert sd[k].shape[got[k].dim] == leaves[i].shape[ax], (name, k)
+            assert got[k].axis_name == spec[ax] == mesh.shard_axis
+            assert got[k].count == jmesh.shape[spec[ax]]
+        assert n_sharded > 0, name
+        if name == '(4, 2)':
+            assert all(s is None or s.axis_name == 'fsdp'
+                       for s in got.values())
 
 
 def test_single_process_helpers(monkeypatch):
@@ -411,3 +510,61 @@ def test_forced_global_step_matches_plain():
         diff = float((got_sd[k] - want_sd[k]).abs().max())
         moved = float((want_sd[k] - start[k]).abs().max())
         assert diff <= cs.PAR_UPDATE_RTOL * moved, (k, diff, moved)
+
+
+@pytest.mark.parametrize('layout', ['fsdp', 'hsdp'])
+def test_fsdp_step_matches_plain_and_is_capturable(layout):
+    """chip_smoke.py's phase 25 (a) and (b) at a small size with a
+    one-rank gloo group: the SPEC step with its state laid out over the
+    one rank (full-axis, or a (1, 1) hybrid mesh) runs the reduce-scatter,
+    the all-gather and, under HSDP, the data group's all-reduce, and
+    still computes the plain step (SGD with momentum and the clip: the
+    losses within 1e-6 relative, every parameter and slot within 1e-6 of
+    the largest update entry: a world of one only reorders the clip's
+    sums). After a warm-up its body builds no tensor from host data and
+    reads no device value on the host, as a CUDA graph capture needs
+    (tests/test_torch_graphs.py)."""
+    import chip_smoke as cs
+    from tests.test_torch_graphs import _Refuse
+
+    dev = torch.device('cpu')
+    sizes = dict(B=8, device=dev, backbone='resnet18', res=64, vertices=128,
+                 momentum=cs.FSDP_MOMENTUM)
+    plain = cs._par_setup(**sizes)
+    batch = {k: torch.from_numpy(v) for k, v in plain[2].items()}
+    start = {k: v.clone() for k, v in plain[0].model.state_dict().items()}
+    want, _ = cs._par_steps(plain[0], plain[1], batch, cs.PAR_STEPS, dev)
+    want_sd = plain[0].model.state_dict()
+    par.initialize_multihost(f'127.0.0.1:{cs._free_port()}', 1, 0,
+                             backend='gloo', device='cpu')
+    try:
+        state, step, _ = cs._par_setup(**sizes)
+        mesh = cs._fsdp_bind(state, layout)
+        with cs._counted_collectives(False) as calls:
+            got, _ = cs._par_steps(state, step, batch, cs.PAR_STEPS, dev)
+        got_sd = {k: v.clone() for k, v in state.model.state_dict().items()}
+        slots = [t.clone() for t in state.optimizer.slots['trace']]
+        with _Refuse() as mode:                    # a fourth step
+            step.eager(state, batch)
+        assert mode.seen == []
+    finally:
+        torch.distributed.destroy_process_group()
+    names = [c[0] for c in calls]
+    assert names.count('reduce_scatter_tensor') == cs.PAR_STEPS
+    assert names.count('all_gather_into_tensor') == cs.PAR_STEPS
+    if layout == 'hsdp':
+        assert mesh.shape == {'data': 1, 'fsdp': 1}
+        assert sum(c[1] is mesh.replica_group for c in calls) == \
+            cs.PAR_STEPS
+    opt = state.optimizer
+    assert opt.layout.sharded and len(opt.slots['trace']) == len(opt.params)
+    # the slices carry no autograd history (a CUDA graph capture of the
+    # backward fails on a view that keeps a gradient accumulator alive)
+    assert all(t.grad_fn is None for t in opt.layout.local)
+    for g, w in zip(got, want):
+        for k, v in w.items():
+            assert abs(g[k] - v) <= 1e-6 * max(abs(v), 1e-6), k
+    upd, worst, biggest = cs._update_errors(got_sd, want_sd, start)
+    assert worst <= 1e-6 * biggest, (worst, biggest)
+    for a, b in zip(slots, plain[0].optimizer.slots['trace']):
+        assert float((a - b).abs().max()) <= 1e-6 * biggest

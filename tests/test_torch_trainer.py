@@ -328,7 +328,8 @@ def test_nan_guard_matches_jax(world, tmp_path):
             trainer.fit(max_epochs=1)
 
 
-def test_resume_without_optimizer_and_fail_fast(world, tmp_path):
+def test_resume_without_optimizer_and_fail_fast(world, tmp_path,
+                                                monkeypatch):
     cfg = _cfg(spec_default_config, tmp_path / 'a')
     trainer = _port_trainer(world, cfg)
     trainer.fit(max_epochs=1)
@@ -344,9 +345,27 @@ def test_resume_without_optimizer_and_fail_fast(world, tmp_path):
                                         tmp_path / 'x' / 'lone'))
     nothing.resume()                      # warns, starts from scratch
     assert nothing.state.step == 0
-    with pytest.raises(NotImplementedError, match='item 12'):
+    # TRAINING.FSDP is ported (tests/test_torch_multiprocess.py): in one
+    # process the layout is full-axis over one rank, every large leaf's
+    # slice the whole leaf; the trainer refuses what the reference's
+    # refuses, with its exception types
+    fsdp = _port_trainer(world, _cfg(spec_default_config, tmp_path / 'c',
+                                     **{'TRAINING.FSDP': True}))
+    layout = fsdp.state.optimizer.layout
+    assert fsdp.mesh.shape == {'data': 1} and layout.sharded
+    assert all(t.shape == p.shape for t, p in zip(layout.local,
+                                                  layout.params))
+    with pytest.raises(ValueError, match='not divisible by fsdp=2'):
+        _port_trainer(world, _cfg(spec_default_config, tmp_path / 'c',
+                                  **{'TRAINING.FSDP': True,
+                                     'TRAINING.FSDP_GROUP_SIZE': 2}))
+    monkeypatch.setenv('WORLD_SIZE', '4')
+    monkeypatch.setenv('LOCAL_WORLD_SIZE', '2')
+    with pytest.raises(SystemExit, match='within-host groups'):
         _port_trainer(world, _cfg(spec_default_config, tmp_path / 'c',
                                   **{'TRAINING.FSDP': True}))
+    monkeypatch.delenv('WORLD_SIZE')
+    monkeypatch.delenv('LOCAL_WORLD_SIZE')
     # RUN_SMPLIFY and REMAT are ported (tests/test_torch_smplify.py,
     # tests/test_torch_remat.py): the first builds, the second refuses a
     # model built without remat
