@@ -31,7 +31,8 @@ printing its own results; any failure raises and exits nonzero:
 6. K1 against its plain PyTorch version on the card (synthetic SMPL,
    V = 6890, 1e-5 m budget) at several batch sizes, among them the
    batches phases 4 and 5 gave it, the eval step's 128 and
-   ``compute_error``'s chunk of 256;
+   ``compute_error``'s chunk of 256, and once more at phase 26's
+   memorization step (B = 4 of its V = 64 test assets);
 7. K2 projects the fp32 fused pipeline's meshes (16 x 6890 vertices) with
    its cameras, against its plain version and
    ``geometry.perspective_projection`` (0.01 px budget).
@@ -182,16 +183,17 @@ printing its own results; any failure raises and exits nonzero:
     the CPU by tests/test_torch_native_loader.py);
 21. export (``spec_tpu_torch/export.py``): phase 4's full-width predictor
     in fp32 and bf16, exported with ``torch.export`` on the card and once
-    more on the CPU (the same seeds, so the same weights; the CPU's trace
-    carries K1's op, which runs its plain version there), both artifacts
-    loaded on the card with ``load_predictor`` (stages replaying CUDA
+    more on the CPU (all four exports processes of their own,
+    ``--export-one``, side by side; the same seeds, so the same weights;
+    the CPU's trace carries K1's op, which runs its plain version
+    there), all four
+    artifacts loaded on the card with ``load_predictor`` (stages replaying CUDA
     graphs) and held to the live predictor on phase 4's four 720x1280
     frames within phase 8's limits (PREDICT_LIMITS, ANGLE_LIMIT); export
     and load seconds, artifact MiB, the symbolic ranges torch.export
     gave, ms per ``predict`` live and loaded (median of 10), K1's
     launches in one call of each loaded predictor, which must be above
-    0 (the kernels line's ``launches`` is the CPU-exported fp32
-    artifact's);
+    0;
 22. datagen: ``datagen/spec_synth.render_spec_synth_dataset`` at its
     CLI's defaults (n = 256, 256x320, f_pix 400) with SMPL on the card
     (one K1 launch over all 256 samples) and an in-memory frame writer,
@@ -241,7 +243,16 @@ printing its own results; any failure raises and exits nonzero:
     (``launches_by_path``); (c) batch-1 stage 1 on one 600x1066 frame,
     two bands against plain, medians of SPATIAL_CALLS calls in turns,
     with device profiles; (d) ``serve --spatial_parallel`` as its own
-    process for one request, then SIGTERM, exit 0;
+    process for one request, then SIGTERM, exit 0; (e) an HRNet-W32
+    CamCalib trunk (``-interp`` and ``-conv``, BatchNorm statistics set
+    by ``_calibrated_bn``) in the same predictor on one 720x960 frame at
+    min_size 768 (768x1024), two bands on the card against plain in fp32
+    (phase 8's limits) and bf16 (SPATIAL_LOGIT_ULPS at the logits), each
+    band's replayed row sums equal to its eager segments' bit for bit,
+    the exchanges (91 and 94) and halo copies per call, K1 launching
+    once per stage-2 replica, batch-1 stage 1 over two bands against
+    plain (medians of SPATIAL_CALLS calls in turns; device profiles in
+    bf16);
 25. fsdp (``TRAINING.FSDP``, ``spec_tpu_torch/parallel/fsdp.py``: the
     optimizer state sharded leaf-wise, gradients reduce-scattered onto
     each rank's slices, the updated slices all-gathered into whole
@@ -269,7 +280,30 @@ printing its own results; any failure raises and exits nonzero:
     ``spec_train`` with ``TRAINING.FSDP True`` over two gloo ranks for
     one step (tiny inputs), then a plain one-process ``spec_train
     --resume`` from its checkpoint, each exiting 0;
-26. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
+26. learning (the reference's learning checks, each train step a graph
+    replay, each also at lr 0, a control the same limits must refuse,
+    both readings printed beside the limits; a miss fails the run): (a)
+    the horizon check (ResNet-18 CamCalib, 160 synthetic horizon frames
+    of 64², B = 32, 8 epochs, Adam 3e-4) from twelve ``flax_init``
+    draws, held as a set to the JAX package's twelve keys on the CPU:
+    every draw's late loss under 0.6 of early; the mean held-out pitch
+    and roll MAE under 0.6 of the mean init's and under JAX's mean plus
+    two standard errors (``tests/test_torch_learning.py``'s
+    ``horizon_set_misses``); (b) the SPEC step memorizing the
+    reference's batch (HMR ResNet-18, B = 4, V = 64, Adam 2e-4, 8 steps;
+    the last two losses under 0.85 of the first two; K1's launches); (c)
+    ``spec_synth`` (256 + 16 frames), ``spec_eval`` of the init,
+    ``spec_train`` for 10 epochs (320 steps), ``spec_eval`` of its
+    checkpoint: held-out MPJPE under init / 1.2, PA-MPJPE under init /
+    1.3 (``tests/test_torch_spec_learning_e2e.py``'s RECIPE; K1's
+    launches in ``spec_train``, at B = 8 and V = 6890, are the kernels
+    line's ``launches``: this slice's path); (d)
+    ``spec_eval`` as two gloo ranks sharing the card
+    (``tests/mp_torch_worker.py``'s val mode), each exiting 0, their
+    metrics equal (rtol 1e-6), one LOGDIR with rank 0's artifacts (the
+    results pickle only where joblib is installed), then one process of
+    the CLI against them (rtol 1e-5); each part's seconds;
+27. prints the kernels line and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then, instead of
 the rest, profiles phase 4's predictor (wall medians per stage, device
@@ -282,7 +316,8 @@ alone; ``python3 chip_smoke.py --export`` runs phases 1-2 and then
 phases 21 and 22; ``python3 chip_smoke.py --parallel`` runs phases 1-2
 and then phase 23; ``python3 chip_smoke.py --spatial`` runs phases 1-2
 and then phase 24; ``python3 chip_smoke.py --fsdp`` runs phases 1-2 and
-then phase 25.
+then phase 25; ``python3 chip_smoke.py --learning`` runs phases 1-2 and
+then phase 26.
 ``python3 chip_smoke.py --k3-tiles`` runs phases 1-2 and then times K3
 in fp32 and bf16 at each stage shape with every candidate output tile
 forced, beside the tile the kernel picks.
@@ -432,9 +467,10 @@ def _time_ms(fn, n=50, warmup=5, flush=None):
 
 
 # Profiles of n calls that _kernel_ms takes before it gives up on one that
-# names every launch: the tracer has dropped one kernel event of 50 in
-# every one of four profiles in a row (the first K1 batch, after phase
-# 19's profiles).
+# names every launch and times the calls with CUDA events instead: the
+# tracer has dropped one kernel event of 50 in every one of four profiles
+# in a row (the first K1 batch, after phase 19's profiles), and the
+# device profiles of one eager train step name 2236 to 2251 operations.
 PROFILE_ATTEMPTS = 4
 
 
@@ -446,10 +482,12 @@ def _kernel_ms(fn, kernel, n=50, warmup=5, flush=None):
     median duration (ms) of the device kernels whose name contains
     ``kernel``: the wrapper's host work lies outside every such interval.
     A second, unflushed profile of ``n`` calls gives the device
-    operations per call. Returns (ms, device ops per call). A profile
-    that names fewer launches than calls (the tracer dropped an event:
-    the wrapper counts every launch it makes) is taken again, up to
-    PROFILE_ATTEMPTS profiles in all; then it raises."""
+    operations per call. Returns (ms, device ops per call, timer). A
+    profile that names fewer launches than calls (the tracer dropped an
+    event: the wrapper counts every launch it makes) is taken again, up
+    to PROFILE_ATTEMPTS profiles in all; then the median of CUDA events
+    around each call (``_time_ms``: the kernel and its launch) stands in
+    for the kernel's time, and ``timer`` says which of the two it is."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -476,16 +514,17 @@ def _kernel_ms(fn, kernel, n=50, warmup=5, flush=None):
                 for e in device_events(flush is not None)
                 if kernel in e.name]
         if len(durs) == n:
+            ms, timer = statistics.median(durs), 'profiler'
             break
         print(f'[profile] the profiler saw {len(durs)} launches of '
               f'{kernel!r} in {n} calls (attempt {attempt + 1} of '
               f'{PROFILE_ATTEMPTS})', flush=True)
     else:
-        raise RuntimeError(f'the profiler saw {len(durs)} launches of '
-                           f'{kernel!r} in {n} calls, {PROFILE_ATTEMPTS} '
-                           'times')
+        ms, timer = _time_ms(fn, n, warmup, flush), 'events'
+        print(f'[profile] {kernel!r} timed with CUDA events around each '
+              f'call instead: {ms:.4f} ms', flush=True)
     ops = len(device_events(False)) / n
-    return statistics.median(durs), ops
+    return ms, ops, timer
 
 
 def _queued_ms(fn, n=10, reps=3, warmup=2):
@@ -603,15 +642,16 @@ def _lbs_operands(packed, assets, B, seed):
     return lbs_coeffs(betas, rot), rel_tf
 
 
-def phase_lbs(batches):
-    """K1 vs its plain version at ``batches`` (rows of SMPL), timed."""
+def phase_lbs(batches, vertices=6890):
+    """K1 vs its plain version at ``batches`` (rows of SMPL) of the
+    synthetic assets with ``vertices`` vertices, timed."""
     import torch
 
     from spec_tpu_torch.core import smpl as S
     from spec_tpu_torch.ops import lbs as L
     from spec_tpu_torch.utils.precision import fp32_precision
 
-    assets = S.create_test_assets().to('cuda')
+    assets = S.create_test_assets(num_vertices=vertices).to('cuda')
     packed = L.pack_lbs_operands(assets).to('cuda')
     flush = torch.empty(64 * 2 ** 20 // 4, device='cuda')
     rows = {}
@@ -625,13 +665,13 @@ def phase_lbs(batches):
                 raise RuntimeError('the LBS wrapper did not count its launch')
             ref = L.fused_lbs_vertices_plain(packed, coeffs, rel_tf)
             err = (out - ref).abs().max().item()
-            if not (out.shape == (B, 6890, 3) and err <= LBS_BUDGET):
+            if not (out.shape == (B, vertices, 3) and err <= LBS_BUDGET):
                 raise RuntimeError(f'LBS kernel disagrees at B={B}: '
                                    f'shape {tuple(out.shape)}, max abs err '
                                    f'{err:.3e} > {LBS_BUDGET:.0e}')
             call = lambda: L.fused_lbs_vertices(   # noqa: E731
                 packed, coeffs, rel_tf)
-            ms, ops = _kernel_ms(call, 'lbs_kernel', flush=flush)
+            ms, ops, timer = _kernel_ms(call, 'lbs_kernel', flush=flush)
             wrapper_ms = _wall_ms(call, 50)
             plain_ms = _time_ms(lambda: L.fused_lbs_vertices_plain(
                 packed, coeffs, rel_tf), flush=flush)
@@ -647,8 +687,8 @@ def phase_lbs(batches):
             rows[B] = dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
                            plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by)
-            print(f'[lbs] B={B} V=6890 max_abs_err={err:.3e} m '
-                  f'kernel={ms:.4f} ms (profiler, median of 50, L2 '
+            print(f'[lbs] B={B} V={vertices} max_abs_err={err:.3e} m '
+                  f'kernel={ms:.4f} ms ({timer}, median of 50, L2 '
                   f'flushed) wrapper={wrapper_ms:.4f} ms per call (host '
                   f'wall with a sync, median of 50) device_ops={ops:g} per '
                   f'call plain={plain_ms:.4f} ms (events, median of 50, L2 '
@@ -1323,7 +1363,7 @@ def phase_projection(args):
         raise RuntimeError(f'K2 disagrees: max abs err {err:.3e} px')
     flush = torch.empty(64 * 2 ** 20 // 4, device='cuda')
     call = lambda: TP.project_points(*args)     # noqa: E731
-    ms, ops = _kernel_ms(call, 'project_kernel', flush=flush)
+    ms, ops, timer = _kernel_ms(call, 'project_kernel', flush=flush)
     wrapper_ms = _wall_ms(call, 50)
     plain_ms = _time_ms(lambda: TP.project_points_plain(*args), flush=flush)
     # Per vertex: the 3x4 camera matrix on [X, 1] and the divide.
@@ -1332,7 +1372,7 @@ def phase_projection(args):
     bound_ms, bound_by = _bound(flops, nbytes, PEAK_FLOPS['fp32'])
     print(f'[projection] B={B} V=6890 max_abs_err={err:.3e} px vs plain and '
           f'perspective_projection (budget {K2_BUDGET}); kernel={ms:.4f} ms '
-          f'(profiler, median of 50, L2 flushed) wrapper={wrapper_ms:.4f} '
+          f'({timer}, median of 50, L2 flushed) wrapper={wrapper_ms:.4f} '
           f'ms per call (host wall with a sync, median of 50) '
           f'device_ops={ops:g} per call plain={plain_ms:.4f} ms (events, '
           f'median of 50, L2 flushed); bound {bound_ms:.4f} ms ({bound_by}, '
@@ -3425,6 +3465,21 @@ def _calibrated_bn(model, res, n=16, seed=0):
     return {k: v for k, v in m.state_dict().items()}
 
 
+def _calibrated_camcalib(arch, path, res, n=16):
+    """A random ``arch`` CamCalib (one FC layer, seed 0: the predictor's
+    random init) with ``_calibrated_bn``'s statistics of ``n`` crops of
+    ``res``, saved to ``path`` (a checkpoint ``SpecPredictor`` reads);
+    returns ``str(path)``. The spatial card and CPU tests use it too."""
+    import torch
+
+    from spec_tpu_torch.models.camcalib import CameraRegressorNetwork
+
+    cam = CameraRegressorNetwork(backbone=arch, num_fc_layers=1)
+    cam.reset_parameters(torch.Generator().manual_seed(0))
+    torch.save(_calibrated_bn(cam, res, n), path)
+    return str(path)
+
+
 def phase_hrnet(device='cuda'):
     """The HRNet phase (see the module docstring). Returns K1's launches
     in one HRNet predict call and over the train replays.
@@ -3928,13 +3983,45 @@ SYNTH_LIMITS = dict(S=LBS_BUDGET, part=5e-3, openpose=5e-3, center=5e-3,
                     scale=1e-4)
 
 
+def _export_kw():
+    """Phase 4's predictor as phase 21 exports it (read at call time: a
+    rehearsal shrinks the constants first)."""
+    return dict(backbone=EXPORT_BACKBONE, camcalib_backbone=EXPORT_BACKBONE,
+                use_cam_feats=True, img_res=224, min_size=EXPORT_MIN_SIZE,
+                batch_size=BATCH_SIZE)
+
+
+def _export_one(argv):
+    """One export of phase 21: ``chip_smoke.py --export-one TAG DEVICE
+    PATH`` exports phase 4's predictor in ``TAG`` (fp32 or bf16) on
+    ``DEVICE`` (cuda or cpu) into ``PATH`` (the same seeds on either, so
+    the same weights) and writes its seconds to ``PATH.json``."""
+    import torch
+
+    from spec_tpu_torch import export as EX
+    from spec_tpu_torch.serving import SpecPredictor
+
+    tag, device, path = argv[:3]
+    dtype = {'fp32': torch.float32, 'bf16': torch.bfloat16}[tag]
+    pred = SpecPredictor(device=device, dtype=dtype, **_export_kw())
+    t0 = time.perf_counter()
+    EX.export_predictor(pred, path)
+    with open(path + '.json', 'w') as f:
+        json.dump({'export_s': time.perf_counter() - t0}, f)
+    return 0
+
+
 def phase_export(device='cuda'):
     """Phase 21 (see the module docstring): ``export.export_predictor``
-    on the card and on the CPU, ``load_predictor`` of both artifacts on
-    the card, each held to the live predictor. Returns K1's launches in
-    one ``predict`` of each loaded predictor. ``device='cpu'`` rehearses
-    the logic without a card (shrink FRAME_HW, EXPORT_BACKBONE and
-    EXPORT_MIN_SIZE first): every side then runs on the CPU."""
+    on the card and on the CPU in fp32 and bf16, ``load_predictor`` of
+    the four artifacts on the card, each held to the live predictor.
+    The four exports run as processes of their own (``--export-one``)
+    side by side, since each traces the full-width predictor for 40-80
+    s; the seconds printed are each export's own. Returns K1's
+    launches in one ``predict`` of each loaded predictor.
+    ``device='cpu'`` rehearses the logic without a card (shrink
+    FRAME_HW, EXPORT_BACKBONE and EXPORT_MIN_SIZE first): one export a
+    dtype, on the CPU."""
     import torch
 
     from spec_tpu_torch import export as EX
@@ -3947,9 +4034,7 @@ def phase_export(device='cuda'):
     out_dir.mkdir(parents=True, exist_ok=True)
     frames, boxes = _frames_and_boxes(4, PERSONS_PER_FRAME, seed=0)
     n_persons = sum(len(b) for b in boxes)
-    kw = dict(backbone=EXPORT_BACKBONE, camcalib_backbone=EXPORT_BACKBONE,
-              use_cam_feats=True, img_res=224, min_size=EXPORT_MIN_SIZE,
-              batch_size=BATCH_SIZE)
+    kw = _export_kw()
 
     def call_ms(pred):
         times = []
@@ -3961,64 +4046,89 @@ def phase_export(device='cuda'):
             times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
 
+    jobs = {}
     launches = {}
-    for tag, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
-        live = SpecPredictor(device=device, dtype=dtype, **kw)
-        live.predict(frames, boxes)                  # captures
-        want = live.predict(frames, boxes, return_cameras=True)
-        live_ms = call_ms(live)
-        exporters = {'card' if card else 'cpu': live}
-        if card:
-            # the same seeds give the same weights on the CPU
-            exporters['cpu'] = SpecPredictor(device='cpu', dtype=dtype, **kw)
-        for src, exporter in exporters.items():
-            path = out_dir / f'predictor_{tag}_{src}.specx'
-            t0 = time.perf_counter()
-            EX.export_predictor(exporter, str(path))
-            export_s = time.perf_counter() - t0
-            meta = EX.read_meta(str(path))
-            if meta['dtype'] != str(dtype).replace('torch.', ''):
-                raise RuntimeError(f'{tag}: the artifact records dtype '
-                                   f'{meta["dtype"]}')
-            t0 = time.perf_counter()
-            pred = EX.load_predictor(str(path), device=device)
-            sync()
-            load_s = time.perf_counter() - t0
-            pred.predict(frames, boxes)              # captures
-            sync()
-            L.LAUNCHES = 0
-            got = pred.predict(frames, boxes, return_cameras=True)
-            sync()
-            n_k1 = L.LAUNCHES
-            launches[f'{tag} {src}-exported'] = n_k1
-            _check_results(got[0], n_persons)
-            if card and n_k1 < 1:
-                raise RuntimeError(f'the {src}-exported {tag} artifact '
-                                   'launched K1 no time on the card')
-            same, errs, cam = _predict_diff(got, want)
-            limits = PREDICT_LIMITS[tag]
-            loaded_ms = call_ms(pred)
-            print(f'[export {tag} {src}] {EXPORT_BACKBONE} x2: exported on '
-                  f'the {src} in {export_s:.2f} s, '
-                  f'{path.stat().st_size / 2 ** 20:.1f} MiB, ranges '
-                  f'{meta["ranges"]}; loaded on the {device} in '
-                  f'{load_s:.2f} s; predict on 4 frames {FRAME_HW[0]}x'
-                  f'{FRAME_HW[1]}, {n_persons} persons: loaded '
-                  f'{loaded_ms:.2f} ms, live {live_ms:.2f} ms (median of '
-                  f'{EXPORT_TIMING_CALLS}); K1 launches {n_k1} in one call; '
-                  f'vs live: bit-identical {same}, camera angles '
-                  f'{cam:.2e} rad (limit {ANGLE_LIMIT[tag]}), '
-                  + ', '.join(f'{k} {errs[k]:.2e} (limit {lim})'
-                              for k, lim in limits.items()), flush=True)
-            bad = [k for k, lim in limits.items() if not errs[k] <= lim]
-            if cam > ANGLE_LIMIT[tag] or bad:
-                raise RuntimeError(f'the {src}-exported {tag} artifact '
-                                   f'disagrees with the live predictor '
-                                   f'in {bad or "cameras"}')
-            del pred
-        del live, exporters
-        if card:
-            _release()
+    try:
+        for tag in ('fp32', 'bf16') if card else ():
+            for src, dev in (('card', 'cuda'), ('cpu', 'cpu')):
+                path = out_dir / f'predictor_{tag}_{src}.specx'
+                log = open(out_dir / f'export_{tag}_{src}.log', 'w+')
+                jobs[tag, src] = (subprocess.Popen(
+                    [sys.executable, str(ROOT / 'chip_smoke.py'),
+                     '--export-one', tag, dev, str(path)],
+                    stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT),
+                    env=dict(os.environ, OMP_NUM_THREADS='2')), log)
+        for tag, dtype in (('fp32', torch.float32),
+                           ('bf16', torch.bfloat16)):
+            live = SpecPredictor(device=device, dtype=dtype, **kw)
+            live.predict(frames, boxes)                  # captures
+            want = live.predict(frames, boxes, return_cameras=True)
+            live_ms = call_ms(live)
+            for src in (('card', 'cpu') if card else ('cpu',)):
+                path = out_dir / f'predictor_{tag}_{src}.specx'
+                if card:
+                    proc, log = jobs[tag, src]
+                    proc.wait(timeout=PAR_TIMEOUT)
+                    if proc.returncode != 0:
+                        log.seek(0)
+                        raise RuntimeError(f'the {tag} {src} export exited '
+                                           f'{proc.returncode}:\n'
+                                           f'{log.read()[-4000:]}')
+                    with open(str(path) + '.json') as f:
+                        export_s = json.load(f)['export_s']
+                else:
+                    t0 = time.perf_counter()
+                    EX.export_predictor(live, str(path))
+                    export_s = time.perf_counter() - t0
+                meta = EX.read_meta(str(path))
+                if meta['dtype'] != str(dtype).replace('torch.', ''):
+                    raise RuntimeError(f'{tag}: the artifact records dtype '
+                                       f'{meta["dtype"]}')
+                t0 = time.perf_counter()
+                pred = EX.load_predictor(str(path), device=device)
+                sync()
+                load_s = time.perf_counter() - t0
+                pred.predict(frames, boxes)              # captures
+                sync()
+                L.LAUNCHES = 0
+                got = pred.predict(frames, boxes, return_cameras=True)
+                sync()
+                n_k1 = L.LAUNCHES
+                launches[f'{tag} {src}-exported'] = n_k1
+                _check_results(got[0], n_persons)
+                if card and n_k1 < 1:
+                    raise RuntimeError(f'the {src}-exported {tag} artifact '
+                                       'launched K1 no time on the card')
+                same, errs, cam = _predict_diff(got, want)
+                limits = PREDICT_LIMITS[tag]
+                loaded_ms = call_ms(pred)
+                print(f'[export {tag} {src}] {EXPORT_BACKBONE} x2: exported '
+                      f'on the {src} in {export_s:.2f} s, '
+                      f'{path.stat().st_size / 2 ** 20:.1f} MiB, ranges '
+                      f'{meta["ranges"]}; loaded on the {device} in '
+                      f'{load_s:.2f} s; predict on 4 frames {FRAME_HW[0]}x'
+                      f'{FRAME_HW[1]}, {n_persons} persons: loaded '
+                      f'{loaded_ms:.2f} ms, live {live_ms:.2f} ms (median '
+                      f'of {EXPORT_TIMING_CALLS}); K1 launches {n_k1} in '
+                      f'one call; vs live: bit-identical {same}, camera '
+                      f'angles {cam:.2e} rad (limit {ANGLE_LIMIT[tag]}), '
+                      + ', '.join(f'{k} {errs[k]:.2e} (limit {lim})'
+                                  for k, lim in limits.items()), flush=True)
+                bad = [k for k, lim in limits.items() if not errs[k] <= lim]
+                if cam > ANGLE_LIMIT[tag] or bad:
+                    raise RuntimeError(f'the {src}-exported {tag} artifact '
+                                       f'disagrees with the live predictor '
+                                       f'in {bad or "cameras"}')
+                del pred
+            del live
+            if card:
+                _release()
+    finally:
+        for proc, log in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
     return launches
 
 
@@ -4855,7 +4965,8 @@ def _par_write_data(root, n_train=2, n_val=4):
 def _par_clis(device, d):
     """23(d): ``spec_eval --data_parallel``, ``serve --data_parallel``
     and ``spec_train`` with two ranks for one step, each its own process
-    on tiny inputs, each exiting 0."""
+    on tiny inputs, each exiting 0 (the evaluation beside the two
+    training ranks)."""
     root = os.path.join(d, 'data')
     _par_write_data(root)
     env = dict(os.environ, SPEC_DATA_ROOT=root, OMP_NUM_THREADS='1')
@@ -4865,21 +4976,12 @@ def _par_clis(device, d):
             'LOG_FREQ_TB_IMAGES', '0']
     py = [sys.executable, '-m']
     t0 = time.perf_counter()
-    log, = _spawn([py + ['spec_tpu_torch.cli.spec_eval', '--data_parallel',
-                         '--device', device, '--log_root',
-                         os.path.join(d, 'eval'), '--opts', *opts,
-                         # no results pickle: joblib is not on every host
-                         'TESTING.USE_GT_CAM', 'True',
-                         'TESTING.SAVE_RESULTS', 'False']],
-                  'spec_eval --data_parallel', env=env)
-    if 'data_parallel over' not in log or '"3dpw-test-cam"' not in log:
-        raise RuntimeError(f'spec_eval --data_parallel:\n{log[-3000:]}')
-    print(f'[parallel cli] spec_eval --data_parallel: exit 0 in '
-          f'{time.perf_counter() - t0:.1f} s; '
-          + next(line for line in log.splitlines()
-                 if 'data_parallel over' in line), flush=True)
-
-    t0 = time.perf_counter()
+    evaluate = py + ['spec_tpu_torch.cli.spec_eval', '--data_parallel',
+                     '--device', device, '--log_root',
+                     os.path.join(d, 'eval'), '--opts', *opts,
+                     # no results pickle: joblib is not on every host
+                     'TESTING.USE_GT_CAM', 'True',
+                     'TESTING.SAVE_RESULTS', 'False']
     port = _free_port()
     train = [py + ['spec_tpu_torch.cli.spec_train', '--device', device,
                    '--fdr', '--coordinator_address', f'127.0.0.1:{port}',
@@ -4888,12 +4990,21 @@ def _par_clis(device, d):
                    os.path.join(d, 'train'), '--opts', *opts,
                    'DATASET.TRAIN_DS', 'spec-syn',
                    'TRAINING.LOG_SAVE_INTERVAL', '1'] for r in range(2)]
-    logs = _spawn(train, 'spec_train (2 ranks)', env=env)
+    log, *logs = _spawn([evaluate, *train],
+                        'spec_eval --data_parallel and spec_train (2 ranks)',
+                        env=env)
+    secs = time.perf_counter() - t0
+    if 'data_parallel over' not in log or '"3dpw-test-cam"' not in log:
+        raise RuntimeError(f'spec_eval --data_parallel:\n{log[-3000:]}')
+    print(f'[parallel cli] spec_eval --data_parallel: exit 0 in {secs:.1f} '
+          's (beside spec_train); '
+          + next(line for line in log.splitlines()
+                 if 'data_parallel over' in line), flush=True)
     steps = [line for line in logs[0].splitlines() if ' step 1 ' in line]
     if not steps or 'its eager body' not in logs[0]:
         raise RuntimeError(f'spec_train (2 ranks):\n{logs[0][-3000:]}')
     print(f'[parallel cli] spec_train, 2 ranks over gloo, --fdr: exit 0 in '
-          f'{time.perf_counter() - t0:.1f} s; {steps[0].strip()}',
+          f'{secs:.1f} s (beside spec_eval); {steps[0].strip()}',
           flush=True)
 
     _serve_once(device, d, '--data_parallel', 'parallel cli', env)
@@ -5018,6 +5129,153 @@ def _same_predict(got, want):
         for rg, rw in zip(got, want) for g, w in zip(rg, rw))
 
 
+# 24(e): an HRNet-W32 CamCalib trunk under spatial_parallel, both heads,
+# in phase 4's full-width predictor (ResNet-50 HMR with camera features in
+# stage 2) on one frame of SPATIAL_HRNET_HW resized to min side
+# SPATIAL_HRNET_MIN_SIZE (768x1024: an HRNet takes sides that are
+# multiples of 32). A random HRNet's BatchNorm statistics are set from
+# one batch of SPATIAL_HRNET_CALIB_RES crops (_calibrated_bn), so its
+# logits stay moderate.
+SPATIAL_HRNET_HW = (720, 960)
+SPATIAL_HRNET_MIN_SIZE = 768
+SPATIAL_HRNET_ARCHS = ('hrnet_w32', 'hrnet_w32-conv')
+SPATIAL_HRNET_CALIB_RES = 128
+
+
+def _spatial_hrnet(device):
+    """24(e) (see the module docstring). Returns K1's launches per path.
+    On the CPU (a rehearsal) the frame is 72x96 and resized to 96x128."""
+    import numpy as np
+    import torch
+
+    from spec_tpu_torch import parallel as par
+    from spec_tpu_torch.ops import lbs as L
+    from spec_tpu_torch.serving import SpecPredictor
+
+    card = device == 'cuda'
+    hw = SPATIAL_HRNET_HW if card else (72, 96)
+    frames = _synthetic_frames(1, hw, 7)
+    h, w = hw
+    boxes = [np.array([[w * 0.35, h * 0.5, w * 0.2, h * 0.5],
+                       [w * 0.65, h * 0.55, w * 0.18, h * 0.45]],
+                      np.float32)]
+    two = [torch.device('cuda', 0) if card else torch.device('cpu')] * 2
+    create_mesh = par.create_mesh
+    d = os.path.join(str(ROOT / 'build'), 'spatial_hrnet')
+    os.makedirs(d, exist_ok=True)
+    launches = {}
+    for arch in SPATIAL_HRNET_ARCHS:
+        t0 = time.perf_counter()
+        ckpt = _calibrated_camcalib(arch, os.path.join(d, f'{arch}.pt'),
+                                    SPATIAL_HRNET_CALIB_RES)
+
+        def make(dtype, spatial):
+            if spatial:
+                par.create_mesh = lambda devices=None, device=None: list(two)
+            try:
+                return SpecPredictor(
+                    device=device, backbone=PAR_BACKBONE,
+                    camcalib_backbone=arch, camcalib_ckpt=ckpt,
+                    use_cam_feats=True, img_res=224,
+                    min_size=SPATIAL_HRNET_MIN_SIZE if card else 96,
+                    batch_size=BATCH_SIZE, dtype=dtype,
+                    spatial_parallel=spatial)
+            finally:
+                par.create_mesh = create_mesh
+
+        for tag, dtype in (('fp32', torch.float32),
+                           ('bf16', torch.bfloat16)):
+            plain, sp = make(dtype, False), make(dtype, True)
+            stage = sp._stage1
+            plain.predict(frames, boxes)                # capture
+            want = plain.predict(frames, boxes)
+            sp.predict(frames, boxes)                   # capture
+            L.LAUNCHES = 0
+            got = sp.predict(frames, boxes)
+            n_k1 = launches[f'spatial hrnet predict ({arch}, {tag})'] = \
+                L.LAUNCHES
+            _check_results(got, len(boxes[0]))
+            copies = stage.last['copies']
+            frames_dev = [sp._upload(f) for f in frames]
+            (_, batch), = sp._stage1_batches(frames_dev)
+            with torch.inference_mode():
+                sums = stage.row_sums(batch)
+                eager = stage.fn.row_sums(batch)
+                banded, whole = stage(batch), plain._stage1(batch)
+            bands_same = [bool(torch.equal(a, b))
+                          for a, b in zip(sums, eager)]
+            rows = [b['rows'] for b in
+                    stage.last['exchanges'][0][0]['bands']]
+            d_logit = max(float((a - b).abs().max())
+                          for a, b in zip(banded[:3], whole[:3]))
+            top = max(float(t.abs().max()) for t in whole[:3])
+            spacing = 2.0 ** (math.floor(math.log2(top)) - 7)    # bf16's
+            worst = _predict_diffs(got, want)
+            print(f'[spatial hrnet] (e) {arch} CamCalib, two bands on '
+                  f'{two[0]}, {tag}, stage-1 batch {tuple(batch.shape)} '
+                  f'(band rows {rows}): against the plain predictor, the '
+                  f'largest differences ' + ', '.join(
+                      f'{k} {v:.3e}' for k, v in worst.items())
+                  + f' (phase 8\'s {tag} limits: ' + ', '.join(
+                      f'{k} {v:g}' for k, v in PREDICT_LIMITS[tag].items())
+                  + f', angles {ANGLE_LIMIT[tag]:g}); stage-1 logits max '
+                  f'|diff| {d_logit:.4g} at max |logit| {top:.4g} (bf16 '
+                  f'spacing there {spacing:g}, limit {SPATIAL_LOGIT_ULPS} '
+                  f'spacings in bf16); each band\'s replayed row sums '
+                  f'equal to its eager segments\' bit for bit: '
+                  f'{bands_same}; {len(stage.levels)} exchanges, {copies} '
+                  f'halo copies per call, the pool adds '
+                  f'{stage.last["partials"]} bands\' sums; K1 launches in '
+                  f'one call {n_k1} ({len(sp.mesh)} stage-2 replicas)',
+                  flush=True)
+            if tag == 'fp32':
+                _within_predict_limits(got, want, tag,
+                                       f'spatial_parallel {arch}')
+            elif not d_logit <= SPATIAL_LOGIT_ULPS * spacing:
+                raise RuntimeError(f'bf16 {arch} stage-1 logits of two '
+                                   f'bands differ by {d_logit} (limit '
+                                   f'{SPATIAL_LOGIT_ULPS} x {spacing})')
+            if card and not all(bands_same):
+                raise RuntimeError(f'a band\'s {arch} replay differs from '
+                                   'its eager segments')
+            if stage.last['partials'] != 2 or len(stage.levels) != {
+                    'hrnet_w32': 91, 'hrnet_w32-conv': 94}[arch]:
+                raise RuntimeError(f'{arch}: {stage.last["partials"]} '
+                                   f'bands, {len(stage.levels)} exchanges')
+            if card and n_k1 != len(sp.mesh):
+                raise RuntimeError(f'{n_k1} K1 launches for '
+                                   f'{len(sp.mesh)} stage-2 replicas')
+            if card:
+                one = batch[:1].contiguous()
+                wall = {}
+                with torch.inference_mode():
+                    for label, fn in (('plain', plain._stage1),
+                                      ('2 bands', stage),
+                                      ('2 bands', stage),
+                                      ('plain', plain._stage1)):
+                        wall.setdefault(label, []).append(_wall_ms(
+                            lambda: fn(one), SPATIAL_CALLS))
+                    # device profiles in bf16 alone (time: the smoke's
+                    # limit)
+                    for label, fn in (('plain', plain._stage1),
+                                      ('2 bands', stage)) * (tag == 'bf16'):
+                        _device_profile(f'spatial hrnet {arch} stage 1 '
+                                        f'{tag} B=1 {label}',
+                                        lambda: fn(one), min(wall[label]),
+                                        3)
+                print(f'[spatial hrnet] (e) batch-1 stage 1 on one '
+                      f'{one.shape[1]}x{one.shape[2]} frame, {arch} {tag}, '
+                      f'ms per call (median of {SPATIAL_CALLS}, two turns): '
+                      + ', '.join(f'{k} ' + ' '.join(f'{t:.3f}' for t in v)
+                                  for k, v in wall.items())
+                      + f'; {copies} halo copies per call', flush=True)
+            del plain, sp, stage
+            _release_if(device)
+        print(f'[spatial hrnet] (e) {arch}: {time.perf_counter() - t0:.1f} '
+              's', flush=True)
+    return launches
+
+
 def phase_spatial(device='cuda'):
     """Phase 24 (see the module docstring). Returns K1's launches per
     path for the kernels line. ``device='cpu'`` rehearses its logic on a
@@ -5091,7 +5349,7 @@ def phase_spatial(device='cuda'):
             eager = stage.fn.row_sums(batch)
             banded, whole = stage(batch), plain._stage1(batch)
         bands_same = [bool(torch.equal(a, b)) for a, b in zip(sums, eager)]
-        rows = [b['rows'] for b in stage.last['exchanges'][0]['bands']]
+        rows = [b['rows'] for b in stage.last['exchanges'][0][0]['bands']]
         d_logit = max(float((a - b).abs().max())
                       for a, b in zip(banded[:3], whole[:3]))
         top = max(float(t.abs().max()) for t in whole[:3])
@@ -5114,7 +5372,7 @@ def phase_spatial(device='cuda'):
               + f'; stage-1 logits max |diff| {d_logit:.4g} at max |logit| '
               f'{top:.4g} (bf16 spacing there {spacing:g}); each band\'s '
               f'replayed row sums equal to its eager segments\' bit for '
-              f'bit: {bands_same}; {len(stage.windows)} exchanges, '
+              f'bit: {bands_same}; {len(stage.levels)} exchanges, '
               f'{copies} halo copies per call, the pool adds {partials} '
               f'bands\' sums; K1 launches in one call {n_k1} (one per '
               f'stage-2 replica)', flush=True)
@@ -5137,7 +5395,7 @@ def phase_spatial(device='cuda'):
         if card and not all(bands_same):
             raise RuntimeError('a band\'s replay differs from its eager '
                                'segments')
-        if partials != 2 or copies <= len(stage.windows):
+        if partials != 2 or copies <= len(stage.levels):
             raise RuntimeError('the frame was not split into two bands')
         if card and n_k1 != 2:
             raise RuntimeError(f'{n_k1} K1 launches for 2 stage-2 replicas')
@@ -5165,6 +5423,7 @@ def phase_spatial(device='cuda'):
                   + f'; {copies} halo copies per call', flush=True)
         del plain, sp, stage
         _release_if(device)
+    launches.update(_spatial_hrnet(device))
     # (d) the server as its own process (the card's own device list)
     d = tempfile.mkdtemp(prefix='spatial_', dir=str(ROOT / 'build'))
     try:
@@ -5561,12 +5820,244 @@ def phase_fsdp(device='cuda'):
         _release_if(device)
 
 
+# Phase 26 (learning): the reference's learning checks at their recipes
+# on the card, each train step a CUDA graph replay: tests/test_learning.py
+# (the horizon and the memorization checks, tests/test_torch_learning.py's
+# functions) and tests/test_spec_learning_e2e.py (spec_synth, spec_eval,
+# spec_train, spec_eval: tests/test_torch_spec_learning_e2e.py's RECIPE),
+# each also at lr 0, a control the same limits must refuse; then
+# tests/test_multiprocess.py's two-process spec_eval as two gloo ranks on
+# the card (tests/mp_torch_worker.py's val mode) on LEARN_EVAL_N samples
+# of the CLIs' tiny frames, against one process.
+LEARN_EVAL_N = 24
+LEARN_EVAL_RTOL = 1e-6        # the two ranks' metrics, as the reference's
+LEARN_EVAL_ONE_RTOL = 1e-5    # the ranks against one process
+
+
+def _learning_eval(device, d):
+    """26(d): two ranks of ``spec_eval`` sharing the card, each exiting 0,
+    their metrics equal, one LOGDIR holding rank 0's artifacts; then one
+    process of the CLI here. Returns K1's launches in the one process.
+    Where joblib is missing the CLI writes no results pickle, and none
+    is checked."""
+    import glob
+    import importlib.util
+    import json
+
+    import torch
+
+    from mp_torch_worker import VAL_OPTS
+    from spec_tpu_torch.cli import spec_eval
+    from spec_tpu_torch.ops import lbs as L
+
+    root = os.path.join(d, 'data')
+    _par_write_data(root, n_val=LEARN_EVAL_N)
+    save = 'True' if importlib.util.find_spec('joblib') else 'False'
+    opts = ['TESTING.SAVE_RESULTS', save]
+    env = dict(os.environ, SPEC_DATA_ROOT=root, OMP_NUM_THREADS='1',
+               MP_LOGDIR=os.path.join(d, 'run'),
+               PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get('PYTHONPATH', ''))
+    port = _free_port()
+    t0 = time.perf_counter()
+    _spawn([[sys.executable, str(ROOT / 'tests' / 'mp_torch_worker.py'),
+             str(r), '2', str(port), d, 'val', device, *opts]
+            for r in range(2)], 'spec_eval (2 ranks)', env=env)
+    ranks = [torch.load(os.path.join(d, f'val_rank{r}.pt'))
+             for r in range(2)]
+    jsons = glob.glob(os.path.join(d, 'run', '**',
+                                   'val_accuracy_results_*.json'),
+                      recursive=True)
+    pkls = glob.glob(os.path.join(d, 'run', '**',
+                                  'evaluation_results_*.pkl'),
+                     recursive=True)
+    history = json.load(open(jsons[0])) if len(jsons) == 1 else []
+    rank_gap = max(abs(ranks[1][k] - v) / max(abs(v), 1e-12)
+                   for k, v in ranks[0].items())
+    print(f'[learning] (d) spec_eval as two gloo ranks on {device}: exit 0 '
+          f'in {time.perf_counter() - t0:.1f} s; val_mpjpe '
+          f'{ranks[0]["val_mpjpe"]:.4f} / {ranks[1]["val_mpjpe"]:.4f} mm, '
+          f'largest relative gap between the ranks {rank_gap:.3e} (limit '
+          f'{LEARN_EVAL_RTOL:g}); {len(jsons)} results json (history '
+          f'{len(history)}) and {len(pkls)} results pickle (SAVE_RESULTS '
+          f'{save}{"" if save == "True" else ": no joblib, none checked"})'
+          f' under the log root, in '
+          f'{len({os.path.dirname(f) for f in jsons + pkls})} LOGDIR',
+          flush=True)
+    if not (rank_gap <= LEARN_EVAL_RTOL and len(jsons) == 1
+            and len(history) == 1 and len(pkls) == (save == 'True')
+            and len({os.path.dirname(f) for f in jsons + pkls}) == 1):
+        raise RuntimeError('two-process spec_eval: ranks or artifacts')
+    os.environ['SPEC_DATA_ROOT'], old = root, os.environ['SPEC_DATA_ROOT']
+    try:
+        L.LAUNCHES = 0
+        one = spec_eval.main(['--device', device, '--log_root',
+                              os.path.join(d, 'one'), '--opts',
+                              *VAL_OPTS, *opts])['3dpw-test-cam']
+        n_k1 = L.LAUNCHES
+    finally:
+        os.environ['SPEC_DATA_ROOT'] = old
+    gap = max(abs(float(one[k]) - v) / max(abs(v), 1e-12)
+              for k, v in ranks[0].items())
+    print(f'[learning] (d) one process of spec_eval: largest relative gap '
+          f'to the ranks {gap:.3e} (limit {LEARN_EVAL_ONE_RTOL:g}); K1 '
+          f'launches {n_k1}', flush=True)
+    if not gap <= LEARN_EVAL_ONE_RTOL:
+        raise RuntimeError(f'two-process spec_eval differs from one '
+                           f'process by {gap}')
+    return n_k1
+
+
+def phase_learning(device='cuda'):
+    """Phase 26 (see the module docstring and the comment above), with
+    cuDNN's deterministic algorithms: the checks' readings then repeat
+    from call to call (with cuDNN's atomics the e2e check's held-out
+    MPJPE read 132.45-160.05 mm over four calls against its limit of
+    169.6). Returns K1's launches per path. ``device='cpu'`` rehearses
+    it (shrink the e2e recipe first:
+    tests/test_torch_spec_learning_e2e.RECIPE)."""
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _learning_checks(device)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _learning_checks(device):
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import test_torch_learning as TL
+    import test_torch_spec_learning_e2e as TE
+    from spec_tpu_torch.ops import lbs as L
+
+    t_phase = time.perf_counter()
+    launches = {}
+    # (a) CamCalib learns the horizon (its step launches no K1): a set of
+    # flax_init draws held to the JAX package's keys (test_torch_learning
+    # .JAX_HORIZON), and the same draws at lr 0
+    t0 = time.perf_counter()
+    for lr in (TL.HORIZON['lr'], 0.0):
+        runs = [TL.horizon_run(device, lr=lr, init=k)
+                for k in range(TL.HORIZON_DRAWS)]
+        misses = TL.horizon_set_misses(runs)
+        meet = sum(not TL.horizon_misses(r) for r in runs)
+        print(f'[learning] (a) horizon, ResNet-18 CamCalib, flax_init draws '
+              f'0-{TL.HORIZON_DRAWS - 1}, lr {lr:g}: held-out MAE pitch '
+              + ' '.join(f'{r["mae"][0]:.4f}' for r in runs) + '; roll '
+              + ' '.join(f'{r["mae"][1]:.4f}' for r in runs)
+              + f' rad; means pitch '
+              f'{np.mean([r["mae"][0] for r in runs]):.4f}, roll '
+              f'{np.mean([r["mae"][1] for r in runs]):.4f} (JAX on the CPU '
+              f'over {TL.JAX_HORIZON["keys"]} keys: pitch '
+              f'{TL.JAX_HORIZON["pitch"][0]:.4f}, roll '
+              f'{TL.JAX_HORIZON["roll"][0]:.4f}); {meet} of {len(runs)} '
+              f'meet every limit of the recipe, 0.15 rad included (JAX: '
+              f'{TL.JAX_HORIZON["meet"]} of {TL.JAX_HORIZON["keys"]}); '
+              f'missed: {misses[:4]}{" ..." if len(misses) > 4 else ""}',
+              flush=True)
+        if bool(lr) == bool(misses):
+            raise RuntimeError(f'horizon check at lr {lr:g}: missed '
+                               f'{misses}')
+    print(f'[learning] (a) {time.perf_counter() - t0:.1f} s', flush=True)
+    # (b) the SPEC step memorizes a batch (two K1 forwards a step)
+    t0 = time.perf_counter()
+    for lr in (TL.MEMORIZE['lr'], 0.0):
+        L.LAUNCHES = 0
+        r = TL.memorize_run(device, lr=lr)
+        if lr:
+            launches['memorize step'] = L.LAUNCHES
+        misses = TL.memorize_misses(r)
+        print(f'[learning] (b) memorization, HMR ResNet-18, B = '
+              f'{TL.MEMORIZE["batch"]}, lr {lr:g}: losses '
+              + ' '.join(f'{v:.3f}' for v in r['losses'])
+              + f' (limit: mean of the last two < 0.85 x the first two); '
+              f'missed: {misses}; K1 launches {L.LAUNCHES}', flush=True)
+        if bool(lr) == bool(misses):
+            raise RuntimeError(f'memorization check at lr {lr:g}: missed '
+                               f'{misses}')
+    if device == 'cuda' and launches['memorize step'] != \
+            2 * TL.MEMORIZE['steps']:
+        raise RuntimeError(f'{launches["memorize step"]} K1 launches in '
+                           f'{TL.MEMORIZE["steps"]} steps')
+    print(f'[learning] (b) {time.perf_counter() - t0:.1f} s', flush=True)
+    d = tempfile.mkdtemp(prefix='learning_', dir=str(ROOT / 'build'))
+    old_root = os.environ['SPEC_DATA_ROOT']
+    tb = sys.modules.get('torch.utils.tensorboard')
+    try:
+        # (c) spec_synth -> spec_eval -> spec_train -> spec_eval, the
+        # reference's recipe; the control trains the same sets at lr 0
+        # (no TensorBoard writer: not checked here)
+        sys.modules['torch.utils.tensorboard'] = None
+        os.environ['SPEC_DATA_ROOT'] = root = os.path.join(d, 'e2e')
+        # the results pickle needs joblib, which not every host has (the
+        # checked metrics come from the in-loop pass either way)
+        opts = ([] if importlib.util.find_spec('joblib')
+                else ['TESTING.SAVE_RESULTS', 'False'])
+        for lr in (TE.RECIPE['lr'], 0.0):
+            t0 = time.perf_counter()
+            L.LAUNCHES = 0
+            r = TE.e2e_run(root, os.path.join(d, f'logs_{lr:g}'), TE.RECIPE,
+                           device, lr=lr, render=bool(lr), opts=opts)
+            misses = TE.e2e_misses(r, TE.RECIPE)
+            if lr:
+                launches['spec e2e (synth, eval, train, eval)'] = L.LAUNCHES
+                launches['spec e2e train (spec_train)'] = r['train_k1']
+            print(f'[learning] (c) spec_synth {TE.RECIPE["n_train"]} + '
+                  f'{TE.RECIPE["n_val"]} frames, spec_train '
+                  f'{TE.RECIPE["epochs"]} epochs, lr {lr:g}: {r["steps"]} '
+                  f'steps; held-out MPJPE {r["base"]["val_mpjpe"]:.2f} -> '
+                  f'{r["trained"]["val_mpjpe"]:.2f} mm, PA-MPJPE '
+                  f'{r["base"]["val_pampjpe"]:.2f} -> '
+                  f'{r["trained"]["val_pampjpe"]:.2f} mm (limits: init / '
+                  f'{TE.RECIPE["mpjpe"]} and init / {TE.RECIPE["pampjpe"]}'
+                  f', at least {TE.RECIPE["min_steps"]} steps); missed: '
+                  f'{misses}; K1 launches {L.LAUNCHES} ({r["train_k1"]} in '
+                  f'spec_train); {time.perf_counter() - t0:.1f} s',
+                  flush=True)
+            if not lr:
+                misses = [m for m in misses if 'MPJPE' in m]
+            if bool(lr) == bool(misses):
+                raise RuntimeError(f'e2e check at lr {lr:g}: missed '
+                                   f'{misses}')
+            if device == 'cuda' and r['train_k1'] < 2 * r['steps']:
+                raise RuntimeError(f'{r["train_k1"]} K1 launches in '
+                                   f'{r["steps"]} spec_train steps')
+            shutil.rmtree(os.path.join(d, f'logs_{lr:g}'),
+                          ignore_errors=True)
+        os.environ['SPEC_DATA_ROOT'] = old_root
+        # (d) two-process spec_eval
+        t0 = time.perf_counter()
+        launches['spec_eval (one process)'] = _learning_eval(
+            device, os.path.join(d, 'eval'))
+        print(f'[learning] (d) {time.perf_counter() - t0:.1f} s', flush=True)
+    finally:
+        os.environ['SPEC_DATA_ROOT'] = old_root
+        if tb is None:
+            sys.modules.pop('torch.utils.tensorboard', None)
+        else:
+            sys.modules['torch.utils.tensorboard'] = tb
+        shutil.rmtree(d, ignore_errors=True)
+    print(f'[learning] phase 26: {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
     if '--parallel-rank' in sys.argv[1:]:      # one rank of 23(a), 25(c)
         sys.path.insert(0, str(ROOT))
         return _par_rank(sys.argv[sys.argv.index('--parallel-rank') + 1:])
+    if '--export-one' in sys.argv[1:]:         # one export of phase 21
+        sys.path.insert(0, str(ROOT))
+        return _export_one(sys.argv[sys.argv.index('--export-one') + 1:])
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this check '
               'runs only on an NVIDIA GPU', file=sys.stderr)
@@ -5610,13 +6101,28 @@ def main() -> int:
     if '--fsdp' in sys.argv[1:]:
         print(json.dumps(phase_fsdp()))
         return 0
+    if '--learning' in sys.argv[1:]:
+        print(json.dumps(phase_learning()))
+        return 0
     from spec_tpu_torch.utils.batching import pad_pow2
 
-    k3_rows = phase_bottleneck()
-    pred = phase_predictor()
-    pipe = phase_pipeline()
-    det = phase_detector()
-    hrnet = phase_hrnet()
+    t_run = time.perf_counter()
+
+    def timed(phase, fn, *args):
+        """``fn(*args)``, then its seconds and the run's so far (the smoke
+        must end within its time limit, the build included)."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f'[time] phase {phase}: {time.perf_counter() - t0:.1f} s '
+              f'(phases 3 on: {time.perf_counter() - t_run:.1f} s)',
+              flush=True)
+        return out
+
+    k3_rows = timed(3, phase_bottleneck)
+    pred = timed(4, phase_predictor)
+    pipe = timed(5, phase_pipeline)
+    det = timed(18, phase_detector)
+    hrnet = timed(19, phase_hrnet)
     # K1 at the batches the paths gave it: the predictor's one padded
     # stage-2 chunk, the detector path's, the pipeline's rows of SMPL (K1
     # wrote its vertices) and the train step's batch.
@@ -5625,35 +6131,44 @@ def main() -> int:
     pipe_batch = pipe['bf16']['fused']['outs'][0].shape[0]
     # (phase 23's paths: a rank's half of the train batch, a replica's
     # half of the predictor's chunk)
-    lbs_rows = phase_lbs(sorted(set(LBS_BATCHES)
-                                | {main_batch, pipe_batch, TRAIN_BATCH,
-                                   det['batch'], SYNTH['n'],
-                                   PAR_BATCH, PAR_BATCH // 2,
-                                   main_batch // 2}))
-    verts, _, cam_t, vfov, pitch, roll = pipe['fp32']['fused']['outs']
-    k2 = phase_projection(_projection_operands(verts, cam_t, vfov, pitch,
-                                               roll))
-    phase_card_vs_cpu()
-    phase_pipeline_card_vs_cpu()
-    phase_graphs()
-    phase_lbs_backward()
-    phase_cli_devices()
-    serve_launches = phase_serve()
-    eval_launches = phase_eval()
-    train_launches = phase_train()
-    phase_camcalib_train()
-    smplify = phase_smplify()
-    phase_remat()
-    render = phase_render(build_seconds)
-    exported = phase_export()
-    synth_launches = phase_datagen()
-    parallel = phase_parallel()
-    spatial = phase_spatial()
-    fsdp = phase_fsdp()
+    # (phase 26's: the e2e check's spec_train batch, and the
+    # memorization step's batch of its own V = 64 test assets)
+    import test_torch_learning as TL
+    import test_torch_spec_learning_e2e as TE
 
-    # K1's batch on this slice's path: the FSDP step's global batch on
-    # one NCCL rank
-    row = lbs_rows[PAR_BATCH]
+    lbs_rows = timed(6, phase_lbs, sorted(set(LBS_BATCHES)
+                                          | {main_batch, pipe_batch,
+                                             TRAIN_BATCH, det['batch'],
+                                             SYNTH['n'], PAR_BATCH,
+                                             PAR_BATCH // 2, main_batch // 2,
+                                             TE.BATCH}))
+    memorize_row, = timed(6, phase_lbs, [TL.MEMORIZE['batch']],
+                          TL.MEMORIZE['vertices']).values()
+    verts, _, cam_t, vfov, pitch, roll = pipe['fp32']['fused']['outs']
+    k2 = timed(7, phase_projection, _projection_operands(
+        verts, cam_t, vfov, pitch, roll))
+    timed(8, phase_card_vs_cpu)
+    timed(8, phase_pipeline_card_vs_cpu)
+    timed(9, phase_graphs)
+    timed(10, phase_lbs_backward)
+    timed(11, phase_cli_devices)
+    serve_launches = timed(12, phase_serve)
+    eval_launches = timed(13, phase_eval)
+    train_launches = timed(14, phase_train)
+    timed(15, phase_camcalib_train)
+    smplify = timed(16, phase_smplify)
+    timed(17, phase_remat)
+    render = timed(20, phase_render, build_seconds)
+    exported = timed(21, phase_export)
+    synth_launches = timed(22, phase_datagen)
+    parallel = timed(23, phase_parallel)
+    spatial = timed(24, phase_spatial)
+    fsdp = timed(25, phase_fsdp)
+    learning = timed(26, phase_learning)
+
+    # K1's batch on this slice's path: the e2e check's spec_train
+    # (phase 26 (c), B = 8 of the 6890-vertex assets)
+    row = lbs_rows[TE.BATCH]
 
     def k3_entry(tag):
         """K3 in ``tag`` (bf16, or fp32 as 3xTF32): layer1's block at
@@ -5681,12 +6196,14 @@ def main() -> int:
         'route': 'cuda',
         'source': 'spec_tpu_torch/csrc/lbs.cu',
         'replaces': 'spec_tpu/ops/pallas/lbs.py:97',
-        # this slice's path: PAR_STEPS steps of the full-axis FSDP train
-        # step on one NCCL rank (phase 25(a), two K1 forwards a step);
+        # this slice's path: the e2e check's spec_train run (phase 26
+        # (c): 320 steps of two K1 forwards, and its validation pass);
         # the times below are phase 6's at its batch
-        'launches': fsdp['fsdp step (fsdp, 1 NCCL rank)'],
-        'batch': PAR_BATCH,
+        'launches': learning['spec e2e train (spec_train)'],
+        'batch': TE.BATCH,
         'launches_by_path': {**render,
+                             # phase 26: the learning checks' paths
+                             **learning,
                              # phase 25: the FSDP/HSDP paths
                              **fsdp,
                              # phase 24: the spatial paths
@@ -5708,7 +6225,8 @@ def main() -> int:
                              'serve window': serve_launches,
                              'eval step replay': eval_launches,
                              'smplify fit': smplify['launches']},
-        'max_abs_err': max(r['max_abs_err'] for r in lbs_rows.values()),
+        'max_abs_err': max(r['max_abs_err'] for r in
+                           [*lbs_rows.values(), memorize_row]),
         'ms': row['ms'],
         'wrapper_ms': row['wrapper_ms'],
         'plain_ms': row['plain_ms'],
@@ -5722,7 +6240,10 @@ def main() -> int:
         'backward_bound_ms': _bound(*_k1_backward_work(TRAIN_BATCH),
                                     PEAK_FLOPS['fp32'])[0],
         # phase 6's kernel time at the batch each listed path gives K1
-        'ms_by_path': {'fsdp step': row['ms'],
+        'ms_by_path': {'spec e2e train step': row['ms'],
+                       'memorize step (V = 64)': memorize_row['ms'],
+                       'spatial hrnet predict (2 bands)': lbs_rows[1]['ms'],
+                       'fsdp step': lbs_rows[PAR_BATCH]['ms'],
                        'spatial predict (2 bands)':
                            lbs_rows[main_batch // 2]['ms'],
                        'exported predict': lbs_rows[main_batch]['ms'],

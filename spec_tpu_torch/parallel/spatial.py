@@ -8,29 +8,43 @@ mesh; GSPMD swaps each convolution's halo rows with the neighbouring
 shards (a collective-permute), pads a ragged split and turns the global
 average pool into a sum over the shards. Here that layout is explicit,
 in one process over a list of local devices (``parallel.create_mesh``),
-each with its own copy of the trunk (``parallel.replicate``):
+each with its own copy of the trunk (``parallel.replicate``). Two
+trunks are covered: a ResNet (``models/backbones/resnet.ResNet``) and an
+HRNet (``models/backbones/hrnet.HRNet``, ``-interp`` and ``-conv``).
 
+* **state.** Between two layers a band holds its rows of a list of
+  tensors, each at its own stride (rows of the trunk's input per row): a
+  ResNet's feature map and the residual it carries, an HRNet's one to
+  four branches at strides 4 to 32 and what their exchange carries.
 * **bands.** Each device owns one band of rows. The cuts fall on
-  multiples of the trunk's stride (32 input rows for a ResNet), so at
-  every layer a band that owns input rows ``[2a, 2b)`` of a stride-2
-  layer owns its output rows ``[a, b)``, and a block's residual branch
-  lines up with its downsample. The trunk's last rows
-  (``ceil(H / 32)``) are dealt in chunks of ``ceil(rows / n)``, as GSPMD
+  multiples of the trunk's stride T (32 input rows), so at stride s a
+  band that owns input rows ``[a, b)`` owns rows ``[a / s, b / s)`` of
+  every tensor: a stride-2 layer's rows halve exactly, a residual lines
+  up with its downsample, and an HRNet branch upsampled by 2^k lands on
+  the rows of the branch it is added to. The trunk's last rows
+  (``ceil(H / T)``) are dealt in chunks of ``ceil(rows / n)``, as GSPMD
   splits a ragged dimension: bands at the end may own none, and then run
-  nothing (:func:`band_rows`).
-* **halos.** Before each layer whose window spans more than one row (the
-  stem, the max pool, every 3x3 conv), a band takes the input rows its
-  output rows need from the bands that own them: device-to-device copies
-  (:func:`_gather`). Only the frame's top and bottom edges are padded
+  nothing (:func:`band_rows`). An HRNet adds branches of every stride,
+  so its frame's sides must be multiples of T (the plain trunk fails on
+  other sides too): a ResNet takes any height.
+* **halos.** Each exchange serves the layers of one depth whose window
+  spans rows (the stem, the max pool, every 3x3 conv; in an HRNet, every
+  branch's conv of that depth): for each tensor such a window reads, a
+  band takes the rows that its output rows need from the bands that own
+  them, device-to-device copies (:func:`_gather`), once for all the
+  windows that read it. Only the frame's top and bottom edges are padded
   (zeros; -inf for the pool, as torch pads it); an inner band edge never
   pads.
-* **segments.** Between two exchanges a band runs a segment: the window
-  layer without height padding, then the layers that act on each row
-  (1x1 convs, eval BatchNorm, ReLU, the residual add) up to the next
-  window. Each (band, segment) is a ``StageGraph`` on the band's device:
-  on a card every segment replays a CUDA graph and the copies are queued
-  between the replays; on the CPU it runs directly. The code is the same
-  for two bands on one card and for two bands on two cards.
+* **segments.** After each exchange a band runs a segment: the windows,
+  without height padding, then the layers that act on each row (1x1
+  convs, eval BatchNorm, ReLU, residual and fusion sums, an HRNet's
+  nearest upsampling by 2^k and its ``-interp`` head's bilinear resize
+  by an exact factor, whose two source rows lie inside the band) up to
+  the next exchange. Each (band, segment) is a ``StageGraph`` on the
+  band's device: on a card every segment replays a CUDA graph and the
+  copies are queued between the replays; on the CPU it runs directly.
+  The code is the same for two bands on one card and for two bands on
+  two cards.
 * **pool and heads.** A band's last segment returns the row sums of its
   part of the feature map (fp32); the first device adds them, divides by
   the full output height times width and runs the heads once.
@@ -51,11 +65,6 @@ import torch.nn.functional as F
 
 from spec_tpu_torch.utils.graphs import StageGraph
 from spec_tpu_torch.utils.precision import compute_dtype
-
-HRNET_NOT_PORTED = (
-    'spatial_parallel over an HRNet CamCalib trunk (its parallel '
-    'resolutions exchange rows at four strides) is not ported yet '
-    '(ROADMAP.md §1 item 12d); use a ResNet camcalib_backbone')
 
 
 class SpatialSharding(NamedTuple):
@@ -100,10 +109,6 @@ class _Window:
         self.p, self.pw = pair(layer.padding)
         self.fill = float('-inf') if isinstance(layer, nn.MaxPool2d) else 0.0
 
-    def out_size(self, h: int, w: int) -> tuple:
-        return ((h + 2 * self.p - self.k) // self.s + 1,
-                (w + 2 * self.pw - self.kw) // self.sw + 1)
-
     def needs(self, lo: int, hi: int) -> tuple:
         """The input rows ``[lo', hi')`` that output rows ``[lo, hi)``
         read (past the frame where they reach the padding)."""
@@ -118,129 +123,346 @@ class _Window:
                         m.dilation, m.groups)
 
 
-def _program(trunk: nn.Module) -> list:
-    """A ResNet trunk (``models/backbones/resnet.ResNet``) as a list of
-    (window layer, tail): segment j applies window j to its tile, then
-    tail j, the row-wise layers up to the next window, which takes (the
-    window's output, *carried tensors) and returns (the tensor the next
-    window reads, *carried tensors). A residual block carries its
-    identity branch; the last tail returns the row sums of the feature
-    map in fp32."""
-    from spec_tpu_torch.models.backbones.resnet import (
-        BasicBlock,
-        Bottleneck,
-        ResNet,
-    )
+class _Level(NamedTuple):
+    """One exchange and the segment after it. ``windows``: (state entry
+    read, window) pairs, each run on a tile of its entry's rows with the
+    halo; ``tail(state)`` maps the windows' outputs followed by the
+    level's input state (each entry's own rows) to the next state;
+    ``strides``: each next entry's stride, empty for the last level,
+    whose tail returns the row sums ``[(B, C) fp32]``."""
+    windows: tuple
+    tail: Callable
+    strides: tuple
 
-    if not isinstance(trunk, ResNet):
-        raise NotImplementedError(HRNET_NOT_PORTED)
-    ops: list = [trunk.conv1, lambda x: (trunk.relu(trunk.bn1(x)),),
-                 trunk.maxpool]
+
+class _Program:
+    """A trunk as a list of :class:`_Level`, written layer by layer:
+    :meth:`windows` opens a level, :meth:`rows` adds a row-wise function
+    to its tail, :meth:`finish` ends the trunk with the row sums.
+    ``strides`` is the current state's (the input's is 1); ``exact``:
+    the trunk needs frame sides that are multiples of its stride."""
+
+    def __init__(self, exact: bool = False):
+        self.levels: List[_Level] = []
+        self.strides = [1]
+        self.exact = exact
+        self._windows: Optional[tuple] = None
+        self._fns: list = []
+
+    def _close(self, strides: tuple) -> None:
+        if self._windows is not None:
+            fns = self._fns
+
+            def tail(state):
+                for f in fns:
+                    state = f(state)
+                return state
+
+            self.levels.append(_Level(self._windows, tail, strides))
+
+    def windows(self, pairs) -> None:
+        """A new level: each (entry, conv or pool) of ``pairs`` reads the
+        current state's entry; the state after them is the windows'
+        outputs followed by the state before them."""
+        self._close(tuple(self.strides))
+        self._windows = tuple((e, _Window(m)) for e, m in pairs)
+        self._fns = []
+        self.strides = [self.strides[e] * w.s
+                        for e, w in self._windows] + self.strides
+
+    def rows(self, fn: Callable, like) -> None:
+        """``fn`` (state list -> state list) acts on each row; ``like``
+        gives each output entry's stride: an input entry's (its index),
+        or an input entry's times a factor ((index, factor))."""
+        self._fns.append(fn)
+        self.strides = [self.strides[k] if isinstance(k, int)
+                        else self.strides[k[0]] * k[1] for k in like]
+
+    def finish(self, fn: Callable) -> None:
+        """``fn`` (state -> the feature map) ends the trunk: its row sums
+        in fp32 are the last level's output. Sets ``stride``, the
+        trunk's (the largest of its tensors')."""
+        self._fns.append(lambda s: [fn(s).float().sum((2, 3))])
+        self._close(())
+        self.stride = max([*self.strides,
+                           *(s for lv in self.levels for s in lv.strides)])
+
+
+def _split(seq: nn.Module) -> tuple:
+    """A (possibly nested) ``nn.Sequential`` that starts with a conv: the
+    conv, and the rest as one row-wise callable."""
+    mods = [m for m in seq.modules() if not isinstance(m, nn.Sequential)]
+    return mods[0], nn.Sequential(*mods[1:])
+
+
+def _resnet_block(p: _Program, blk) -> None:
+    """A residual block over the state ``[x]``: ``[y]`` after it."""
+    from spec_tpu_torch.models.backbones.resnet import BasicBlock, Bottleneck
+
+    first = blk.conv2 if isinstance(blk, Bottleneck) else blk.conv1
+    s = first.stride[0]
+
+    def ident(x):
+        return x if blk.downsample is None else blk.downsample(x)
+
+    if isinstance(blk, Bottleneck):
+        p.rows(lambda st: [blk.relu(blk.bn1(blk.conv1(st[0]))),
+                           ident(st[0])], (0, (0, s)))
+        p.windows([(0, blk.conv2)])
+        p.rows(lambda st: [blk.relu(blk.bn3(blk.conv3(
+            blk.relu(blk.bn2(st[0])))) + st[2])], (0,))
+    elif isinstance(blk, BasicBlock):
+        p.rows(lambda st: [st[0], ident(st[0])], (0, (0, s)))
+        p.windows([(0, blk.conv1)])
+        p.rows(lambda st: [blk.relu(blk.bn1(st[0])), st[2]], (0, 2))
+        p.windows([(0, blk.conv2)])
+        p.rows(lambda st: [blk.relu(blk.bn2(st[0]) + st[2])], (0,))
+    else:
+        raise TypeError(f'a trunk of BasicBlock or Bottleneck blocks, not '
+                        f'{type(blk).__name__}')
+
+
+def _resnet_program(trunk) -> _Program:
+    """A ResNet trunk: the stem conv, the max pool and every block's 3x3
+    convs are windows; a block carries its identity branch."""
+    p = _Program()
+    p.windows([(0, trunk.conv1)])
+    p.rows(lambda st: [trunk.relu(trunk.bn1(st[0]))], (0,))
+    p.windows([(0, trunk.maxpool)])
+    p.rows(lambda st: [st[0]], (0,))
     for layer in (trunk.layer1, trunk.layer2, trunk.layer3, trunk.layer4):
         for blk in layer:
-            def ident(x, blk=blk):
-                return x if blk.downsample is None else blk.downsample(x)
-
-            if isinstance(blk, Bottleneck):
-                ops += [lambda x, blk=blk, ident=ident: (
-                            blk.relu(blk.bn1(blk.conv1(x))), ident(x)),
-                        blk.conv2,
-                        lambda y, idn, blk=blk: (blk.relu(
-                            blk.bn3(blk.conv3(blk.relu(blk.bn2(y)))) + idn),)]
-            elif isinstance(blk, BasicBlock):
-                ops += [lambda x, ident=ident: (x, ident(x)),
-                        blk.conv1,
-                        lambda y, idn, blk=blk: (blk.relu(blk.bn1(y)), idn),
-                        blk.conv2,
-                        lambda y, idn, blk=blk: (blk.relu(blk.bn2(y) + idn),)]
-            else:
-                raise TypeError(f'a ResNet trunk of BasicBlock or '
-                                f'Bottleneck blocks, not '
-                                f'{type(blk).__name__}')
-    ops.append(lambda x: (x.float().sum((2, 3)),))
-
-    program = []
-    for op in ops:
-        if isinstance(op, nn.Module):
-            program.append((_Window(op), []))
-        else:
-            program[-1][1].append(op)
-    return [(window, _chain(tail)) for window, tail in program]
+            _resnet_block(p, blk)
+    p.finish(lambda st: st[0])
+    return p
 
 
-def _chain(fns: list) -> Callable:
-    def tail(*state):
-        for f in fns:
-            state = f(*state)
-        return state
-    return tail
+def _hrnet_branch_blocks(p: _Program, blocks: Sequence) -> None:
+    """One BasicBlock on each branch of the state ``[x_0 .. x_n-1]``, the
+    branches' convs of one depth sharing an exchange."""
+    n = len(blocks)
+    p.windows([(b, blk.conv1) for b, blk in enumerate(blocks)])
+    # [conv1 outs, x]
+    p.rows(lambda st: [blk.relu(blk.bn1(st[b]))
+                       for b, blk in enumerate(blocks)] + st[n:2 * n],
+           tuple(range(2 * n)))
+    p.windows([(b, blk.conv2) for b, blk in enumerate(blocks)])
+    # [conv2 outs, h, x]
+    p.rows(lambda st: [blk.relu(blk.bn2(st[b]) + st[2 * n + b])
+                       for b, blk in enumerate(blocks)], tuple(range(n)))
+
+
+def _hrnet_module(p: _Program, module) -> None:
+    """A ``HighResolutionModule`` over the state ``[x_0 .. x_n-1]``: the
+    branches' blocks depth by depth, then the exchange. Output i sums
+    branch i, the branches above it through a 1x1 conv, BatchNorm and a
+    nearest upsample (row-wise), and the branches below it through
+    chains of i - j stride-2 3x3 convs; the chains' convs of one depth
+    share an exchange. The state during the exchange is ``[x_0 ..
+    x_n-1, c_0 .. c_m-1]``, one entry per chain (i, j), j < i."""
+    n = len(module.branches)
+    for depth in zip(*module.branches):
+        _hrnet_branch_blocks(p, depth)
+    chains = [(i, j) for i in range(n) for j in range(i)]
+    steps = {c: [_split(m) for m in module.fuse_layers[c[0]][c[1]]]
+             for c in chains}
+
+    def fuse(st):
+        feats, done = st[:n], dict(zip(chains, st[n:]))
+        outs = []
+        for i, row in enumerate(module.fuse_layers):
+            acc = None
+            for j, layer in enumerate(row):
+                y = (feats[i] if j == i else layer(feats[j]) if j > i
+                     else done[i, j])
+                acc = y if acc is None else acc + y
+            outs.append(F.relu(acc))
+        return outs
+
+    for d in range(max((i - j for i, j in chains), default=0)):
+        live = [c for c in chains if c[0] - c[1] > d]
+        # a chain's input: its branch at depth 0, its carried entry after
+        p.windows([(c[1] if d == 0 else n + chains.index(c), steps[c][d][0])
+                   for c in live])
+        m = len(live)
+
+        def step(st, d=d, live=live, m=m):
+            # [the live chains' conv outputs, x_0 .. x_n-1, c_0 .. c_m-1]
+            return list(st[m:m + n]) + [
+                steps[c][d][1](st[live.index(c)]) if c in live
+                else st[m + n + k] for k, c in enumerate(chains)]
+
+        p.rows(step, tuple(range(m, m + n)) + tuple(
+            live.index(c) if c in live else m + n + k
+            for k, c in enumerate(chains)))
+    p.rows(fuse, tuple(range(n)))
+
+
+def _hrnet_program(trunk) -> _Program:
+    """An HRNet trunk (the official classification graph with the
+    ``-interp`` or ``-conv`` head; ``models/backbones/hrnet.py``)."""
+    from spec_tpu_torch.models.backbones.hrnet import STAGES
+
+    p = _Program(exact=True)
+    p.windows([(0, trunk.conv1)])
+    p.rows(lambda st: [trunk.relu(trunk.bn1(st[0]))], (0,))
+    p.windows([(0, trunk.conv2)])
+    p.rows(lambda st: [trunk.relu(trunk.bn2(st[0]))], (0,))
+    for blk in trunk.layer1:
+        _resnet_block(p, blk)
+    n = 1
+    for s in range(1, len(STAGES) + 1):
+        trans = getattr(trunk, f'transition{s}')
+        order = [i for i, t in enumerate(trans) if t is not None]
+        parts = {i: _split(trans[i]) for i in order}
+        p.windows([(min(i, n - 1), parts[i][0]) for i in order])
+        k = len(order)
+
+        def adapt(st, k=k, order=order, parts=parts, width=len(trans)):
+            return [parts[i][1](st[order.index(i)]) if i in parts
+                    else st[k + i] for i in range(width)]
+
+        p.rows(adapt, tuple(order.index(i) if i in parts else k + i
+                            for i in range(len(trans))))
+        n = len(trans)
+        for module in getattr(trunk, f'stage{s + 1}'):
+            _hrnet_module(p, module)
+    if trunk.use_conv_downsample:
+        # branch b reaches stride 32 after n - 1 - b stride-2 convs, the
+        # branches' convs of one depth sharing an exchange
+        chains = {b: [_split(m) for m in
+                      getattr(trunk, f'downsample_stage_{b + 1}')]
+                  for b in range(n - 1)}
+        for d in range(n - 1):
+            live = [b for b in range(n - 1) if len(chains[b]) > d]
+            p.windows([(b, chains[b][d][0]) for b in live])
+            m = len(live)
+
+            def step(st, d=d, live=live, m=m):
+                return [chains[b][d][1](st[live.index(b)]) if b in live
+                        else st[m + b] for b in range(n)]
+
+            p.rows(step, tuple(live.index(b) if b in live else m + b
+                               for b in range(n)))
+        p.finish(lambda st: torch.cat(st, 1))
+    else:
+        def head(st):
+            target = st[-1].shape[-2:]
+            return torch.cat([f if f.shape[-2:] == target else
+                              F.interpolate(f, size=tuple(target),
+                                            mode='bilinear',
+                                            align_corners=False)
+                              for f in st], 1)
+
+        p.finish(head)
+    return p
+
+
+def _program(trunk: nn.Module) -> _Program:
+    from spec_tpu_torch.models.backbones.hrnet import HRNet
+    from spec_tpu_torch.models.backbones.resnet import ResNet
+
+    if isinstance(trunk, ResNet):
+        return _resnet_program(trunk)
+    if isinstance(trunk, HRNet):
+        return _hrnet_program(trunk)
+    raise TypeError(f'spatial_parallel splits a ResNet or an HRNet trunk '
+                    f'(models/backbones/resnet.ResNet, '
+                    f'models/backbones/hrnet.HRNet), not '
+                    f'{type(trunk).__name__}')
+
+
+def _channels_last(t: torch.Tensor) -> torch.Tensor:
+    return (t.contiguous(memory_format=torch.channels_last) if t.dim() == 4
+            else t)
 
 
 class _Segment:
     """One band's segment body: ``prep`` (the first segment's
-    elementwise input transform), the edge padding rows, the window, the
-    tail. ``top`` and ``bottom`` are the padding rows (fixed per graph)."""
+    elementwise input transform), then each window on its rows of its
+    entry's tile with its edge padding rows, then the tail over the
+    windows' outputs and the band's own rows of every entry.
+    ``geometry`` (fixed per graph): for each window the (start, length)
+    of its rows in its tile and its (top, bottom) padding rows; for each
+    entry the (start, length) of the band's own rows in its tile, or
+    None where the entry is passed as the band's own rows."""
 
-    def __init__(self, window: _Window, tail: Callable, dtype: torch.dtype,
+    def __init__(self, level: _Level, dtype: torch.dtype,
                  prep: Optional[Callable] = None):
-        self.window = window
-        self.tail = tail
+        self.level = level
         self.dtype = dtype
         self.prep = prep
 
-    def __call__(self, tile, *carry, top: int, bottom: int):
-        x = self.prep(tile) if self.prep is not None else tile
-        with compute_dtype(self.dtype, x.device.type):
-            if top or bottom:
-                x = F.pad(x, (0, 0, top, bottom), value=self.window.fill)
-            return self.tail(self.window(x), *carry)
+    def __call__(self, *state, geometry):
+        wins, owns = geometry
+        state = list(state)
+        if self.prep is not None:
+            state[0] = self.prep(state[0])
+        with compute_dtype(self.dtype, state[0].device.type):
+            outs = []
+            for (e, win), (start, length, top, bottom) in zip(
+                    self.level.windows, wins):
+                x = state[e].narrow(2, start, length)
+                if top or bottom:
+                    x = F.pad(x, (0, 0, top, bottom), value=win.fill)
+                outs.append(win(x))
+            own = [t if g is None else t.narrow(2, *g)
+                   for t, g in zip(state, owns)]
+            return tuple(_channels_last(t)
+                         for t in self.level.tail(outs + own))
 
 
-def _gather(parts, rows, lo: int, hi: int, i: int, device) -> tuple:
-    """Rows ``[lo, hi)`` (within the frame) of a tensor held as one part
-    per band (``parts[j]`` NCHW, rows ``rows[j]``), on ``device`` for
-    band ``i``: its own rows and copies of its neighbours'. Returns the
-    tile, the rows that came from the bands above and below, and the
-    number of copies (one per neighbour that sent rows)."""
-    pieces, above, below, copies = [], 0, 0, 0
-    for j, ((a, b), t) in enumerate(zip(rows, parts)):
+def _pieces(rows, lo: int, hi: int, i: int) -> tuple:
+    """Where rows ``[lo, hi)`` (within the frame) of a tensor held as one
+    part per band (band j's part holds rows ``rows[j]``) lie, for band
+    ``i``: (band, start in its part, length) in row order, and the rows
+    that come from the bands above and below."""
+    pieces, above, below = [], 0, 0
+    for j, (a, b) in enumerate(rows):
         s, e = max(lo, a), min(hi, b)
         if s >= e:
             continue
-        piece = t.narrow(2, s - a, e - s)
-        if j != i:
-            piece = piece.to(device)
-            copies += 1
-            if j < i:
-                above += e - s
-            else:
-                below += e - s
-        pieces.append(piece)
-    tile = torch.cat(pieces, 2) if len(pieces) > 1 else pieces[0]
-    return (tile.contiguous(memory_format=torch.channels_last), above, below,
-            copies)
+        pieces.append((j, s - a, e - s))
+        if j < i:
+            above += e - s
+        elif j > i:
+            below += e - s
+    return tuple(pieces), above, below
+
+
+def _gather(parts, pieces, e: int, i: int, device) -> torch.Tensor:
+    """Band ``i``'s tile of entry ``e``: its own rows and copies of its
+    neighbours' (``pieces`` from :func:`_pieces`), on ``device``."""
+    tiles = [parts[j][e].narrow(2, s, n) if j == i
+             else parts[j][e].narrow(2, s, n).to(device)
+             for j, s, n in pieces]
+    tile = torch.cat(tiles, 2) if len(tiles) > 1 else tiles[0]
+    return tile.contiguous(memory_format=torch.channels_last)
 
 
 class SpatialStage:
     """A trunk, then a head, with the trunk split into bands of rows, one
     per device of ``mesh`` (see the module docstring).
 
-    ``trunks[i]``: band i's copy of the ResNet trunk, on ``mesh[i]``;
-    ``heads(*row_sums, count=...)``: the tail on ``mesh[0]`` (the pooled
-    mean is ``sum(row_sums) / count``); ``prep``: an elementwise transform
-    of each band's NCHW input tile (the stage's normalization); ``dtype``:
-    the trunk's compute dtype; ``pools``: a CUDA graph pool per device of
-    ``mesh`` (None on the CPU). ``whole``: the plain stage, which runs a
-    one-device mesh (one band is the whole frame).
+    ``trunks[i]``: band i's copy of the ResNet or HRNet trunk, on
+    ``mesh[i]``; ``heads(*row_sums, count=...)``: the tail on ``mesh[0]``
+    (the pooled mean is ``sum(row_sums) / count``); ``prep``: an
+    elementwise transform of each band's NCHW input tile (the stage's
+    normalization); ``dtype``: the trunk's compute dtype; ``pools``: a
+    CUDA graph pool per device of ``mesh`` (None on the CPU). ``whole``:
+    the plain stage, which runs a one-device mesh (one band is the whole
+    frame).
 
     A call takes an NHWC batch on ``mesh[0]`` and returns what ``heads``
-    returns. ``last`` describes the last call: for each exchange, the
-    window and the input height, and for each band the rows it owned,
-    the rows it took from the bands above and below, its padding rows
-    (past the frame's edges) and its tile's height; ``copies`` (the
-    copies between bands: one per band, exchange and neighbour that sent
-    it rows) and ``partials`` (the row sums the pool added). ``fn`` is the same stage over the segments'
-    and the head's eager bodies.
+    returns. ``levels`` are the trunk's exchanges. ``last`` describes the
+    last call: for each exchange, for each tensor its windows read, the
+    windows (kernel, stride, padding), the tensor's height and, for each
+    band, the rows it owned, the rows it took from the bands above and
+    below, its padding rows (past the frame's edges) and its tile's
+    height; ``copies`` (the copies between bands: one per band, exchange,
+    tensor and neighbour that sent it rows) and ``partials`` (the row
+    sums the pool added). ``fn`` is the same stage over the segments' and
+    the head's eager bodies.
     """
 
     def __init__(self, trunks: Sequence[nn.Module], heads: Callable,
@@ -259,15 +481,17 @@ class SpatialStage:
         self.trunks = list(trunks)
         self.whole = whole
         programs = [_program(t) for t in self.trunks]
-        self.windows = [w for w, _ in programs[0]]
+        self.program = programs[0]
+        self.levels = self.program.levels
         self.segments = [
             [StageGraph(f'stage1 band {i} segment {j}',
-                        _Segment(w, tail, dtype, prep if j == 0 else None),
+                        _Segment(level, dtype, prep if j == 0 else None),
                         pools[i])
-             for j, (w, tail) in enumerate(program)]
+             for j, level in enumerate(program.levels)]
             for i, program in enumerate(programs)]
         self.heads = StageGraph('stage1 heads', heads, pools[0])
         self.last: dict = {}
+        self._plans: dict = {}       # (H, W) -> the band geometry
 
     @property
     def fn(self) -> 'SpatialStage':
@@ -285,6 +509,75 @@ class SpatialStage:
         return self.heads(*[s.to(first) for s in sums],
                           count=self.last['count'])
 
+    def _plan(self, H: int, W: int) -> tuple:
+        """The band geometry of an H x W frame, the same on every call:
+        for each exchange, for each band that owns rows, where its tiles'
+        rows lie, its segment's geometry and its output heights; and
+        what ``last`` reports."""
+        n = len(self.mesh)
+        T = self.program.stride
+        rows = {}
+
+        def height(s):
+            return -(-H // s)
+
+        def rows_at(s):
+            if s not in rows:
+                rows[s] = band_rows(height(s), n, T // s)
+            return rows[s]
+
+        live = [i for i, (a, b) in enumerate(rows_at(1)) if b > a]
+        strides, levels, exchanges, copies = [1], [], [], 0
+        for level in self.levels:
+            sources = sorted({e for e, _ in level.windows})
+            records = {e: dict(entry=e, height=height(strides[e]),
+                               windows=[(w.k, w.s, w.p)
+                                        for f, w in level.windows if f == e],
+                               bands=[]) for e in sources}
+            bands = []
+            for i in live:
+                gathers, starts = [], {}
+                for e in sources:
+                    h = height(strides[e])
+                    a, b = rows_at(strides[e])[i]
+                    lo, hi = a, b
+                    for f, w in level.windows:
+                        if f == e:
+                            nlo, nhi = w.needs(*rows_at(strides[e] * w.s)[i])
+                            lo, hi = min(lo, nlo), max(hi, nhi)
+                    t0 = starts[e] = max(lo, 0)
+                    pieces, above, below = _pieces(rows_at(strides[e]), t0,
+                                                   min(hi, h), i)
+                    copies += sum(j != i for j, _, _ in pieces)
+                    gathers.append((e, pieces))
+                    records[e]['bands'].append(dict(
+                        band=i, rows=(a, b), above=above, below=below,
+                        top=max(-lo, 0), bottom=max(hi - h, 0),
+                        tile=min(hi, h) - t0 + max(-lo, 0)
+                        + max(hi - h, 0)))
+                wins = []
+                for f, w in level.windows:
+                    h = height(strides[f])
+                    lo, hi = w.needs(*rows_at(strides[f] * w.s)[i])
+                    wins.append((max(lo, 0) - starts[f],
+                                 min(hi, h) - max(lo, 0), max(-lo, 0),
+                                 max(hi - h, 0)))
+                owns = []
+                for e, s in enumerate(strides):
+                    a, b = rows_at(s)[i]
+                    owns.append((a - starts[e], b - a) if e in starts
+                                else None)
+                heights = tuple(b - a for a, b in
+                                (rows_at(s)[i] for s in level.strides))
+                bands.append((i, tuple(gathers),
+                              (tuple(wins), tuple(owns)), heights))
+            levels.append(bands)
+            exchanges.append([records[e] for e in sources])
+            strides = list(level.strides)
+        last = dict(exchanges=exchanges, copies=copies, partials=len(live),
+                    count=height(T) * -(-W // T))
+        return rows_at(1), levels, last
+
     def row_sums(self, batch: torch.Tensor) -> list:
         """Band by band, the row sums (B, C) fp32 of its part of the
         trunk's feature map, each on its band's device (non-empty bands
@@ -295,41 +588,33 @@ class SpatialStage:
         if batch.device != self.mesh[0]:
             raise ValueError(f'the batch lies on {batch.device}, the mesh '
                              f'starts at {self.mesh[0]}')
-        n = len(self.mesh)
         x = batch.permute(0, 3, 1, 2)        # NCHW view (channels_last)
-        h, w = x.shape[2:]
-        unit = 1
-        for win in self.windows:
-            unit *= win.s
-        rows = band_rows(h, n, unit)
-        parts = [x.narrow(2, lo, hi - lo).to(dev) if hi > lo else None
-                 for (lo, hi), dev in zip(rows, self.mesh)]
-        carry: list = [()] * n
-        exchanges, copies = [], 0
-        for j, win in enumerate(self.windows):
-            h_out, w_out = win.out_size(h, w)
-            out_rows = band_rows(h_out, n, unit // win.s)
-            records, new_parts = [], [None] * n
-            for i, ((o0, o1), dev) in enumerate(zip(out_rows, self.mesh)):
-                if o1 <= o0:
-                    continue
-                lo, hi = win.needs(o0, o1)
-                tile, above, below, moved = _gather(
-                    parts, rows, max(lo, 0), min(hi, h), i, dev)
-                top, bottom = max(-lo, 0), max(hi - h, 0)
-                copies += moved
-                records.append(dict(band=i, rows=rows[i],
-                                    above=above, below=below, top=top,
-                                    bottom=bottom,
-                                    tile=tile.shape[2] + top + bottom))
-                out = self.segments[i][j](tile, *carry[i], top=top,
-                                          bottom=bottom)
-                new_parts[i], carry[i] = out[0], tuple(out[1:])
-            exchanges.append(dict(window=(win.k, win.s, win.p), height=h,
-                                  bands=records))
-            parts, rows, h, w, unit = new_parts, out_rows, h_out, w_out, \
-                unit // win.s
-        sums = [p for p in parts if p is not None]
-        self.last = dict(exchanges=exchanges, copies=copies,
-                         partials=len(sums), count=h * w)
-        return sums
+        H, W = x.shape[2:]
+        T = self.program.stride
+        if self.program.exact and (H % T or W % T):
+            raise ValueError(
+                f'an HRNet trunk takes frames whose sides are multiples of '
+                f'{T} (its exchange adds branches upsampled by powers of '
+                f'2); this one is {H}x{W}: resize it to such sides (e.g. '
+                f'SpecPredictor\'s min_size)')
+        if (H, W) not in self._plans:
+            self._plans[H, W] = self._plan(H, W)
+        rows, levels, last = self._plans[H, W]
+        parts = [[x.narrow(2, a, b - a).to(dev)] if b > a else None
+                 for (a, b), dev in zip(rows, self.mesh)]
+        for j, bands in enumerate(levels):
+            new_parts = [None] * len(parts)
+            for i, gathers, geometry, heights in bands:
+                dev = self.mesh[i]
+                tensors = list(parts[i])
+                for e, pieces in gathers:
+                    tensors[e] = _gather(parts, pieces, e, i, dev)
+                out = self.segments[i][j](*tensors, geometry=geometry)
+                if tuple(t.shape[2] for t in out[:len(heights)]) != heights:
+                    raise RuntimeError(
+                        f'segment {j} of band {i} gave rows '
+                        f'{[t.shape[2] for t in out]}, not {heights}')
+                new_parts[i] = list(out)
+            parts = new_parts
+        self.last = last
+        return [p[0] for p in parts if p is not None]

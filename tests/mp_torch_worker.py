@@ -25,6 +25,15 @@ holds the inputs the test wrote (``spec_init.pt``, ``spec_batch.npz``,
 
 With four ranks it runs 1, then 5 and 7 under HSDP over a (2, 2) mesh.
 
+``python tests/mp_torch_worker.py RANK WORLD PORT DIR val [DEVICE
+[OPTS...]]`` instead runs the ``spec_eval`` CLI as one of WORLD ranks on
+``DEVICE`` (default ``cpu``; its own cluster flags join the group over
+gloo at ``127.0.0.1:PORT``, so ranks may share one card;
+``SPEC_DATA_ROOT`` holds the val set, ``MP_LOGDIR`` is the log root,
+``OPTS`` follow ``VAL_OPTS``) and writes its metrics to
+``DIR/val_rank{RANK}.pt``. ``chip_smoke.py`` phase 26 runs it on the
+card.
+
 Imports torch and spec_tpu_torch only: no JAX.
 """
 
@@ -43,6 +52,28 @@ LR = 1e-5
 # trace slot is sharded too)
 FSDP_STEPS, FSDP_LR, FSDP_MOMENTUM = 2, 1e-2, 0.9
 FSDP_CLIP = 1e-3      # below the gradient norm of these steps
+
+
+# tests/test_multiprocess.py's two-process validation run
+VAL_OPTS = ['DATASET.VAL_DS', '3dpw-test-cam', 'DATASET.BATCH_SIZE', '8',
+            'DATASET.NUM_WORKERS', '1', 'DATASET.IMG_RES', '32',
+            'HMR.BACKBONE', 'resnet18', 'TESTING.USE_GT_CAM', 'True']
+
+
+def val_eval(rank, world, port, d, device='cpu', *opts):
+    """Every rank evaluates the whole val set through the CLI; rank 0
+    alone writes the artifacts, into rank 0's LOGDIR."""
+    from spec_tpu_torch import parallel as par
+    from spec_tpu_torch.cli import spec_eval
+
+    res = spec_eval.main([
+        '--device', device, '--dist_backend', 'gloo',
+        '--coordinator_address', f'127.0.0.1:{port}',
+        '--num_processes', str(world), '--process_id', str(rank),
+        '--log_root', os.environ['MP_LOGDIR'], '--opts', *VAL_OPTS, *opts])
+    torch.save({k: float(v) for k, v in res['3dpw-test-cam'].items()},
+               os.path.join(d, f'val_rank{rank}.pt'))
+    par.barrier()
 
 
 def _slice(par, path):
@@ -353,6 +384,10 @@ def main():
     torch.set_num_threads(1)
     # no TensorBoard writer (its import takes seconds; not checked here)
     sys.modules['torch.utils.tensorboard'] = None
+    if sys.argv[5:6] == ['val']:
+        val_eval(rank, world, port, d, *sys.argv[6:])
+        print(f'[rank {rank}] DONE', flush=True)
+        return
     from spec_tpu_torch import parallel as par
 
     par.initialize_multihost(f'127.0.0.1:{port}', world, rank,

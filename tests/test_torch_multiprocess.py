@@ -38,7 +38,13 @@ One module-scoped run spawns two ranks of ``tests/mp_torch_worker.py``
   a plain run and a plain checkpoint an FSDP run, bit for bit;
 * every update rule (SGD with momentum, Adam, AdamW) with weight decay,
   the clip and gradient accumulation on a small net, sharded over two
-  and four ranks against replicated.
+  and four ranks against replicated;
+* the ``spec_eval`` CLI as two ranks (the worker's ``val`` mode; the
+  reference's ``tests/test_multiprocess.py::test_two_process_validation_
+  matches_single_process`` with its data maker at 24 samples, IMG_RES 32,
+  ResNet-18): each rank evaluates the whole val set, the metrics equal
+  across ranks and equal to one process, and one LOGDIR holds the
+  artifacts, written by rank 0.
 """
 
 import os
@@ -72,6 +78,8 @@ from spec_tpu_torch.train import (
     make_spec_train_step,
 )
 from spec_tpu_torch.utils.checkpoints import state_dict_from_flax
+from tests.mp_torch_worker import VAL_OPTS
+from tests.test_cli import _make_train_data_root
 from tests.test_torch_train_data import write_train_set
 from tests.test_torch_train_step import (
     LOSS_ATOL,
@@ -184,11 +192,12 @@ def _jax_layout_steps(jmodel, variables, batch, mesh):
         'camcalib', 'resnet18')
 
 
-def _spawn_ranks(world, d, env):
+def _spawn_ranks(world, d, env, *mode):
     port = _free_port()
     worker = os.path.join(ROOT, 'tests', 'mp_torch_worker.py')
     return [subprocess.Popen(
-        [sys.executable, worker, str(r), str(world), str(port), str(d)],
+        [sys.executable, worker, str(r), str(world), str(port), str(d),
+         *mode],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(world)]
 
@@ -241,6 +250,10 @@ def run(tmp_path_factory):
                PYTHONPATH=ROOT + os.pathsep + os.environ.get('PYTHONPATH',
                                                              ''))
     procs = {world: _spawn_ranks(world, d, env) for world in (2, 4)}
+    _make_train_data_root(d / 'val_data', np.random.RandomState(42), n=24)
+    procs['val'] = _spawn_ranks(2, d, dict(
+        env, SPEC_DATA_ROOT=str(d / 'val_data'),
+        MP_LOGDIR=str(d / 'val_run')), 'val')
     logs = {}
     try:
         jlosses, jstate = _jax_mesh_steps(jmodel, variables, jassets, batch)
@@ -260,8 +273,10 @@ def run(tmp_path_factory):
         assert all(p.returncode == 0 for p in ps), '\n'.join(logs[world])
     outs = {world: [torch.load(d / f'w{world}_rank{r}.pt',
                                weights_only=False) for r in range(world)]
-            for world in procs}
+            for world in (2, 4)}
     return dict(dir=d, logs=logs[2], outs=outs[2], outs4=outs[4],
+                val_logs=logs['val'],
+                val=[torch.load(d / f'val_rank{r}.pt') for r in range(2)],
                 batch=batch, jlosses=jlosses, jstate=jstate,
                 jlayouts=jlayouts, cam_model=cam_model, cam_batch=cam_batch,
                 trainer_model=trainer_model)
@@ -510,3 +525,38 @@ def test_update_rules_sharded_match_replicated(run, world):
                                                atol=max(atol, 1e-6))
             # the two conv weights and the linear layer are sharded
             assert got['local']['acc'] != want['local']['acc']
+
+
+def test_two_process_spec_eval_matches_one_process(run, monkeypatch):
+    """Two ranks of the ``spec_eval`` CLI: the same metrics on both
+    (rtol 1e-6) and as one process of the CLI (rtol 1e-5); exactly one
+    LOGDIR under the log root holds the artifacts (the ranks agreed on
+    rank 0's): one ``val_accuracy_results_*.json`` with a history of one
+    entry and one ``evaluation_results_*.pkl``, written by rank 0."""
+    import glob
+    import json
+
+    from spec_tpu_torch.cli import spec_eval
+
+    r0, r1 = run['val']
+    assert 'val_mpjpe' in r0 and sorted(r0) == sorted(r1)
+    for k, v in r0.items():
+        np.testing.assert_allclose(r1[k], v, rtol=1e-6, err_msg=k)
+    root = str(run['dir'] / 'val_run')
+    jsons = glob.glob(os.path.join(root, '**',
+                                   'val_accuracy_results_*.json'),
+                      recursive=True)
+    pkls = glob.glob(os.path.join(root, '**', 'evaluation_results_*.pkl'),
+                     recursive=True)
+    assert len(jsons) == 1 and len(pkls) == 1, (jsons, pkls)
+    assert os.path.dirname(jsons[0]) == os.path.dirname(pkls[0])
+    with open(jsons[0]) as f:
+        assert len(json.load(f)) == 1
+
+    monkeypatch.setenv('SPEC_DATA_ROOT', str(run['dir'] / 'val_data'))
+    ref = spec_eval.main(['--device', 'cpu', '--log_root',
+                          str(run['dir'] / 'val_ref'), '--opts']
+                         + VAL_OPTS)['3dpw-test-cam']
+    assert sorted(ref) == sorted(r0)
+    for k, v in r0.items():
+        np.testing.assert_allclose(v, float(ref[k]), rtol=1e-5, err_msg=k)
