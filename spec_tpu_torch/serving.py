@@ -14,6 +14,14 @@ jitted ``_cam_forward`` and ``_spec_forward``. The resize (one call per
 frame size), the crops (one call per frame size in a chunk), the uploads
 and the fetches stay outside the graphs.
 
+While a profiler runs, a call is a tree of ``profiling.annotate`` spans:
+the root ``predict`` (``estimate_cameras``) with the children
+``predict/upload``, ``predict/detect``, ``predict/keyframes``,
+``predict/stage1_inputs``, ``predict/stage1_fetch``,
+``predict/work_list``, ``predict/stage2_inputs``,
+``predict/stage2_fetch`` and ``predict/results``, and the stages'
+``graph/stage1/...`` and ``graph/stage2/...`` spans beside them.
+
 Example:
     predictor = SpecPredictor(spec_ckpt=..., camcalib_ckpt=...,
                               device='cuda')
@@ -45,7 +53,7 @@ from spec_tpu_torch.ops.preprocess import (
     resize_min_side,
     spin_crop_corners,
 )
-from spec_tpu_torch.utils import paths
+from spec_tpu_torch.utils import paths, profiling
 from spec_tpu_torch.utils.batching import pad_pow2
 from spec_tpu_torch.utils.checkpoints import (
     hmr_state_dict,
@@ -459,34 +467,47 @@ class SpecPredictor:
             arr = arr.astype(np.float32)
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    def _upload_all(self, frames) -> List[torch.Tensor]:
+        with profiling.annotate('predict/upload') as span:
+            frames_dev = [self._upload(fr) for fr in frames]
+            if span:
+                span.count(bytes=sum(f.nbytes for f in frames_dev))
+        return frames_dev
+
     def _stage1_batches(self, frames_dev: Sequence[torch.Tensor]):
         """Resize on the device (one call per frame size and up to
         ``batch_size`` frames) and bucket by the resized size: yields
         (frame indices, the bucket's padded uint8 batch), stage 1's
         inputs."""
-        by_size = defaultdict(list)
-        for i, fr in enumerate(frames_dev):
-            by_size[tuple(fr.shape)].append(i)
-        resized: List[torch.Tensor] = [None] * len(frames_dev)
-        for same in by_size.values():
-            for s0 in range(0, len(same), self.batch_size):
-                idxs = same[s0:s0 + self.batch_size]
-                # Stage 1 sees uint8 (float frames truncate, as numpy's
-                # astype).
-                batch = resize_min_side(torch.stack(
-                    [frames_dev[i] for i in idxs]).to(torch.uint8),
-                    self.min_size)
-                for k, i in enumerate(idxs):
-                    resized[i] = batch[k]
-        buckets = defaultdict(list)
-        for i, img in enumerate(resized):
-            buckets[tuple(img.shape[:2])].append(i)
-        for idxs in buckets.values():
-            for s0 in range(0, len(idxs), self.batch_size):
-                chunk = idxs[s0:s0 + self.batch_size]
+        with profiling.annotate('predict/stage1_inputs'):
+            by_size = defaultdict(list)
+            for i, fr in enumerate(frames_dev):
+                by_size[tuple(fr.shape)].append(i)
+            resized: List[torch.Tensor] = [None] * len(frames_dev)
+            for same in by_size.values():
+                for s0 in range(0, len(same), self.batch_size):
+                    idxs = same[s0:s0 + self.batch_size]
+                    # Stage 1 sees uint8 (float frames truncate, as
+                    # numpy's astype).
+                    batch = resize_min_side(torch.stack(
+                        [frames_dev[i] for i in idxs]).to(torch.uint8),
+                        self.min_size)
+                    for k, i in enumerate(idxs):
+                        resized[i] = batch[k]
+            buckets = defaultdict(list)
+            for i, img in enumerate(resized):
+                buckets[tuple(img.shape[:2])].append(i)
+            chunks = [idxs[s0:s0 + self.batch_size]
+                      for idxs in buckets.values()
+                      for s0 in range(0, len(idxs), self.batch_size)]
+        for chunk in chunks:
+            # a span per step: none stays open across the yield
+            with profiling.annotate('predict/stage1_inputs') as span:
                 bp = self._padded(len(chunk), self._min_pad_s1)
                 pad = chunk + [chunk[-1]] * (bp - len(chunk))
-                yield chunk, torch.stack([resized[i] for i in pad])
+                batch = torch.stack([resized[i] for i in pad])
+                span.count(rows=bp, valid=len(chunk))
+            yield chunk, batch
 
     @torch.inference_mode()
     def _cameras_dispatch(self, frames_dev: Sequence[torch.Tensor]):
@@ -498,25 +519,27 @@ class SpecPredictor:
     @staticmethod
     def _cameras_fetch(pending, heights: Sequence[int]) -> List[dict]:
         out: List[Optional[dict]] = [None] * len(heights)
-        for chunk, angles in pending:
-            vfov, pitch, roll = angles.cpu().numpy()
-            for k, i in enumerate(chunk):
-                out[i] = {
-                    'vfov': float(vfov[k]),
-                    'f_pix': float(heights[i] / 2.0
-                                   / np.tan(vfov[k] / 2.0)),
-                    'pitch': float(pitch[k]),
-                    'roll': float(roll[k]),
-                }
+        with profiling.annotate('predict/stage1_fetch'):
+            for chunk, angles in pending:
+                vfov, pitch, roll = angles.cpu().numpy()
+                for k, i in enumerate(chunk):
+                    out[i] = {
+                        'vfov': float(vfov[k]),
+                        'f_pix': float(heights[i] / 2.0
+                                       / np.tan(vfov[k] / 2.0)),
+                        'pitch': float(pitch[k]),
+                        'roll': float(roll[k]),
+                    }
         return out  # type: ignore[return-value]
 
     def estimate_cameras(self, frames: Sequence[np.ndarray]) -> List[dict]:
         """CamCalib over raw RGB frames (uint8/float HWC, any sizes).
         Returns one dict per frame: {vfov, f_pix, pitch, roll} (radians;
         f_pix w.r.t. the original frame height)."""
-        frames_dev = [self._upload(fr) for fr in frames]
-        return self._cameras_fetch(self._cameras_dispatch(frames_dev),
-                                   [f.shape[0] for f in frames_dev])
+        with profiling.annotate('estimate_cameras', frames=len(frames)):
+            frames_dev = self._upload_all(frames)
+            return self._cameras_fetch(self._cameras_dispatch(frames_dev),
+                                       [f.shape[0] for f in frames_dev])
 
     def reset_camera_stream(self, stream: Optional[str] = None, *,
                             all_streams: bool = False) -> None:
@@ -561,9 +584,11 @@ class SpecPredictor:
         thr = float(self.cut_threshold or 0.0)
         sel = KeyframeSelector(self.camcalib_every, thr, start_index=st['i'],
                                prev_sig=st.get('sig'))
-        key_idx = [i for i in range(n_frames)
-                   if sel.is_keyframe(frame_signature(frames[i])
-                                      if thr > 0.0 else None)]
+        with profiling.annotate('predict/keyframes',
+                                frames=n_frames if thr > 0.0 else 0):
+            key_idx = [i for i in range(n_frames)
+                       if sel.is_keyframe(frame_signature(frames[i])
+                                          if thr > 0.0 else None)]
         update = {'sig': sel.prev_sig if thr > 0.0 else None}
         if n_frames and st['cam'] is None and (not key_idx
                                                or key_idx[0] != 0):
@@ -617,11 +642,24 @@ class SpecPredictor:
                 'predict(frames) without boxes needs an in-process '
                 "detector — construct SpecPredictor(detector='yolo', "
                 "yolo_weights=...) or pass per-frame boxes")
-        frames_dev = [self._upload(fr) for fr in frames]
+        with profiling.annotate('predict', frames=len(frames)) as span:
+            results, cameras = self._predict(frames, boxes, cameras, stream)
+            if span:
+                span.count(persons=sum(len(r) for r in results))
+        if return_cameras:
+            return results, list(cameras)
+        return results
+
+    def _predict(self, frames, boxes, cameras, stream):
+        """:meth:`predict`'s body, inside its root span: returns the
+        results and the cameras used."""
+        frames_dev = self._upload_all(frames)
         # Detection and stage 1 are independent: both are queued before
         # either is fetched, so the host's NMS overlaps stage 1.
-        pending_det = (self.detector.detect_dispatch(frames_dev)
-                       if boxes is None else None)
+        pending_det = None
+        if boxes is None:
+            with profiling.annotate('predict/detect'):
+                pending_det = self.detector.detect_dispatch(frames_dev)
         # Stream-state writes are deferred to the end of the call, so a
         # call that raises leaves its stream exactly as it was.
         stream_update = st = cam_pending = None
@@ -632,7 +670,8 @@ class SpecPredictor:
             else:
                 cam_pending = self._cameras_dispatch(frames_dev)
         if pending_det is not None:
-            boxes = self.detector.detect_fetch(pending_det)
+            with profiling.annotate('predict/detect'):
+                boxes = self.detector.detect_fetch(pending_det)
         if cam_pending is not None:
             cameras = self._cameras_fetch(cam_pending,
                                           [f.shape[0] for f in frames_dev])
@@ -642,27 +681,53 @@ class SpecPredictor:
                    for chunk, n_valid, inputs
                    in self._stage2_batches(frames_dev, boxes, cameras)]
         for chunk, n_valid, out in pending:
-            out_np = {k: v.cpu().numpy() for k, v in out.items()}
-            for bi in range(n_valid):
-                fi = chunk[bi][0]
-                person = {k: v[bi] for k, v in out_np.items()}
-                person['camera'] = cameras[fi]
-                results[fi].append(person)
+            with profiling.annotate('predict/stage2_fetch'):
+                out_np = {k: v.cpu().numpy() for k, v in out.items()}
+            with profiling.annotate('predict/results', persons=n_valid):
+                for bi in range(n_valid):
+                    fi = chunk[bi][0]
+                    person = {k: v[bi] for k, v in out_np.items()}
+                    person['camera'] = cameras[fi]
+                    results[fi].append(person)
         if stream_update is not None:
             st.update(stream_update)
-        if return_cameras:
-            return results, list(cameras)
-        return results
+        return results, cameras
 
     def _stage2_batches(self, frames_dev, boxes, cameras):
         """Flatten (frame, person) work items and cut them into chunks of
         ``batch_size``, each padded to a power of two: yields (work chunk,
         valid rows, stage 2's inputs: crops cut on the device and the
         camera and box columns uploaded)."""
+        with profiling.annotate('predict/work_list') as span:
+            work = self._work_list(frames_dev, boxes, cameras)
+            span.count(persons=len(work))
+        for s0 in range(0, len(work), self.batch_size):
+            # a span per chunk: none stays open across the yield
+            with profiling.annotate('predict/stage2_inputs') as span:
+                chunk = work[s0:s0 + self.batch_size]
+                n_valid = len(chunk)
+                bp = self._padded(n_valid)
+                span.count(rows=bp, valid=n_valid)
+                chunk = chunk + [chunk[-1]] * (bp - n_valid)
+                crops = self._crops(chunk, frames_dev)
+
+                def col(k):
+                    return torch.from_numpy(np.stack(
+                        [np.asarray(c[k], np.float32) for c in chunk])).to(
+                            self.device)
+
+                inputs = (crops, col(3), col(4), col(2), col(1), col(5),
+                          col(6))
+            yield chunk, n_valid, inputs
+
+    def _work_list(self, frames_dev, boxes, cameras) -> list:
+        """One work item per (frame, person): (frame index, center,
+        scale, rotation matrix, intrinsics, frame width and height, crop
+        corners)."""
         boxes = [np.asarray(bx, np.float32).reshape(-1, 4) for bx in boxes]
         fis = [fi for fi, bx in enumerate(boxes) if len(bx)]
         if not fis:
-            return
+            return []
         # The cameras of every frame with persons, in one batch.
         hw = [tuple(frames_dev[fi].shape[:2]) for fi in fis]
         rotmats = G.euler_to_rotmat(torch.tensor(
@@ -681,21 +746,7 @@ class SpecPredictor:
             for pi in range(len(centers)):
                 work.append((fi, centers[pi], scales[pi], rotmats[k], Ks[k],
                              w, h, corners[pi]))
-
-        for s0 in range(0, len(work), self.batch_size):
-            chunk = work[s0:s0 + self.batch_size]
-            n_valid = len(chunk)
-            bp = self._padded(n_valid)
-            chunk = chunk + [chunk[-1]] * (bp - n_valid)
-            crops = self._crops(chunk, frames_dev)
-
-            def col(k):
-                return torch.from_numpy(np.stack(
-                    [np.asarray(c[k], np.float32) for c in chunk])).to(
-                        self.device)
-
-            yield chunk, n_valid, (crops, col(3), col(4), col(2), col(1),
-                                   col(5), col(6))
+        return work
 
     def _crops(self, chunk, frames_dev) -> torch.Tensor:
         """SPIN crops of one chunk, on the device, normalized (B, res,

@@ -415,7 +415,7 @@ class SpecTrainer:
                       'trained batches (mid-epoch resume)')
             t0 = time.time()
             n_img = 0
-            timer = StepTimer()
+            timer = StepTimer(prefix='train/')
             batch_iter = iter(loader)
             while True:
                 with timer('load'):

@@ -37,6 +37,12 @@ and device of each tensor argument, the key jit compiles on) as a
 * **Launch counters.** The kernel wrappers count launches in Python,
   which a replay skips. The counts a capture made are taken back (the
   capture ran nothing) and added again on every replay.
+* **Spans.** Each call is a ``profiling.annotate`` span,
+  ``graph/<name>/replay``, ``graph/<name>/capture`` or
+  ``graph/<name>/eager`` (arguments on the CPU), over the copy into the
+  static inputs, the replay (or the warm-up and capture) and the clone
+  of the outputs, with the count ``rows`` (the first argument's leading
+  size). Spans are recorded only while a profiler runs.
 * **Memory.** A graph pins its memory pool, so each stage keeps at most
   ``MAX_GRAPHS`` signatures (least recently used evicted and freed).
   The stages of one model share a pool (``pool``), which is safe here
@@ -149,30 +155,39 @@ class StageGraph:
             profiling.check_finite(f'stage {self.name!r}', out)
         return out
 
+    def _span(self, kind: str, args):
+        span = profiling.annotate(f'graph/{self.name}/{kind}')
+        if span and args and args[0].dim():
+            span.count(rows=int(args[0].shape[0]))
+        return span
+
     def _call(self, *args, **fixed):
         if not all(isinstance(a, torch.Tensor) for a in args):
             raise TypeError(f'stage {self.name!r} takes tensors only')
         if not any(a.is_cuda for a in args):
-            return self.fn(*args, **fixed)
+            with self._span('eager', args):
+                return self.fn(*args, **fixed)
         key = tuple((tuple(a.shape), a.dtype, str(a.device)) for a in args)
         key += tuple((k, id(v) if isinstance(v, torch.Generator) else v)
                      for k, v in sorted(fixed.items()))
         with torch.cuda.device(args[0].device):
             entry = self._graphs.get(key)
             if entry is None:
-                entry, out = self._capture(key, args, fixed)
+                with self._span('capture', args):
+                    entry, out = self._capture(key, args, fixed)
                 self._graphs[key] = entry
                 while len(self._graphs) > MAX_GRAPHS:
                     _, old = self._graphs.popitem(last=False)
                     old.graph.reset()
                 return out
             self._graphs.move_to_end(key)
-            for static, a in zip(entry.inputs, args):
-                static.copy_(a)
-            entry.graph.replay()
-            for mod, n in entry.launches:
-                mod.LAUNCHES += n
-            return entry.rebuild([t.clone() for t in entry.outputs])
+            with self._span('replay', args):
+                for static, a in zip(entry.inputs, args):
+                    static.copy_(a)
+                entry.graph.replay()
+                for mod, n in entry.launches:
+                    mod.LAUNCHES += n
+                return entry.rebuild([t.clone() for t in entry.outputs])
 
     def _capture(self, key, args, fixed) -> tuple:
         """Run on a side stream, then capture on static copies of

@@ -1,12 +1,14 @@
 """Tracing, profiling and debugging (port of
 ``spec_tpu/utils/profiling.py``):
 
-* :class:`StepTimer`: named wall-clock stages with running means;
+* :class:`StepTimer`: named wall-clock stages with running means, each
+  stage also a span;
 * :func:`trace`: a ``torch.profiler`` session (CPU and CUDA activities)
   writing a Chrome/TensorBoard trace under a directory (the counterpart
   of ``jax.profiler.trace``);
-* :func:`annotate`: a named region in that trace, and an NVTX range on
-  CUDA (``TraceAnnotation``);
+* :func:`annotate`: the port's span. While a profiler runs it is a named
+  region in that trace, an NVTX range on CUDA (``TraceAnnotation``) and
+  a record in memory (:func:`spans`); otherwise it costs one flag check;
 * :func:`nan_guard`: raise on a NaN or infinity produced on the device
   (``jax_debug_nans``);
 * :func:`set_seed` and :func:`check_batch_gradient`.
@@ -16,9 +18,12 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
+import itertools
 import os
+import threading
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -32,17 +37,22 @@ class StepTimer:
         with timer('load'):
             batch = next(loader)
         print(timer.report())
+
+    Each stage is also an :func:`annotate` span named ``prefix + name``
+    (the trainer's: ``train/load``, ``train/h2d``, ...).
     """
 
-    def __init__(self, window: int = 100):
+    def __init__(self, window: int = 100, prefix: str = ''):
         self.window = window
+        self.prefix = prefix
         self._samples: Dict[str, collections.deque] = {}
 
     @contextlib.contextmanager
     def __call__(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with annotate(self.prefix + name):
+                yield
         finally:
             dq = self._samples.setdefault(
                 name, collections.deque(maxlen=self.window))
@@ -91,19 +101,130 @@ def trace(logdir: str):
         yield prof
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named region: a ``record_function`` range in :func:`trace`'s
-    trace and, on CUDA, an NVTX range (for Nsight)."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
+# Spans kept in memory, oldest dropped first.
+MAX_SPANS = 100_000
+_SPANS: collections.deque = collections.deque(maxlen=MAX_SPANS)
+_IDS = itertools.count(1)
+_OPEN = threading.local()          # this thread's stack of open spans
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+@dataclasses.dataclass
+class Span:
+    """One recorded span: ``id``, its ``parent``'s id (None for a root),
+    the ``call`` id its root opened (shared by every span under that
+    root), start and end on ``time.perf_counter_ns``, and the counts."""
+    name: str
+    id: int
+    parent: Optional[int]
+    call: int
+    start_ns: int
+    end_ns: int
+    counts: dict
+
+
+class _Recording:
+    """An open span while a profiler runs: a range in the profiler's
+    trace, an NVTX range on CUDA, and a :class:`Span` appended to
+    :func:`spans` on exit. True, so a count that costs work is computed
+    only under ``if span:``.
+
+    The range is a function-scope ``RecordFunction``
+    (``_RecordFunctionFast``), a host event as an operator's is. A
+    ``torch.profiler.record_function`` range is of user scope, which the
+    profiler mirrors onto the device's timeline as an annotation over
+    the kernels launched inside it: a trace's reader would take those
+    for device work."""
+
+    __slots__ = ('name', 'counts', 'id', 'parent', 'call', 'start_ns',
+                 '_range', '_nvtx')
+
+    def __init__(self, name: str, counts: dict):
+        self.name = name
+        self.counts = counts
+
+    def count(self, **counts) -> None:
+        """Set counts of this span (known only inside it)."""
+        self.counts.update(counts)
+
+    def __enter__(self):
+        stack = getattr(_OPEN, 'stack', None)
+        if stack is None:
+            stack = _OPEN.stack = []
+        self.id = next(_IDS)
+        if stack:
+            self.parent, self.call = stack[-1].id, stack[-1].call
+        else:
+            self.parent, self.call = None, self.id
+        self._range = torch._C._profiler._RecordFunctionFast(self.name)
+        self._range.__enter__()
+        self._nvtx = torch.cuda.is_available()
+        if self._nvtx:
+            torch.cuda.nvtx.range_push(self.name)
+        stack.append(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        _OPEN.stack.pop()
+        if self._nvtx:
             torch.cuda.nvtx.range_pop()
+        try:
+            self._range.__exit__(*exc)
+        finally:
+            _SPANS.append(Span(self.name, self.id, self.parent, self.call,
+                               self.start_ns, end, self.counts))
+        return False
+
+
+class _Off:
+    """The span while no profiler runs: records nothing. False, so that
+    ``if span:`` skips the work of a count."""
+
+    __slots__ = ()
+
+    def count(self, **counts) -> None:
+        pass
+
+    def __bool__(self) -> bool:
+        return False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+def annotate(name: str, **counts):
+    """A span named ``name`` over a ``with`` block, with integer counts
+    (``rows=...``; more with ``span.count(...)`` inside the block).
+
+    While a ``torch.profiler`` session runs (:func:`trace`, or any
+    ``torch.profiler.profile``), the span is a named host range in its
+    trace (beside the device's kernels, on its clock), an NVTX range on
+    CUDA, and a :class:`Span` in :func:`spans`: a span opened
+    inside another is its child and shares its root's call id. With no
+    profiler running it does nothing past one flag check. A span must
+    not stay open across a ``yield``, and none goes inside a captured
+    stage body (a graph replay skips the body's Python)."""
+    if not _profiler_enabled():
+        return _OFF
+    return _Recording(name, counts)
+
+
+def spans() -> list:
+    """The recorded spans, in the order they closed (children before
+    their parent), the last :data:`MAX_SPANS` at most."""
+    return list(_SPANS)
+
+
+def clear_spans() -> None:
+    _SPANS.clear()
 
 
 # Set by :func:`nan_guard`; read by ``utils/graphs.StageGraph`` and
