@@ -72,12 +72,15 @@ EPHEMERAL_PREFIX = '\x00'
 def frame_signature(frame: np.ndarray, bins: int = 32,
                     max_side: int = 64) -> np.ndarray:
     """Cheap per-frame signature for shot-cut detection: a normalized
-    gray histogram of a strided ~``max_side``-px downsample."""
+    gray histogram of a strided ~``max_side``-px downsample. Reads only
+    the strided pixels, O(``max_side``^2) whatever the frame's size, and
+    takes the channel mean of those alone: the same values as the full
+    frame's mean strided afterwards."""
     a = np.asarray(frame)
-    if a.ndim == 3:
-        a = a.mean(axis=2)
     step = max(1, -(-max(a.shape[:2]) // max_side))
     a = a[::step, ::step]
+    if a.ndim == 3:
+        a = a.mean(axis=2)
     hist, _ = np.histogram(a, bins=bins, range=(0.0, 256.0))
     return hist.astype(np.float32) / max(int(hist.sum()), 1)
 

@@ -192,6 +192,54 @@ def test_camcalib_every_stream_matches_jax(predictors):
             pred.camcalib_every = 1
 
 
+# id -> (shape, dtype, channels reversed, frame_signature kwargs)
+SIGNATURE_CASES = {
+    **{f'{h}x{w}-{np.dtype(d).name}': ((h, w, 3), d, False, {})
+       for h, w in ((720, 1280), (1080, 1920), (481, 641), (7, 10))
+       for d in (np.uint8, np.float32)},
+    'gray-481x641': ((481, 641), np.uint8, False, {}),
+    'rgba-100x200': ((100, 200, 4), np.uint8, False, {}),
+    'bgr-view': ((481, 641, 3), np.uint8, True, {}),
+    'bins20-side50': ((481, 641, 3), np.uint8, False,
+                      dict(bins=20, max_side=50)),
+}
+
+
+@pytest.mark.parametrize('case', list(SIGNATURE_CASES))
+def test_frame_signature_matches_jax(case):
+    """The port's signature strides before its channel mean; the
+    reference's takes the mean of the whole frame first. Every kind of
+    frame gets the same bits from both."""
+    from spec_tpu import serving as JServing
+    from spec_tpu_torch import serving as TServing
+
+    shape, dtype, reverse, kwargs = SIGNATURE_CASES[case]
+    rng = np.random.default_rng(list(SIGNATURE_CASES).index(case))
+    f = rng.uniform(0.0, 256.0, shape).astype(dtype)
+    if reverse:
+        f = f[..., ::-1]
+    port = TServing.frame_signature(f, **kwargs)
+    assert np.array_equal(port, JServing.frame_signature(f, **kwargs))
+    assert port.dtype == np.float32
+
+
+def test_frame_signature_reads_no_full_frame():
+    """Signing a 1080p frame allocates about the strided pixels alone
+    (~0.13 MB), not the full frame's float64 channel mean (~16.7 MB)."""
+    import tracemalloc
+
+    from spec_tpu_torch.serving import frame_signature
+
+    f = np.random.default_rng(0).integers(0, 256, (1080, 1920, 3), np.uint8)
+    tracemalloc.start()
+    try:
+        frame_signature(f)
+        _, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    assert peak < 1_000_000, peak
+
+
 @pytest.mark.parametrize('kwargs', [
     dict(spatial_parallel=True, batch_size=3),
     dict(spatial_parallel=True),
