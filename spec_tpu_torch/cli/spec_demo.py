@@ -61,9 +61,10 @@ _MODEL_CACHE: dict = {}
 _IMAGE_CACHE_MAX = 32
 
 def _get_spec_model(smpl_model_dir: str, cfg_file: str, spec_ckpt: str,
-                    img_res: int, device='cuda'):
+                    img_res: Optional[int], device='cuda'):
     """-> (SMPL assets with the fused-LBS operands, HMR, its stage graph),
-    all on ``device``; cached per argument set."""
+    all on ``device``; cached per argument set. ``img_res`` None is the
+    trunk's crop side (the model's ``img_res``)."""
     from spec_tpu_torch.core import smpl as S
 
     device = torch.device(device)
@@ -169,7 +170,7 @@ def run_spec_on_folder(
     camcalib_ckpt: str = '',
     bbox_file: str = '',
     batch_size: int = 32,
-    img_res: int = 224,
+    img_res: Optional[int] = None,
     save_results: bool = True,
     render: bool = True,
     smpl_model_dir: str = '',
@@ -228,8 +229,9 @@ def run_spec_on_folder(
         print('[spec] no --bbox_file given; using full-frame boxes')
         dets = full_image_bboxes(shapes)
 
-    assets, _, stage = _get_spec_model(smpl_model_dir, cfg_file, spec_ckpt,
-                                       img_res, device)
+    assets, model, stage = _get_spec_model(smpl_model_dir, cfg_file,
+                                           spec_ckpt, img_res, device)
+    img_res = model.img_res
     dev = assets.device
     t_start = time.perf_counter()
 
@@ -327,11 +329,11 @@ def _smooth_video_tracks(output_folder, vid_file, names, per_frame, ids,
     res_out = os.path.join(output_folder, 'spec_results')
     cam_out = os.path.join(output_folder, 'camcalib')
     h, w = frame_hw
-    img_res = folder_kwargs.get('img_res', 224)
-    assets, _, _ = _get_spec_model(
+    assets, model, _ = _get_spec_model(
         folder_kwargs.get('smpl_model_dir', ''),
         folder_kwargs.get('cfg_file', ''), folder_kwargs.get('spec_ckpt', ''),
-        img_res, folder_kwargs.get('device', 'cuda'))
+        folder_kwargs.get('img_res'), folder_kwargs.get('device', 'cuda'))
+    img_res = model.img_res
     dev = assets.device
     faces = assets.faces.cpu().numpy()
 
@@ -590,7 +592,7 @@ def run_spec_webcam(
     yolo_weights: str = '',
     yolo_img_size: int = 416,
     min_size: int = 600,
-    img_res: int = 224,
+    img_res: Optional[int] = None,
     max_frames: int = 0,
     display: bool = False,
     save_results: bool = True,

@@ -46,7 +46,7 @@ from spec_tpu_torch.core import geometry as G
 from spec_tpu_torch.core import smpl as S
 from spec_tpu_torch.data.detection import bbox_to_center_scale
 from spec_tpu_torch.models.camcalib import CameraRegressorNetwork
-from spec_tpu_torch.models.hmr import HMR
+from spec_tpu_torch.models.hmr import HMR, default_img_res
 from spec_tpu_torch.ops.preprocess import (
     crop_resize_normalize,
     normalize_u8,
@@ -221,19 +221,24 @@ def build_camcalib(ckpt: str, backbone: str, device, dtype=None,
 
 def build_hmr(ckpt: str, device, cfg_file: str = '',
               backbone: str = 'resnet50', use_cam_feats: bool = False,
-              img_res: int = 224, dtype=None, seed: int = 1,
-              tag: str = 'serving', remat: bool = False):
+              img_res: Optional[int] = None, dtype=None, seed: int = 1,
+              tag: str = 'serving', remat: bool = False,
+              head: str = 'hmr'):
     """Stage 2's HMR (camera-aware) with ``ckpt``'s weights (a reference
     torch file, or a trainer checkpoint directory: its latest step), or,
     when it is missing, a random init from ``seed`` with a warning; on
     ``device``, in eval mode. ``cfg_file`` (a SPEC config yaml) sets
-    ``backbone`` and ``use_cam_feats`` as in the reference; ``remat``
+    ``backbone``, ``use_cam_feats`` and ``head`` (``HMR.HEAD``) as in the
+    reference; ``img_res`` None is the trunk's own
+    (``models.hmr.default_img_res``: 256 for ``vit_h``, else 224), and
+    the model's ``img_res`` tells callers the crop side; ``remat``
     checkpoints the backbone's blocks (training)."""
     if cfg_file:
         from spec_tpu_torch.utils.config import hmr_hparams_from_cfg
-        backbone, use_cam_feats = hmr_hparams_from_cfg(cfg_file)
+        backbone, use_cam_feats, head = hmr_hparams_from_cfg(cfg_file)
     model = HMR(backbone=backbone, use_cam=True, use_cam_feats=use_cam_feats,
-                img_res=img_res, dtype=dtype or torch.float32, remat=remat)
+                img_res=img_res or default_img_res(backbone),
+                dtype=dtype or torch.float32, remat=remat, head=head)
     if os.path.isdir(ckpt):
         model.load_state_dict(load_checkpoint_variables(ckpt))
     elif os.path.exists(ckpt):
@@ -260,7 +265,11 @@ class SpecPredictor:
     crops are cut on the device from the frame already uploaded. Missing
     checkpoints give a random init from fixed seeds, with a warning
     (smoke tests only). ``cfg_file`` (a SPEC config yaml) sets
-    ``backbone`` and ``use_cam_feats`` as in the reference.
+    ``backbone``, ``use_cam_feats`` and ``head`` as in the reference.
+    ``head``: SPIN's regressor (``hmr``) or HMR 2.0's transformer
+    decoder (``transformer_decoder``, with ``backbone='vit_h'``: HMR
+    2.0 as stage 2); ``img_res`` None is the trunk's crop side (256 for
+    ``vit_h``, else 224).
     ``detector='yolo'`` builds a :class:`~spec_tpu_torch.models.detector.
     YoloDetector` (bf16, batches of 8, its graphs in the stages' pool;
     random init without ``yolo_weights``, with a warning) that
@@ -316,7 +325,7 @@ class SpecPredictor:
         use_cam_feats: bool = False,
         camcalib_backbone: str = 'resnet50',
         loss_type: str = 'softargmax_biased_l2',
-        img_res: int = 224,
+        img_res: Optional[int] = None,
         batch_size: int = 32,
         min_size: int = 600,
         dtype: Optional[torch.dtype] = None,
@@ -330,6 +339,7 @@ class SpecPredictor:
         camcalib_every: int = 1,
         cut_threshold: float = 0.5,
         device: str | torch.device = 'cuda',
+        head: str = 'hmr',
     ):
         if detector not in ('', 'yolo'):
             raise ValueError(f'unknown detector {detector!r}; '
@@ -364,7 +374,6 @@ class SpecPredictor:
             # spatial_parallel stage 1 splits rows, not frames
             self._min_pad = n_dev
             self._min_pad_s1 = 1 if spatial_parallel else n_dev
-        self.img_res = img_res
         self.batch_size = batch_size
         self.min_size = min_size
         self.loss_type = loss_type
@@ -379,7 +388,9 @@ class SpecPredictor:
             camcalib_backbone, self.device, dtype, seed=0)
         self.spec = build_hmr(
             spec_ckpt or paths.spec_checkpoint_path(), self.device,
-            cfg_file, backbone, use_cam_feats, img_res, dtype, seed=1)
+            cfg_file, backbone, use_cam_feats, img_res, dtype, seed=1,
+            head=head)
+        self.img_res = self.spec.img_res
 
         # One graph memory pool for both stages (none on the CPU).
         pool = (torch.cuda.graph_pool_handle()

@@ -194,6 +194,9 @@ def spec_default_config() -> CfgNode:
         },
         'HMR': {
             'BACKBONE': 'resnet50',
+            # hmr (SPIN's regressor) or transformer_decoder (HMR 2.0's,
+            # with BACKBONE vit_h)
+            'HEAD': 'hmr',
             'DTYPE': 'float32',
             'USE_CAM_FEATS': False,
             'SHAPE_LOSS_WEIGHT': 0.0,
@@ -410,8 +413,8 @@ def run_grid_search_experiments(
 
 
 def hmr_hparams_from_cfg(cfg_file: str) -> tuple:
-    """(backbone, use_cam_feats) from a SPEC config yaml: the model
+    """(backbone, use_cam_feats, head) from a SPEC config yaml: the model
     hyperparameters shipped next to a checkpoint."""
     cfg = spec_default_config()
     cfg.merge_from_file(cfg_file)
-    return cfg.HMR.BACKBONE, bool(cfg.HMR.USE_CAM_FEATS)
+    return cfg.HMR.BACKBONE, bool(cfg.HMR.USE_CAM_FEATS), cfg.HMR.HEAD

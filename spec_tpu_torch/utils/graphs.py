@@ -34,15 +34,18 @@ and device of each tensor argument, the key jit compiles on) as a
   replay the graph and clone the outputs out: the next replay of the
   same graph, or of another graph in the same memory pool, overwrites
   the static outputs.
-* **Launch counters.** The kernel wrappers count launches in Python,
-  which a replay skips. The counts a capture made are taken back (the
-  capture ran nothing) and added again on every replay.
+* **Launch counters.** The kernel wrappers and ``ops.attention`` count
+  launches in Python, which a replay skips. The counts a capture made
+  are taken back (the capture ran nothing) and added again on every
+  replay.
 * **Spans.** Each call is a ``profiling.annotate`` span,
   ``graph/<name>/replay``, ``graph/<name>/capture`` or
   ``graph/<name>/eager`` (arguments on the CPU), over the copy into the
   static inputs, the replay (or the warm-up and capture) and the clone
   of the outputs, with the count ``rows`` (the first argument's leading
-  size). Spans are recorded only while a profiler runs.
+  size); a replay span also counts the launches it adds back, per
+  module (``launches_lbs``, ``launches_attention``, ...). Spans are
+  recorded only while a profiler runs.
 * **Memory.** A graph pins its memory pool, so each stage keeps at most
   ``MAX_GRAPHS`` signatures (least recently used evicted and freed).
   The stages of one model share a pool (``pool``), which is safe here
@@ -97,9 +100,23 @@ def device_constant(values, device, dtype=torch.float32) -> torch.Tensor:
 
 
 def _launch_modules():
-    from spec_tpu_torch.ops import bottleneck, lbs, projection
+    from spec_tpu_torch.ops import attention, bottleneck, lbs, projection
 
-    return (bottleneck, lbs, projection)
+    return (attention, bottleneck, lbs, projection)
+
+
+def _counted(fn, *args, **kwargs):
+    """``fn``'s result and the launches it counted, per module (those
+    that counted any), with every counter put back as it was."""
+    mods = _launch_modules()
+    before = [m.LAUNCHES for m in mods]
+    try:
+        return fn(*args, **kwargs), [
+            (m, m.LAUNCHES - b) for m, b in zip(mods, before)
+            if m.LAUNCHES != b]
+    finally:
+        for m, b in zip(mods, before):
+            m.LAUNCHES = b
 
 
 def _flatten(out):
@@ -181,13 +198,21 @@ class StageGraph:
                     old.graph.reset()
                 return out
             self._graphs.move_to_end(key)
-            with self._span('replay', args):
-                for static, a in zip(entry.inputs, args):
-                    static.copy_(a)
-                entry.graph.replay()
-                for mod, n in entry.launches:
-                    mod.LAUNCHES += n
-                return entry.rebuild([t.clone() for t in entry.outputs])
+            return self._replay(entry, args)
+
+    def _replay(self, entry: _Captured, args):
+        """One replay of ``entry`` on ``args``: its launches added back to
+        the counters and counted on its span."""
+        with self._span('replay', args) as span:
+            for static, a in zip(entry.inputs, args):
+                static.copy_(a)
+            entry.graph.replay()
+            for mod, n in entry.launches:
+                mod.LAUNCHES += n
+            if span:
+                span.count(**{'launches_' + mod.__name__.rsplit('.', 1)[-1]:
+                              n for mod, n in entry.launches})
+            return entry.rebuild([t.clone() for t in entry.outputs])
 
     def _capture(self, key, args, fixed) -> tuple:
         """Run on a side stream, then capture on static copies of
@@ -207,26 +232,23 @@ class StageGraph:
         # cloned, as a replay's are: an output may alias a static input
         out = rebuild([t.clone() for t in leaves])
 
-        mods = _launch_modules()
-        before = [m.LAUNCHES for m in mods]
         generators = [g for g in fixed.values()
                       if isinstance(g, torch.Generator)]
         graph = torch.cuda.CUDAGraph()
-        try:
+
+        def capture():
             for g in generators:
                 graph.register_generator_state(g)
             with torch.cuda.graph(graph, pool=self.pool):
-                outputs, rebuild = _flatten(self.fn(*inputs, **fixed))
+                return _flatten(self.fn(*inputs, **fixed))
+
+        try:
+            (outputs, rebuild), launches = _counted(capture)
         except Exception as e:
             raise RuntimeError(
                 f'CUDA graph capture of stage {self.name!r} failed for '
                 f'signature {_describe(key)}: {e}') from e
-        finally:
-            counted = [m.LAUNCHES - b for m, b in zip(mods, before)]
-            for m, b in zip(mods, before):
-                m.LAUNCHES = b
-        return _Captured(graph, inputs, outputs, rebuild,
-                         [(m, n) for m, n in zip(mods, counted) if n],
+        return _Captured(graph, inputs, outputs, rebuild, launches,
                          generators), out
 
 

@@ -243,7 +243,9 @@ def test_hmr_hparams_from_cfg_matches(cfg):
     from spec_tpu_torch.utils.config import hmr_hparams_from_cfg as port
 
     path = os.path.join(ROOT, cfg)
-    assert port(path) == ref(path)
+    # the reference's (backbone, use_cam_feats), then the port's HMR.HEAD
+    # (no shipped yaml names one: SPIN's regressor, the default)
+    assert port(path) == (*ref(path), 'hmr')
 
 
 def test_cfg_node_matches(tmp_path):
@@ -255,7 +257,7 @@ def test_cfg_node_matches(tmp_path):
     path = tmp_path / 'spec.yaml'
     path.write_text('HMR:\n  BACKBONE: resnet18\n  USE_CAM_FEATS: true\n'
                     'DATASET:\n  BATCH_SIZE: 8\n')
-    assert TC.hmr_hparams_from_cfg(str(path)) == ('resnet18', True)
+    assert TC.hmr_hparams_from_cfg(str(path)) == ('resnet18', True, 'hmr')
     port = TC.spec_default_config()
     port.merge_from_file(str(path))
     ref = JNode.from_dict(TC.spec_default_config().to_dict())
