@@ -50,7 +50,10 @@ printing its own results; any failure raises and exits nonzero:
    card-vs-CPU limits of phase 8): ``predict`` in fp32 and bf16 at phase
    4's input, the camcalib_every=3 stream, calls of 40 and 64 persons
    (stage-2 chunks 32 + 8 and 32 + 32, the latter one graph replayed
-   twice in a call) and both pipelines in both dtypes; per call, the
+   twice in a call) and both pipelines in both dtypes; the predict
+   calls' outputs (both stages on their folded ResNet-50 trunks) also
+   against the eager stage bodies on the backbones they fold, within the
+   same limits (fp32; bf16 stages keep their backbones); per call, the
    device operations, the host's launch calls, the wall ms and the
    profiler's count of ``lbs_kernel`` and ``bottleneck_tc_kernel``
    launches; then ``python -m spec_tpu_torch.bench`` once per mode
@@ -1467,13 +1470,34 @@ def _hold_predict(label, got, want, tag):
                            f'stages in {bad or "cameras"}')
 
 
+def _hold_module_trunks(label, pred, frames, boxes, got, tag):
+    """``got``, from ``pred`` with both stages on their folded ResNet-50
+    trunks, against the eager stage bodies on the backbones they fold,
+    on the same frames, within PREDICT_LIMITS."""
+    stages = pred._stage1.fn, pred._stage2.fn
+    trunks = [s.trunk for s in stages]
+    if None in trunks:
+        raise RuntimeError(f'{label}: a stage has no folded trunk')
+    for s in stages:
+        s.trunk = None
+    try:
+        with _eager(pred):
+            want = pred.predict(frames, boxes, return_cameras=True)
+    finally:
+        for s, t in zip(stages, trunks):
+            s.trunk = t
+    _hold_predict(f'{label} folded vs module trunks', got, want, tag)
+
+
 def _graph_call(label, fn, lbs, k3):
     """Wall ms (median of 5) and the profile of one graph call; raises
     unless the profiler saw ``lbs`` K1 and ``k3`` K3 launches per call."""
     wall = _wall_ms(fn, 5)
     print(f'[graphs {label}] {wall:.3f} ms per call (median of 5)')
     prof = _device_profile(f'graphs {label}', fn, wall, 3)
-    if (prof['lbs_kernel'], prof['bottleneck_tc_kernel']) != (lbs, k3):
+    # per-call counts are sums of 1/3 per event over three calls
+    if (round(prof['lbs_kernel']),
+            round(prof['bottleneck_tc_kernel'])) != (lbs, k3):
         raise RuntimeError(f'{label}: the profiler saw '
                            f'{prof["lbs_kernel"]:g} lbs_kernel and '
                            f'{prof["bottleneck_tc_kernel"]:g} '
@@ -1498,6 +1522,11 @@ def phase_graphs():
         with _eager(pred):
             want = pred.predict(frames, boxes, return_cameras=True)
         _hold_predict(f'predict {tag}', got, want, tag)
+        if tag == 'fp32':
+            _hold_module_trunks(f'predict {tag}', pred, frames, boxes, got,
+                                tag)
+        elif (pred._stage1.fn.trunk, pred._stage2.fn.trunk) != (None, None):
+            raise RuntimeError('predict bf16: a stage folded its trunk')
         _graph_call(f'predict {tag}', lambda: pred.predict(frames, boxes),
                     lbs=1, k3=0)
         if tag == 'fp32':
@@ -1517,8 +1546,10 @@ def phase_graphs():
                 with _eager(pred):
                     want = pred.predict(cf, cb, return_cameras=True)
                 n = 4 * n_frames
-                _hold_predict(f'predict fp32 {n} persons (stage-2 chunks '
-                              f'32 + {n - 32})', got, want, tag)
+                label = (f'predict fp32 {n} persons (stage-2 chunks 32 '
+                         f'+ {n - 32})')
+                _hold_predict(label, got, want, tag)
+                _hold_module_trunks(label, pred, cf, cb, got, tag)
             padded = sorted(key[0][0][0] for key in pred._stage2.signatures())
             print(f'[graphs predict fp32] stage-2 graphs captured for '
                   f'padded batches {padded}')

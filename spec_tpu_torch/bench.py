@@ -401,9 +401,13 @@ def pipeline_bench(args, device) -> dict:
 def _predictor(args, device, camcalib_every=1, detector=''):
     from spec_tpu_torch.serving import SpecPredictor
 
-    return SpecPredictor(batch_size=32, min_size=args.min_size,
-                         dtype=_dtype(args), camcalib_every=camcalib_every,
-                         detector=detector, device=device)
+    # Built outside inference mode: a stage folds its ResNet trunk only
+    # from tensors that keep version counters.
+    with torch.inference_mode(False):
+        return SpecPredictor(batch_size=32, min_size=args.min_size,
+                             dtype=_dtype(args),
+                             camcalib_every=camcalib_every,
+                             detector=detector, device=device)
 
 
 def _serving_inputs(args):

@@ -38,7 +38,13 @@ SMPL's vertices are the op ``spec_tpu_torch::fused_lbs``
 (``ops/lbs.py``): one node of the program with a plain implementation on
 the CPU and K1 on a card. An artifact exported on a CPU therefore runs
 the plain version on a CPU and **K1** on a card, the counterpart of the
-JAX artifact's portability over ``platforms=('cpu', 'tpu')``. On a card
+JAX artifact's portability over ``platforms=('cpu', 'tpu')``. A stage
+whose trunk is a Bottleneck ResNet is traced through its folded trunk
+(``models/backbones/fused_resnet.py``), the convolutions the live stage
+runs with the folded weights (bias, sum and ReLU as separate nodes,
+where the live fp32 stage fuses them into its cuDNN calls on a card).
+The stage is traced through ``exported()``, a copy without the source
+backbone, so the program stores the folded weights alone. On a card
 each loaded stage replays a CUDA graph per input signature
 (``utils/graphs.StageGraph``), as the live predictor's stages do; every
 call runs with TF32 off (the fp32 predictor's precision; bf16 casts are
@@ -102,7 +108,7 @@ def export_predictor(pred, path: str,
     h = max(int(pred.min_size), 33)
     frames = torch.zeros((2, h, h * 4 // 3, 3), dtype=torch.uint8,
                          device=dev)
-    cam, cam_ranges = _program_bytes(pred._stage1.fn, (frames,),
+    cam, cam_ranges = _program_bytes(pred._stage1.fn.exported(), (frames,),
                                      ({0: b, 1: Dim.AUTO, 2: Dim.AUTO},))
 
     res = pred.img_res
@@ -113,7 +119,8 @@ def export_predictor(pred, path: str,
     eye = torch.eye(3, device=dev).expand(2, 3, 3).contiguous()
     spec_args = (f4(res, res, 3), eye, eye.clone(), f4(), f4(2), f4(),
                  f4())
-    spec, spec_ranges = _program_bytes(pred._stage2.fn, spec_args,
+    spec, spec_ranges = _program_bytes(pred._stage2.fn.exported(),
+                                       spec_args,
                                        tuple({0: b} for _ in spec_args))
 
     meta = {

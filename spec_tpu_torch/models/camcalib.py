@@ -42,12 +42,14 @@ class CameraRegressorNetwork(nn.Module):
                     for i in range(num_fc_layers)])
             self.add_module(name, head)
 
-    def forward(self, images: torch.Tensor):
+    def forward(self, images: torch.Tensor, trunk=None):
         """images (B, H, W, 3) ImageNet-normalized, NHWC like the JAX
-        module -> (vfov, pitch, roll) logits, each (B, 256) float32."""
+        module -> (vfov, pitch, roll) logits, each (B, 256) float32.
+        ``trunk``: a callable run in place of ``backbone`` (the same
+        contract; the predictor's folded trunk), or None."""
         x = images.permute(0, 3, 1, 2)     # NCHW view (channels_last)
         with compute_dtype(self.dtype, images.device.type):
-            feats = self.backbone(x)
+            feats = (trunk or self.backbone)(x)
             pooled = feats.mean(dim=(2, 3))
             return tuple(getattr(self, n)(pooled).float() for n in HEADS)
 

@@ -87,18 +87,21 @@ class HMR(nn.Module):
         img_w: Optional[torch.Tensor] = None,
         img_h: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        trunk=None,
     ) -> dict:
         """images (B, res, res, 3) normalized NHWC person crops; the
         camera arguments are needed with ``use_cam`` or
         ``use_cam_feats``; ``generator`` draws the head's train-mode
-        dropout masks. Returns pred_pose (B, 24, 3, 3), pred_pose_6d,
-        pred_shape, pred_cam, smpl_vertices, smpl_joints3d,
-        smpl_joints2d, pred_cam_t."""
+        dropout masks; ``trunk`` is a callable run in place of
+        ``backbone`` (the same contract; the predictor's folded trunk).
+        Returns pred_pose (B, 24, 3, 3), pred_pose_6d, pred_shape,
+        pred_cam, smpl_vertices, smpl_joints3d, smpl_joints2d,
+        pred_cam_t."""
         x = images.permute(0, 3, 1, 2)
         if self.cols:
             x = x[..., self.cols:-self.cols]
         with compute_dtype(self.dtype, images.device.type):
-            features = self.backbone(x)
+            features = (trunk or self.backbone)(x)
         if self.use_cam_feats:
             # vfov from fx, as the reference conditions the head
             # (released checkpoints were trained on this input).

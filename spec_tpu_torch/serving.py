@@ -31,6 +31,7 @@ Example:
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 from collections import OrderedDict, defaultdict
@@ -45,6 +46,7 @@ from spec_tpu_torch.core import bins
 from spec_tpu_torch.core import geometry as G
 from spec_tpu_torch.core import smpl as S
 from spec_tpu_torch.data.detection import bbox_to_center_scale
+from spec_tpu_torch.models.backbones.fused_resnet import inference_trunk
 from spec_tpu_torch.models.camcalib import CameraRegressorNetwork
 from spec_tpu_torch.models.hmr import HMR, default_img_res
 from spec_tpu_torch.ops.preprocess import (
@@ -118,12 +120,15 @@ class KeyframeSelector:
         return key
 
 
-def _cam_forward(camcalib, loss_type: str, batch_u8: torch.Tensor):
+def _cam_forward(camcalib, loss_type: str, batch_u8: torch.Tensor,
+                 trunk=None):
     """Stage 1 on one padded bucket of resized uint8 frames (B, H, W, 3):
-    normalize, CamCalib, bin decode -> (vfov, pitch, roll logits (B, 256)
-    each, angles (3, B) = (vfov, pitch, roll)). The predictor keeps the
-    angles; ``camcalib_demo`` also plots the logits."""
-    return _cam_outputs(camcalib(normalize_u8(batch_u8)), loss_type)
+    normalize, CamCalib (its backbone, or ``trunk`` in its place), bin
+    decode -> (vfov, pitch, roll logits (B, 256) each, angles (3, B) =
+    (vfov, pitch, roll)). The predictor keeps the angles;
+    ``camcalib_demo`` also plots the logits."""
+    return _cam_outputs(camcalib(normalize_u8(batch_u8), trunk=trunk),
+                        loss_type)
 
 
 def _cam_outputs(logits, loss_type: str):
@@ -141,29 +146,79 @@ def _normalize_nchw(tile_u8: torch.Tensor) -> torch.Tensor:
 
 
 def _spec_forward(spec, assets, crops, rotmat, K, bbox_scale, bbox_center,
-                  img_w, img_h) -> dict:
-    """Stage 2 on one padded chunk of normalized crops: HMR, SMPL
-    through K1 and the camera (``HMR.forward``'s outputs)."""
+                  img_w, img_h, trunk=None) -> dict:
+    """Stage 2 on one padded chunk of normalized crops: HMR (its
+    backbone, or ``trunk`` in its place), SMPL through K1 and the camera
+    (``HMR.forward``'s outputs)."""
     return spec(assets, crops, rotmat, K, bbox_scale, bbox_center, img_w,
-                img_h)
+                img_h, trunk=trunk)
 
 
-class CamStage(nn.Module):
-    """Stage 1 as a module: :func:`_cam_forward` over ``camcalib``. The
-    live predictor's stage-1 graph runs it, and ``export.py`` exports
-    this same module, so the two bodies cannot drift apart."""
+class _FoldedTrunk(nn.Module):
+    """A stage module's trunk for inference. Where the model's backbone
+    is a Bottleneck ResNet computing in float32, the stage holds its
+    folded form
+    (:func:`~spec_tpu_torch.models.backbones.fused_resnet.
+    inference_trunk`: BatchNorm folded into every conv, NCHW cuDNN
+    convolutions) as ``trunk`` and
+    runs it in the backbone's place whenever the model is in eval mode
+    and autograd is off; otherwise (training, gradients, other
+    backbones and dtypes, models made under inference mode) the
+    backbone runs.
+    :meth:`refresh` refolds after the model's weights change; the stage
+    graph calls it before every call. The model itself, its
+    ``state_dict`` and checkpoints, are untouched."""
+
+    def _init_trunk(self, name: str) -> None:
+        self._model_name = name
+        self.trunk = inference_trunk(getattr(self, name))
+
+    def _trunk_for(self, model: nn.Module):
+        if (self.trunk is None or model.training
+                or torch.is_grad_enabled()):
+            return None
+        return self.trunk.nchw
+
+    def refresh(self) -> None:
+        if self.trunk is not None:
+            self.trunk.refresh()
+
+    def exported(self) -> nn.Module:
+        """The module ``export.py`` traces: this stage, or, where it runs
+        a folded trunk, a shallow copy whose model holds no backbone (the
+        traced forward reads only the folded weights, refolded here from
+        the model's current ones, and a program stores every weight of
+        the module it traces)."""
+        if self.trunk is None:
+            return self
+        self.refresh()
+        model = copy.copy(getattr(self, self._model_name))
+        model._modules = dict(model._modules, backbone=None)
+        stage = copy.copy(self)
+        stage._modules = dict(self._modules, **{self._model_name: model})
+        return stage
+
+
+class CamStage(_FoldedTrunk):
+    """Stage 1 as a module: :func:`_cam_forward` over ``camcalib``, with
+    its folded trunk where it has one (:class:`_FoldedTrunk`). The live
+    predictor's stage-1 graph runs it, and ``export.py`` exports this
+    same module, so the two bodies cannot drift apart."""
 
     def __init__(self, camcalib: nn.Module, loss_type: str):
         super().__init__()
         self.camcalib = camcalib
         self.loss_type = loss_type
+        self._init_trunk('camcalib')
 
     def forward(self, batch_u8: torch.Tensor):
-        return _cam_forward(self.camcalib, self.loss_type, batch_u8)
+        return _cam_forward(self.camcalib, self.loss_type, batch_u8,
+                            trunk=self._trunk_for(self.camcalib))
 
 
-class SpecStage(nn.Module):
-    """Stage 2 as a module: :func:`_spec_forward` over ``spec``.
+class SpecStage(_FoldedTrunk):
+    """Stage 2 as a module: :func:`_spec_forward` over ``spec``, with its
+    folded trunk where it has one (:class:`_FoldedTrunk`).
 
     The SMPL tensors that the fused forward reads (K1's packed operands
     and the extra-joint regressor) are buffers of this module, so
@@ -180,6 +235,7 @@ class SpecStage(nn.Module):
                              'operands (core.smpl.with_packed_lbs)')
         self.spec = spec
         self._assets = assets
+        self._init_trunk('spec')
         packed = assets.packed_lbs
         self.register_buffer('lbs_dirs', packed.dirs)
         self.register_buffer('lbs_weights_t', packed.weights_t)
@@ -200,7 +256,8 @@ class SpecStage(nn.Module):
     def forward(self, crops, rotmat, K, bbox_scale, bbox_center, img_w,
                 img_h) -> dict:
         return _spec_forward(self.spec, self.assets(), crops, rotmat, K,
-                             bbox_scale, bbox_center, img_w, img_h)
+                             bbox_scale, bbox_center, img_w, img_h,
+                             trunk=self._trunk_for(self.spec))
 
 
 def build_camcalib(ckpt: str, backbone: str, device, dtype=None,

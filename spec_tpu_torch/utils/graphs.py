@@ -34,6 +34,11 @@ and device of each tensor argument, the key jit compiles on) as a
   replay the graph and clone the outputs out: the next replay of the
   same graph, or of another graph in the same memory pool, overwrites
   the static outputs.
+* **Refresh.** A stage function with a ``refresh()`` method (a stage
+  module whose buffers are derived from a model's weights, such as a
+  folded trunk) has it called on the host before every call, eager,
+  capture or replay: it updates those buffers in place when their
+  sources changed, so a graph captured earlier reads the new values.
 * **Launch counters.** The kernel wrappers and ``ops.attention`` count
   launches in Python, which a replay skips. The counts a capture made
   are taken back (the capture ran nothing) and added again on every
@@ -167,6 +172,9 @@ class StageGraph:
         return list(self._graphs)
 
     def __call__(self, *args, **fixed):
+        refresh = getattr(self.fn, 'refresh', None)
+        if refresh is not None:
+            refresh()
         out = self._call(*args, **fixed)
         if profiling.NAN_GUARD:
             profiling.check_finite(f'stage {self.name!r}', out)

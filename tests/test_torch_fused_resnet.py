@@ -100,6 +100,32 @@ def test_bf16_fused_trunk_matches_jax_fused_resnet(resnet50):
     assert np.abs(out - ref).max() <= 2.0 ** -5 * np.abs(ref).max()
 
 
+@pytest.mark.parametrize('dtype', ['fp32', 'bf16'])
+def test_conv_identity_trunk_matches_jax_fused_resnet(resnet50, dtype):
+    """``k3=False`` (the predictor's trunk: identity blocks as folded
+    convolutions, as the JAX trunk runs them under its all-zero policy)
+    against the JAX trunk, within the budgets of the two tests above;
+    no chain call."""
+    variables, port, x = resnet50
+    jdt, tdt = {'fp32': (jnp.float32, torch.float32),
+                'bf16': (jnp.bfloat16, torch.bfloat16)}[dtype]
+    ref = np.asarray(fused_resnet_apply(
+        variables, jnp.asarray(x), arch='resnet50', compute_dtype=jdt,
+        interpret=True).astype(jnp.float32))
+    fused = FusedResNet(port, dtype=tdt, k3=False)
+    assert not any('_w1' in k for k in fused.state_dict())
+    with torch.no_grad():
+        out = fused(torch.from_numpy(x))
+    assert out.dtype == tdt and tuple(out.shape) == ref.shape
+    out = out.float().numpy()
+    assert (ref > 0).mean() > 0.3
+    if dtype == 'fp32':
+        np.testing.assert_allclose(out, ref, atol=5e-4, rtol=1e-4)
+    else:
+        assert np.linalg.norm(out - ref) <= 2e-2 * np.linalg.norm(ref)
+        assert np.abs(out - ref).max() <= 2.0 ** -5 * np.abs(ref).max()
+
+
 def test_fused_trunk_matches_unfused_resnet(resnet50):
     """Folding BN changes only the rounding: same budget as above."""
     _, port, x = resnet50
@@ -112,7 +138,8 @@ def test_fused_trunk_matches_unfused_resnet(resnet50):
 
 
 def test_fused_trunk_is_a_snapshot(resnet50):
-    """The folded buffers do not follow later changes of the source."""
+    """The folded buffers do not follow later changes of the source
+    until refresh() (test_refresh_follows_the_source)."""
     _, port, x = resnet50
     fused = FusedResNet(port, dtype=torch.float32)
     with torch.no_grad():
@@ -124,6 +151,42 @@ def test_fused_trunk_is_a_snapshot(resnet50):
         finally:
             port.layer1[1].bn2.running_mean.copy_(saved)
     torch.testing.assert_close(before, after, rtol=0, atol=0)
+
+
+def test_refresh_follows_the_source(resnet50):
+    """refresh() folds a changed source again, into the same storage, and
+    does nothing while the source is unchanged."""
+    _, port, x = resnet50
+    fused = FusedResNet(port, dtype=torch.float32)
+    assert not fused.refresh()
+    ptrs = {k: v.data_ptr() for k, v in fused.state_dict().items()}
+    bn = port.layer3[2].bn2
+    saved = bn.running_mean.clone(), bn.weight.detach().clone()
+    try:
+        with torch.no_grad():
+            bn.running_mean.add_(0.5)
+            bn.weight.mul_(1.5)
+            assert fused.refresh() and not fused.refresh()
+            out = fused(torch.from_numpy(x[:1]))
+            ref = port(torch.from_numpy(x[:1]).permute(0, 3, 1, 2))
+    finally:
+        with torch.no_grad():
+            bn.running_mean.copy_(saved[0])
+            bn.weight.copy_(saved[1])
+    assert {k: v.data_ptr() for k, v in fused.state_dict().items()} == ptrs
+    np.testing.assert_allclose(out.numpy(),
+                               ref.permute(0, 2, 3, 1).numpy(), atol=5e-4,
+                               rtol=1e-4)
+
+
+def test_refresh_refuses_an_inference_mode_source():
+    """A trunk made under inference mode keeps no version counters: the
+    fold is a snapshot and refresh() says so instead of never folding."""
+    with torch.inference_mode():
+        port = get_backbone('resnet50').eval()
+    fused = FusedResNet(port, dtype=torch.float32, k3=False)
+    with pytest.raises(RuntimeError, match='inference_mode'):
+        fused.refresh()
 
 
 @pytest.mark.parametrize('arch', ['resnet18', 'resnet34'])
